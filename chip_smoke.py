@@ -13,17 +13,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. each kernel against its plain PyTorch version at the serve path's
    shapes: a 1,939,743 x 128 fp32 bank (ogbn-mag) with a fifth of its rows
    holding pending gradients, 32 ids (8 clients x batch 4) and 32 queries,
-   k = 8. Error, kernel time, plain time, the least time the card could
-   take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s, from this
-   run's data) and, where one PyTorch call computes the same function, that
-   call's time;
+   k = 8; the same bank quantized to int8 for the int8 lookup; an IVF
+   index of 64 buckets built by the port over each bank for the two
+   stage-2 kernels (k = 8 over fp32 rows, the int8 engine's kq = 32 over
+   int8 rows). Error, kernel time, plain time, the least time the card
+   could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
+   from this run's data) and, where one PyTorch call computes the same
+   function, that call's time;
 3. engine parity: the cuda backend against the dense reference on one op
    stream (duplicate ids, update, lazy_grad, lookup, flush, nn_search with
-   and without exclusion), for lazy_update True and False, every state leaf
-   compared, and a repeated cuda run bit-identical. The lazy_update=False
-   run is the path of the row gather kernel;
+   and without exclusion), for lazy_update True and False and for int8
+   storage (every leaf, scale and offset, versions), and IVF search on one
+   index, fp32 and int8; a repeated cuda run bit-identical, and two index
+   builds of one snapshot identical. The lazy_update=False run is the path
+   of the row gather kernel;
 4. serve: repro_torch.launch.serve at full width on the cuda backend, 8
-   clients, then a flush; every kernel counter is set to 0 just before and
+   clients, each run ending in a flush: exact search over fp32 rows, then
+   IVF search over fp32 and over int8 rows (``--kb-search ivf``, nlist 64,
+   nprobe 8); every kernel counter is set to 0 just before each run and
    read just after.
 
 It prints the kernels' record as one JSON line before the last, and as
@@ -43,8 +50,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import ann_index  # noqa: E402
+from repro_torch.core import knowledge_bank as kbm  # noqa: E402
 from repro_torch.core.kb_engine import KBEngine, make_kb_ops  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.nn_search_ivf import ivf_probes  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
@@ -53,7 +63,9 @@ K = 8
 LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, 700 W
 FP32_FLOP_PER_S = 67e12
-SERVE_ROUNDS = 8
+SERVE_ROUNDS = 32
+NLIST, NPROBE = 64, 8               # the launcher's IVF defaults
+KQ = 32                             # the int8 engine's 4k over-retrieval
 SLEEP_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 # Tolerances: the kernels compute the references' formulas step by step,
 # but sum squares and products in another order than PyTorch, so a value
@@ -64,13 +76,26 @@ ATOL_SCORES = 2e-4
 # nn ids must match exactly where the plain k-th and (k+1)-th scores are
 # further apart than this
 ID_GAP = 1e-4
+# int8 scale and offset (tests/test_kb_quantized.py:61-62); a code may
+# differ by one only where (v - offset) / scale lies this close to a
+# half-integer (the clip's sum of squares runs in another order)
+RTOL_Q = 1e-6
+HALF_TOL = 1e-4
 
 KERNELS = {
     "kb_fused_lookup": "src/repro/kernels/kb_fused_lookup.py:84",
     "kb_gather": "src/repro/kernels/kb_gather.py:47",
     "lazy_apply": "src/repro/kernels/lazy_apply.py:46",
     "nn_search": "src/repro/kernels/nn_search.py:99",
+    "kb_fused_lookup_q": "src/repro/kernels/kb_fused_lookup.py:209",
+    "ivf_stage2": "src/repro/kernels/nn_search_ivf.py:186",
+    "ivf_stage2_q": "src/repro/kernels/nn_search_ivf.py:281",
 }
+# the path each kernel's launches are read from (phase 3 or 4)
+KERNEL_PATH = {"kb_fused_lookup": "serve_exact", "kb_gather":
+               "engine_immediate", "lazy_apply": "serve_exact",
+               "nn_search": "serve_exact", "kb_fused_lookup_q": "serve_int8_ivf",
+               "ivf_stage2": "serve_fp32_ivf", "ivf_stage2_q": "serve_int8_ivf"}
 
 
 def log(msg: str) -> None:
@@ -136,6 +161,116 @@ def phase1_build():
                 log(f"  {name}: {line.strip()}")
 
 
+def check_codes(got, want, before, rows, label) -> int:
+    """int8 (codes, scale, offset) of a kernel against its plain version
+    after an op that re-quantized the pending ones of ``rows`` from
+    ``before`` (codes, scale, offset, grad_sum, grad_cnt, grad_sqnorm):
+    scale and offset within RTOL_Q, codes equal but where the plain
+    version's (v - offset) / scale lies within HALF_TOL of a half-integer,
+    where they may differ by one. Returns that count."""
+    (gc, gs, go), (wc, ws, wo) = got, want
+    require(torch.allclose(gs, ws, rtol=RTOL_Q, atol=RTOL_Q)
+            and torch.allclose(go, wo, rtol=RTOL_Q, atol=RTOL_Q),
+            f"{label}: scale or offset disagree")
+    c, s, o, gsum, cnt, sq = (t[rows] for t in before)
+    v = kbm.dequantize_rows(c, s, o) + kbm.pending_delta(
+        gsum, cnt, sq, lazy_lr=LAZY_LR, zmax=ZMAX)
+    x = ((v.double() - wo[rows].double()[:, None])
+         / ws[rows].double()[:, None])
+    near_half = ((x - torch.floor(x)) - 0.5).abs() < HALF_TOL
+    diff = (gc[rows].int() - wc[rows].int()).abs()
+    bad = (diff > 1) | ((diff == 1) & ~near_half)
+    require(not bool(bad.any()), f"{label}: {int(bad.sum())} codes disagree")
+    return int((diff == 1).sum())
+
+
+def check_topk(s_k, i_k, s_p, i_p, k: int, label: str):
+    """A top-k against its plain version computed with k + 1: the k ids
+    are the same set where the plain k-th and (k+1)-th scores are more
+    than ID_GAP apart, and a rank holds the same id where its plain score
+    is more than ID_GAP from both neighbours' (nearer scores may swap,
+    their sums being rounded in another order). Returns the counts
+    checked."""
+    s_p = s_p.double()
+    gap = s_p[:, :-1] - s_p[:, 1:]                    # (B, k)
+    sets = gap[:, k - 1] > ID_GAP
+    for b in torch.nonzero(sets).squeeze(1).tolist():
+        require(torch.equal(torch.sort(i_k[b]).values,
+                            torch.sort(i_p[b, :k]).values),
+                f"{label}: top-k set of query {b} differs")
+    inf = torch.full_like(gap[:, :1], float("inf"))
+    left = torch.cat([inf, gap[:, :k - 1]], 1)
+    ranks = (left > ID_GAP) & (gap[:, :k] > ID_GAP)
+    bad = ranks & (i_k != i_p[:, :k])
+    require(not bool(bad.any()),
+            f"{label}: {int(bad.sum())} decided ranks differ, e.g. query "
+            f"{torch.nonzero(bad)[:3].tolist()}")
+    return int(sets.sum()), int(ranks.sum())
+
+
+def ivf_bound(index, probes, k: int, row_bytes: int):
+    """Each bucket that the batch probes read once (its occupied rows at
+    ``row_bytes`` each, ids included), the queries, probes and occupancy
+    read once, the (B, k) outputs written once; 2 D operations per
+    (query, probed row)."""
+    occ = index.bucket_occ.long()
+    probed = torch.unique(probes.long())
+    B = probes.shape[0]
+    nbytes = (int(occ[probed].sum()) * row_bytes + B * DIM * 4
+              + probes.numel() * 4 + occ.numel() * 4 + B * k * 12)
+    flops = 2.0 * int(occ[probes.long()].sum()) * DIM
+    return bound(nbytes, flops)
+
+
+def phase2_ivf(table, codes, qscale, qoffset, ids):
+    """IVF stage 2 at the serve shapes: indexes of NLIST buckets built by
+    the port over the fp32 bank and over the int8 bank's dequantization;
+    the 32 rows the lookup returned as queries, probing NPROBE buckets."""
+    kernels = ops.LAUNCHERS
+    t0 = time.perf_counter()
+    index = ann_index.build_ivf_index(table, nlist=NLIST)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    snap = kbm.dequantize_rows(codes, qscale, qoffset)
+    index_q = ann_index.QuantizedIVFIndex(ann_index.build_ivf_index(
+        snap, nlist=NLIST))
+    del snap
+    log(f"phase 2: fp32 index built in {build_s:.2f} s: "
+        f"{index.bucket_stats()}; int8 index {index_q.bucket_stats()}")
+    queries = table[ids]
+    results = {}
+    for name, idx, args, k, row_bytes, plain in (
+            ("ivf_stage2", index, (index.packed_vecs,), K, 4 * DIM + 4,
+             ref.ivf_stage2_ref),
+            ("ivf_stage2_q", index_q, (index_q.packed_codes,
+                                       index_q.packed_scale,
+                                       index_q.packed_offset), KQ,
+             DIM + 12, ref.ivf_stage2_q_ref)):
+        probes = ivf_probes(queries, idx.centroids, NPROBE)
+        tail = (idx.packed_ids, idx.bucket_occ, queries, probes)
+        s_k, i_k = kernels[name](*args, *tail, k)
+        s_p, i_p = plain(*args, *tail, k + 1)
+        torch.cuda.synchronize()
+        err = max_err(s_k, s_p[:, :k])
+        require(err <= ATOL_SCORES, f"{name} scores disagree: {err}")
+        n_sets, n_ranks = check_topk(s_k, i_k, s_p, i_p, k, name)
+        log(f"phase 2: {name} ({BATCH} queries, k = {k}): top-k sets equal "
+            f"on the {n_sets} queries whose k-th and (k+1)-th plain scores "
+            f"are > {ID_GAP} apart; ids equal on the {n_ranks} ranks whose "
+            f"scores are > {ID_GAP} from both neighbours")
+        results[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: kernels[name](*args, *tail, k), 20),
+            plain_ms=time_ms(lambda: plain(*args, *tail, k), 3),
+            library_ms=None, bound=ivf_bound(idx, probes, k, row_bytes))
+        # the same call at the other kernel's k: how much of the time is
+        # the longer top-k list and how much the row format
+        other = KQ if k == K else K
+        log(f"phase 2: {name} at k = {other}: "
+            f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
+    return results
+
+
 def phase2_kernels():
     """Each kernel against its plain version at the serve path's shapes."""
     kernels = ops.LAUNCHERS
@@ -184,9 +319,9 @@ def phase2_kernels():
         a[uniq] = b[uniq]
         require(torch.equal(a, b), "kb_fused_lookup wrote an untouched row")
 
-    def restore(leaves):
+    def restore(leaves, source=base):
         def setup():
-            for a, b in zip(leaves, base):
+            for a, b in zip(leaves, source):
                 a[uniq] = b[uniq]
         return setup
 
@@ -201,6 +336,40 @@ def phase2_kernels():
         plain_ms=time_ms(lambda: ref.kb_fused_lookup_ref(
             *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
             restore(leaves_p)),
+        library_ms=None, bound=bound(nbytes, 0.0))
+    del leaves_k, leaves_p
+
+    # -- kb_fused_lookup_q: the bank quantized, the same pending caches ---
+    codes, qscale, qoffset = kbm.quantize_rows(table)
+    base_q = (codes, qscale, qoffset, grad_sum, grad_cnt, grad_sqnorm)
+    leaves_k = [t.clone() for t in base_q]
+    leaves_p = [t.clone() for t in base_q]
+    vals_k = kernels["kb_fused_lookup_q"](*leaves_k, ids, lazy_lr=LAZY_LR,
+                                          zmax=ZMAX)
+    vals_p = ref.kb_fused_lookup_q_ref(*leaves_p, ids, lazy_lr=LAZY_LR,
+                                       zmax=ZMAX)
+    torch.cuda.synchronize()
+    err = max([max_err(vals_k, vals_p)]
+              + [max_err(a[uniq], b[uniq])
+                 for a, b in zip(leaves_k[3:], leaves_p[3:])])
+    require(err <= ATOL_ROWS, f"kb_fused_lookup_q disagrees: {err}")
+    n_half = check_codes(leaves_k[:3], leaves_p[:3], base_q, uniq,
+                         "kb_fused_lookup_q")
+    for a, b in zip(leaves_k, base_q):    # untouched rows stay as they were
+        a[uniq] = b[uniq]
+        require(torch.equal(a, b), "kb_fused_lookup_q wrote an untouched row")
+    log(f"phase 2: kb_fused_lookup_q codes equal but {n_half} rounded the "
+        f"other way at a half-integer")
+    nbytes = (ids.numel() * 8 + n_uniq * (DIM + 24 + D4)
+              + n_uniq_pending * (D4 + DIM + 8) + BATCH * D4)
+    results["kb_fused_lookup_q"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kernels["kb_fused_lookup_q"](
+            *leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
+            restore(leaves_k, base_q)),
+        plain_ms=time_ms(lambda: ref.kb_fused_lookup_q_ref(
+            *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
+            restore(leaves_p, base_q)),
         library_ms=None, bound=bound(nbytes, 0.0))
     del leaves_k, leaves_p
 
@@ -245,7 +414,7 @@ def phase2_kernels():
             *leaves_p, lazy_lr=LAZY_LR, zmax=ZMAX), 10,
             restore_all(leaves_p)),
         library_ms=None, bound=bound(nbytes, 0.0))
-    del leaves_k, leaves_p, base, grad_sum
+    del leaves_k, leaves_p, base, base_q, grad_sum
 
     # -- nn_search ---------------------------------------------------------
     s_k, i_k = kernels["nn_search"](queries, table, K)
@@ -266,6 +435,9 @@ def phase2_kernels():
                          5),
         library_ms=None,
         bound=bound(nbytes, 2.0 * BATCH * N_ROWS * DIM))
+
+    results.update(phase2_ivf(table, codes, qscale, qoffset, ids))
+    del codes, qscale, qoffset
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
@@ -315,6 +487,142 @@ def _engine_stream(backend, lazy_update):
     return out, convert.kb_state_to_numpy(eng.state)
 
 
+def _sync(dst: KBEngine, src: KBEngine) -> None:
+    """Give ``dst`` copies of ``src``'s state, side-cars and masters."""
+    dst.state = kbm.KBState(*(t.clone() for t in src.state))
+    if src._qscale is not None:
+        dst._qscale, dst._qoffset = src._qscale.clone(), src._qoffset.clone()
+    dst._masters = type(src._masters)(src._masters)
+
+
+def _int8_before(eng: KBEngine):
+    st = eng.state
+    return tuple(t.clone() for t in (st.table, eng._qscale, eng._qoffset,
+                                     st.grad_sum, st.grad_cnt,
+                                     st.grad_sqnorm))
+
+
+def _int8_lockstep():
+    """The int8 op stream through a cuda and a dense engine in lockstep:
+    after each op every leaf, scale and offset and the versions are held
+    against the dense engine's, which the cuda engine then takes over, so
+    that a code rounded the other way at a half-integer does not carry
+    on. Returns the count of such codes and the cuda engine's launches."""
+    n, d = 100_003, DIM
+    rng = np.random.default_rng(11)
+    eng_c, eng_d = (KBEngine(n, d, backend=b, storage="int8",
+                             master_rows=64, device="cuda")
+                    for b in ("cuda", "dense"))
+    fill = rng.standard_normal((n, d), dtype=np.float32)
+    ids = np.array([3, 17, 42, 3, n - 1, 17, 3, 500, 9_999, 42, 77])
+    q = rng.standard_normal((5, d)).astype(np.float32)
+    q[0] = fill[500]
+    steps = [
+        ("update", lambda e: e.update(np.arange(n), fill)),
+        ("lazy_grad", lambda e: e.lazy_grad(ids, 0.1 * fill[:ids.size])),
+        ("lookup", lambda e: e.lookup(ids)),
+        ("update", lambda e: e.update(ids[:5], fill[5:10])),
+        ("lazy_grad", lambda e: e.lazy_grad(ids[2:], 0.5 * fill[:9])),
+        ("lookup", lambda e: e.lookup(ids[::-1].reshape(1, -1))),
+        ("lazy_grad", lambda e: e.lazy_grad(ids, 30.0 * fill[20:31])),
+        ("flush", lambda e: e.flush()),
+        ("nn", lambda e: e.nn_search(q, K)),
+        ("nn_excl", lambda e: e.nn_search(q, K, exclude_ids=np.stack(
+            [np.full(5, 500), np.full(5, -1)], 1))),
+    ]
+    n_half = 0
+    ops.reset_launch_counts()
+    for label, step in steps:
+        before = _int8_before(eng_d)
+        touched = torch.unique(eng_d.state.grad_cnt.nonzero()[:, 0])
+        out_c, out_d = step(eng_c), step(eng_d)
+        torch.cuda.synchronize()
+        if isinstance(out_d, tuple):
+            require(np.abs(out_c[0] - out_d[0]).max() <= ATOL_SCORES
+                    and np.array_equal(out_c[1], out_d[1]),
+                    f"int8 cuda vs dense {label}")
+        elif out_d is not None:
+            require(np.abs(out_c - out_d).max() <= ATOL_ROWS,
+                    f"int8 cuda vs dense {label}")
+        st_c, st_d = eng_c.state, eng_d.state
+        n_half += check_codes((st_c.table, eng_c._qscale, eng_c._qoffset),
+                              (st_d.table, eng_d._qscale, eng_d._qoffset),
+                              before, touched, f"int8 {label}")
+        others = torch.ones(n, dtype=torch.bool, device="cuda")
+        others[touched] = False
+        require(torch.equal(st_c.table[others], st_d.table[others])
+                and torch.equal(st_c.version, st_d.version)
+                and torch.equal(st_c.grad_cnt, st_d.grad_cnt)
+                and torch.equal(st_c.step, st_d.step)
+                and all(max_err(getattr(st_c, f), getattr(st_d, f)) <= 1e-6
+                        for f in ("grad_sum", "grad_sqnorm", "norm_ema")),
+                f"int8 cuda vs dense state after {label}")
+        _sync(eng_c, eng_d)
+    return n_half, ops.launch_counts()
+
+
+def _int8_stream_bits():
+    """One int8 cuda run, as its final leaves and outputs (the repeated
+    run must give the same bits)."""
+    n, d = 100_003, DIM
+    rng = np.random.default_rng(12)
+    eng = KBEngine(n, d, backend="cuda", storage="int8", device="cuda")
+    eng.update(np.arange(n), rng.standard_normal((n, d), dtype=np.float32))
+    ids = np.array([3, 17, 42, 3, n - 1, 17, 3, 500])
+    eng.lazy_grad(ids, rng.standard_normal((ids.size, d)))
+    out = [eng.lookup(ids)]
+    eng.lazy_grad(ids[::-1], rng.standard_normal((ids.size, d)))
+    eng.flush()
+    out += list(eng.nn_search(rng.standard_normal((4, d)), K))
+    return out + [t.cpu() for t in (*eng.state, eng._qscale, eng._qoffset)]
+
+
+def _ivf_parity(storage: str):
+    """cuda and dense engines serving IVF searches from ONE index that the
+    cuda engine built (on its build stream); and two builds of one
+    snapshot identical."""
+    n, d = 100_003, DIM
+    # scaled to scores of a few tens, as those of the N(0, 1) serve bank
+    bank = 0.2 * ann_index.clustered_bank(n, d, 256, noise=0.5, seed=13)
+    eng_c, eng_d = (KBEngine(n, d, backend=b, storage=storage,
+                             search_mode="ivf", ann_nlist=NLIST,
+                             ann_nprobe=NPROBE, device="cuda")
+                    for b in ("cuda", "dense"))
+    for e in (eng_c, eng_d):
+        e.update(np.arange(n), bank)
+    eng_c.rebuild_ann_index()
+    first = eng_c.ann_index
+    eng_c.rebuild_ann_index()
+    require(all(torch.equal(a, b) for a, b in
+                zip(first.tensors(), eng_c.ann_index.tensors())),
+            f"two {storage} index builds of one snapshot differ")
+    eng_d.set_ann_index(eng_c.ann_index)
+    rng = np.random.default_rng(14)
+    q = (bank[rng.integers(0, n, 8)]
+         + 0.05 * rng.standard_normal((8, d))).astype(np.float32)
+    excl = np.stack([np.full(8, 7), np.full(8, -1)], 1)
+    n_decided = 0
+    for kw in ({}, {"exclude_ids": excl}):
+        (s_c, i_c), (s_d, i_d) = (e.nn_search(q, K, **kw)
+                                  for e in (eng_c, eng_d))
+        require(np.abs(s_c - s_d).max() <= ATOL_SCORES,
+                f"{storage} ivf scores: cuda vs dense")
+        # the last rank is decided by the dense (k+1)-th score, where the
+        # dense top-(k+1) extends the top-k
+        s_d1, i_d1 = eng_d.nn_search(q, K + 1, **kw)
+        last = np.where((i_d1[:, :K] == i_d).all(1),
+                        s_d[:, -1] - s_d1[:, K], 0.0)
+        gap = np.concatenate([s_d[:, :-1] - s_d[:, 1:], last[:, None]], 1)
+        ok = (gap > ID_GAP) & (np.roll(gap, 1, 1) > ID_GAP)
+        ok[:, 0] = gap[:, 0] > ID_GAP
+        n_decided += int(ok.sum())
+        require(np.array_equal(i_c[ok], i_d[ok]),
+                f"{storage} ivf ids: cuda vs dense")
+    require(eng_c.search_stats["ivf"] == 2 and eng_c.search_stats["exact"]
+            == 0, f"{storage} ivf parity fell back: {eng_c.search_stats}")
+    return n_decided
+
+
 def phase3_engine():
     counts = {}
     for lazy_update in (True, False):
@@ -359,36 +667,87 @@ def phase3_engine():
             "the lazy_update=False engine never launched kb_gather")
     require(counts[True]["kb_fused_lookup"] > 0,
             "the engine never launched kb_fused_lookup")
+    n_half, counts["int8"] = _int8_lockstep()
+    require(counts["int8"]["kb_fused_lookup_q"] > 0,
+            "the int8 engine never launched kb_fused_lookup_q")
+    a, b = _int8_stream_bits(), _int8_stream_bits()
+    require(all(np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(a, b)), "repeated int8 cuda run differs")
+    log(f"phase 3: int8: cuda == dense op by op (every leaf, scale, offset, "
+        f"versions; {n_half} codes rounded the other way at a "
+        f"half-integer); repeated cuda run bit-identical; launches "
+        f"{counts['int8']}")
+    for storage in ("fp32", "int8"):
+        ops.reset_launch_counts()
+        n_decided = _ivf_parity(storage)
+        counts[f"ivf_{storage}"] = ops.launch_counts()
+        log(f"phase 3: {storage} ivf on one index: cuda == dense ({n_decided}"
+            f" decided ids exact); two builds of one snapshot identical; "
+            f"launches {counts[f'ivf_{storage}']}")
     return counts
 
 
-def phase4_serve():
+def serve_run(label: str, extra, rounds: int):
+    """One full-width serve run through the launcher, with every kernel
+    counter set to 0 just before it and read just after."""
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = serve.main(["--kb", "--kb-backend", "cuda", "--kb-entries",
                       str(N_ROWS), "--kb-dim", str(DIM), "--clients", "8",
-                      "--batch", "4", "--gen", str(SERVE_ROUNDS)])
+                      "--batch", "4", "--gen", str(rounds), *extra])
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    st = res["engine"].state
-    require(bool(torch.isfinite(st.table).all()), "served bank not finite")
+    eng = res["engine"]
+    st = eng.state
+    rows = (kbm.dequantize_rows(st.table, eng._qscale, eng._qoffset)
+            if eng.storage == "int8" else st.table)
+    require(bool(torch.isfinite(rows).all()), f"{label}: bank not finite")
     require(float(st.grad_cnt.abs().sum()) == 0.0
             and float(st.grad_sum.abs().sum()) == 0.0,
-            "caches not empty after the final flush")
-    require(res["coalescing_factor"] > 1.0, "no request was coalesced")
-    # the engine's warm-up launches each kernel once on a scratch bank; the
-    # rest are the clients' requests and the final flush
-    require(counts["kb_fused_lookup"] > 1 and counts["nn_search"] > 1
-            and counts["lazy_apply"] > 1,
-            f"the served path missed a kernel: {counts}")
-    log(f"phase 4: serve {res['req_per_s']} req/s over {SERVE_ROUNDS} rounds "
+            f"{label}: caches not empty after the final flush")
+    require(res["coalescing_factor"] > 1.0, f"{label}: nothing coalesced")
+    first = res["first_index_s"]
+    log(f"phase 4: {label}: {res['req_per_s']} req/s over {rounds} rounds "
         f"of 8 clients ({res['requests']} requests, {res['dispatches']} "
-        f"dispatches), {wall:.1f} s with fill and warm-up; peak device "
-        f"memory {peak} bytes; launches {counts} (one of each in the "
-        f"warm-up on a scratch bank)")
-    return counts
+        f"dispatches), nn ivf/exact={res['search_stats']['ivf']}/"
+        f"{res['search_stats']['exact']}, index rebuilds="
+        f"{res['index_rebuilds']}, first index built in "
+        f"{'n/a' if first is None else f'{first:.3f} s'}; {wall:.1f} s with "
+        f"fill and warm-up; peak device memory {peak} bytes; launches "
+        f"{counts} (one of each non-IVF kernel in the warm-up on a scratch "
+        f"bank)")
+    return res, counts
+
+
+def phase4_serve():
+    paths = {}
+    res, paths["serve_exact"] = serve_run("fp32 exact", [], SERVE_ROUNDS)
+    c = paths["serve_exact"]
+    # the warm-up launches each kernel once on a scratch bank; the rest
+    # are the clients' requests and the final flush
+    require(c["kb_fused_lookup"] > 1 and c["nn_search"] > 1
+            and c["lazy_apply"] > 1,
+            f"the exact serve path missed a kernel: {c}")
+    for storage, kern in (("fp32", "ivf_stage2"), ("int8", "ivf_stage2_q")):
+        label = f"serve_{storage}_ivf"
+        res, c = serve_run(f"{storage} ivf",
+                           ["--kb-storage", storage, "--kb-search", "ivf",
+                            "--nlist", str(NLIST), "--nprobe", str(NPROBE)],
+                           SERVE_ROUNDS)
+        paths[label] = c
+        # the index is never stale in this run (ann_stale_rows defaults to
+        # the bank's size), so every search, the clients' and the warm-up,
+        # must go through it: one exact fallback fails the run
+        require(res["search_stats"]["exact"] == 0
+                and res["search_stats"]["ivf"] > 0 and c[kern] > 1,
+                f"{storage} ivf serve did not search through the index: "
+                f"{res['search_stats']}, {c}")
+        if storage == "int8":
+            require(c["kb_fused_lookup_q"] > 1,
+                    f"the int8 serve path missed kb_fused_lookup_q: {c}")
+    return paths
 
 
 def main() -> int:
@@ -405,25 +764,26 @@ def main() -> int:
     engine_counts = phase3_engine()
     log(f"phase 3: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    serve_counts = phase4_serve()
+    paths = phase4_serve()
     log(f"phase 4: {time.perf_counter() - t:.1f} s")
+    paths["engine_lazy"] = engine_counts[True]
+    paths["engine_immediate"] = engine_counts[False]
+    paths["engine_int8"] = engine_counts["int8"]
+    paths["engine_fp32_ivf"] = engine_counts["ivf_fp32"]
+    paths["engine_int8_ivf"] = engine_counts["ivf_int8"]
 
     record = []
     for name, replaces in KERNELS.items():
         r = results[name]
-        # a kernel's launches are those of the path it serves: the serve
-        # run for three, the lazy_update=False engine for the gather
-        launches = (engine_counts[False][name] if name == "kb_gather"
-                    else serve_counts[name])
+        # a kernel's launches are those of the path it serves (KERNEL_PATH)
+        launches = paths[KERNEL_PATH[name]][name]
         require(launches > 0, f"{name} was never launched on its path")
         record.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
-            "launches_by_path": {"serve": serve_counts[name],
-                                 "engine_lazy": engine_counts[True][name],
-                                 "engine_immediate":
-                                     engine_counts[False][name]},
+            "path": KERNEL_PATH[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
@@ -431,7 +791,7 @@ def main() -> int:
         f"{k['name']} err={k['max_abs_err']:.3g} ms={k['ms']:.4g} "
         f"plain={k['plain_ms']:.4g} bound={k['bound_ms']:.4g} "
         f"({k['bound_by']}) library={k['library_ms']} "
-        f"launches={k['launches']}" for k in record))
+        f"launches={k['launches']} ({k['path']})" for k in record))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,17 @@
-"""Bank state carried between the JAX package and the port, as numpy.
+"""State and indexes carried between the JAX package and the port, as numpy.
 
-The dict is keyed by the JAX ``KBState`` field names
+A bank state is a dict keyed by the JAX ``KBState`` field names
 (``repro/core/knowledge_bank.py:43-50``): ``table``, ``version``,
 ``grad_sum``, ``grad_cnt``, ``grad_sqnorm``, ``norm_ema``, ``step``. The
-tests start both packages from one such dict; ``KBEngine.load_state``
-takes one too.
+``table`` of an int8 bank holds its int8 codes, and the dict then carries
+the engine's side-cars as ``scale`` and ``offset``, as the JAX engine's
+``export_rows`` names them. The tests start both packages from one such
+dict; ``KBEngine.load_state`` takes one too.
+
+``ivf_index_from`` turns an IVF index of either package (any object with
+the index's array attributes, read through ``np.asarray``, so a JAX
+``IVFIndex`` or ``QuantizedIVFIndex`` converts without this module
+importing JAX) into the port's, so that one index can be searched by both.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.ann_index import IVFIndex, QuantizedIVFIndex
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
 
@@ -23,13 +31,20 @@ _DTYPES = {"table": np.float32, "version": np.int32, "grad_sum": np.float32,
 
 def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
                         device="cuda") -> KBState:
-    """A ``KBState`` on ``device`` holding copies of ``leaves``."""
+    """A ``KBState`` on ``device`` holding copies of ``leaves``; an int8
+    ``table`` stays int8 (the codes of a quantized bank)."""
     device = resolve_device(device)
     missing = set(KBState._fields) - set(leaves)
     if missing:
         raise ValueError(f"state leaves missing: {sorted(missing)}")
+
+    def dtype(f):
+        if f == "table" and np.asarray(leaves[f]).dtype == np.int8:
+            return np.int8
+        return _DTYPES[f]
+
     return KBState(**{
-        f: torch.tensor(np.asarray(leaves[f], dtype=_DTYPES[f]),
+        f: torch.tensor(np.asarray(leaves[f], dtype=dtype(f)),
                         device=device)
         for f in KBState._fields})
 
@@ -38,3 +53,30 @@ def kb_state_to_numpy(state: KBState) -> Dict[str, np.ndarray]:
     """Host copies of every leaf of ``state``."""
     return {f: getattr(state, f).detach().to("cpu", copy=True).numpy()
             for f in KBState._fields}
+
+
+def ivf_index_from(src, device="cuda"):
+    """The port's ``IVFIndex`` (or ``QuantizedIVFIndex``, when ``src`` has
+    ``packed_codes``) holding copies of ``src``'s arrays on ``device``."""
+    device = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(getattr(src, name), dtype=dtype),
+                            device=device)
+
+    quantized = hasattr(src, "packed_codes")
+    rows = np.asarray(src.packed_ids).shape[0]
+    base = IVFIndex(
+        t("centroids", np.float32),
+        None if quantized else t("packed_vecs", np.float32),
+        t("packed_ids", np.int32), nlist=int(src.nlist),
+        bucket_cap=int(src.bucket_cap), n_rows=int(src.n_rows),
+        bucket_occ=t("bucket_occ", np.int32))
+    if rows != base.nlist * base.bucket_cap:
+        raise ValueError(f"{rows} packed slots != nlist {base.nlist} x cap "
+                         f"{base.bucket_cap}")
+    if not quantized:
+        return base
+    return QuantizedIVFIndex(base, quantized=(
+        t("packed_codes", np.int8), t("packed_scale", np.float32),
+        t("packed_offset", np.float32)))

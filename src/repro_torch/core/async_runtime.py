@@ -18,8 +18,12 @@ run clips every contribution against the pre-drain norm EMA and advances
 the EMA one step on the pooled mean, the paper's own model (§3.2 caches
 trainer gradients with no ordering guarantee).
 
-Not ported yet (ROADMAP Q1 items 4, 5 and 7): the ANN refresher, the maker
-runtime and the row export/import of the wire fleet.
+``start_ann_refresher`` registers the IVF index maker
+(``repro_torch.core.ann_index.IVFRefresher``), which takes its snapshots
+under the engine lock that the dispatcher holds for every op.
+
+Not ported yet (ROADMAP Q1 items 5 and 7): the maker runtime and the row
+export/import of the wire fleet.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.core.ann_index import IVFRefresher
 from repro_torch.core.kb_engine import KBEngine
 
 
@@ -106,14 +111,17 @@ class KnowledgeBankServer:
                  lazy_update: bool = True, coalesce: bool = True,
                  coalesce_window_s: float = 0.0, max_coalesce: int = 256,
                  reorder: bool = False, reorder_window: int = 8,
-                 search_mode: str = "exact", storage: str = "fp32",
-                 cache_rows: int = 0, resident_rows: Optional[int] = None,
-                 device="cuda"):
+                 search_mode: str = "exact", ann_nlist: int = 64,
+                 ann_nprobe: int = 8, ann_stale_rows: Optional[int] = None,
+                 storage: str = "fp32", cache_rows: int = 0,
+                 resident_rows: Optional[int] = None, device="cuda"):
         if engine is None:
             engine = KBEngine(num_entries, dim, backend=backend,
                               lazy_lr=lazy_lr, zmax=zmax,
                               lazy_update=lazy_update,
-                              search_mode=search_mode, storage=storage,
+                              search_mode=search_mode, ann_nlist=ann_nlist,
+                              ann_nprobe=ann_nprobe,
+                              ann_stale_rows=ann_stale_rows, storage=storage,
                               resident_rows=resident_rows, device=device)
         self.engine = engine
         self.coalesce = coalesce
@@ -143,6 +151,7 @@ class KnowledgeBankServer:
         self._cond = threading.Condition()
         self._closed = False
         self._dispatcher = None
+        self._ann_refresher = None
         if coalesce:
             self._dispatcher = threading.Thread(
                 target=self._dispatch_loop, daemon=True, name="kb-dispatch")
@@ -209,12 +218,51 @@ class KnowledgeBankServer:
         """Mean requests per device dispatch (1.0 = no coalescing won)."""
         return self.metrics["requests"] / max(self.metrics["dispatches"], 1)
 
+    @property
+    def mean_staleness(self) -> float:
+        return self.metrics["staleness_sum"] / max(
+            self.metrics["rows_served"], 1)
+
+    def stats(self) -> dict:
+        """Server metrics, the derived staleness and coalescing ratios, the
+        engine's search counters and storage accounting, in the JAX
+        server's keys (``maker_stats`` stays empty: no maker runtime
+        yet)."""
+        with self._mlock:
+            m = dict(self.metrics)
+        storage = self.engine.storage_stats()
+        m["tier_faults"] = storage["tier_faults"]
+        m["tier_spills"] = storage["tier_spills"]
+        return {"metrics": m,
+                "mean_staleness": float(self.mean_staleness),
+                "coalescing_factor": float(self.coalescing_factor),
+                "search_stats": dict(self.engine.search_stats),
+                "backend": self.engine.backend.name,
+                "num_entries": int(self.engine.num_entries),
+                "dim": int(self.engine.dim),
+                "storage": storage, "maker_stats": {}}
+
+    def start_ann_refresher(self, **kwargs) -> IVFRefresher:
+        """Start the IVF index maker: a daemon thread that rebuilds the
+        engine's index off the serving path, taking each snapshot under
+        the engine lock. Stopped by ``close``. Returns the thread (its
+        ``rebuilds`` counter and ``last_error`` are the hooks)."""
+        if self._ann_refresher is None:
+            self._ann_refresher = IVFRefresher(self.engine, lock=self._elock,
+                                               **kwargs)
+            self._ann_refresher.start()
+        return self._ann_refresher
+
     def close(self, timeout_s: float = 60.0) -> None:
-        """Stop the dispatcher after draining every already-queued request.
-        The moment close() begins, NEW submissions fail fast with
-        ``KBServerClosedError``. Raises if the drain does not finish within
-        ``timeout_s``; requests still stranded in the queue at that point
-        are failed with the same error, never left hanging."""
+        """Stop the index maker, then the dispatcher after draining every
+        already-queued request. The moment close() begins, NEW submissions
+        fail fast with ``KBServerClosedError``. Raises if the drain does not
+        finish within ``timeout_s``; requests still stranded in the queue
+        at that point are failed with the same error, never left
+        hanging."""
+        if self._ann_refresher is not None:
+            self._ann_refresher.stop()
+            self._ann_refresher = None
         with self._cond:
             self._closed = True
             self._cond.notify_all()

@@ -1,6 +1,7 @@
 """Pluggable Knowledge-Bank engine: one semantics, two execution backends.
 
-The port of ``repro.core.kb_engine`` for fp32 storage and exact search:
+The port of ``repro.core.kb_engine`` for fp32 and int8 storage, exact and
+IVF search, on one device:
 
 - ``KBBackend``   : the protocol, ops over the shared ``KBState`` of
                     ``repro_torch.core.knowledge_bank``.
@@ -8,13 +9,16 @@ The port of ``repro.core.kb_engine`` for fp32 storage and exact search:
                     truth), chosen only explicitly.
 - ``CudaBackend`` : the serving path and the default, in place of the JAX
                     package's ``PallasBackend`` (``kb_engine.py:189-251``).
-                    ``lookup`` runs the fused apply-and-clear kernel,
-                    ``lookup(apply_pending=False)`` the row gather,
-                    ``flush`` the lazy-apply kernel, ``nn_search`` the exact
-                    MIPS kernel. Writes (update / lazy_grad) are plain
-                    scatters with nothing to fuse and stay plain PyTorch.
-                    On CPU tensors each kernel wrapper runs its plain
-                    version, which is how the CPU tests drive this backend.
+                    ``lookup`` runs the fused apply-and-clear kernel
+                    (``lookup_q`` its int8 twin), ``lookup(apply_pending=
+                    False)`` the row gather, ``flush`` the lazy-apply
+                    kernel, ``nn_search`` the exact MIPS kernel, and
+                    ``ivf_search`` / ``ivf_search_q`` the IVF stage-2
+                    kernels. Writes (update / lazy_grad), the int8 flush,
+                    the int8 exact search and IVF stage 1 and re-rank are
+                    plain PyTorch, as they are jnp in the JAX package. On
+                    CPU tensors each kernel wrapper runs its plain version,
+                    which is how the CPU tests drive this backend.
 
 **State is updated in place.** Every backend op writes into the state's
 tensors and returns the same state; the engine keeps one state and never a
@@ -36,14 +40,31 @@ they see there. Two deliberate differences from the JAX engine:
   the card's path. The result is the same whenever the over-fetched pool
   holds k survivors.
 
-Options this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item that holds them: ``storage="int8"``, ``resident_rows``,
-``search_mode="ivf"`` and the sharded backend.
+- ``rebuild_ann_index`` takes its snapshot under the lock the caller
+  passes (the server's engine lock, which its dispatcher holds per op):
+  the JAX engine reads an immutable state from the refresher's thread,
+  while here the state is updated in place and a snapshot taken while an
+  op runs could tear. On the card the build then runs on a stream of its
+  own, and the index is published only once that stream's work is done.
 
-The engine is NOT thread-safe: the server layer serialises access.
+Options this slice does not port raise ``NotImplementedError`` naming the
+ROADMAP item that holds them: ``resident_rows`` and the sharded backend.
+
+int8 storage keeps ``state.table`` as (N, D) int8 codes with the (N,) fp32
+side-cars ``_qscale`` / ``_qoffset`` beside the state, as the JAX engine
+does; lookup, update and flush go through the ``_q`` ops, and an fp32
+master copy of up to ``master_rows`` recently pushed rows re-ranks the
+winners of a search.
+
+The engine is NOT thread-safe: the server layer serialises access. The
+sanctioned exception is the ``IVFRefresher`` thread, which reads the write
+counters, snapshots the state under the server's lock and publishes a new
+index (``set_ann_index``: index first, clock second).
 """
 from __future__ import annotations
 
+import contextlib
+from collections import OrderedDict
 from typing import Callable, NamedTuple, Optional, Protocol, Tuple
 
 import numpy as np
@@ -51,8 +72,10 @@ import torch
 
 from repro_torch.convert import kb_state_from_numpy
 from repro_torch.core import knowledge_bank as kbm
+from repro_torch.core.ann_index import QuantizedIVFIndex, build_ivf_index
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
+from repro_torch.kernels import nn_search_ivf as ivf
 from repro_torch.kernels import ops
 
 
@@ -76,6 +99,17 @@ class KBBackend(Protocol):
     def nn_search(self, state: KBState, queries, k: int, *,
                   exclude_ids=None) -> Tuple[torch.Tensor, torch.Tensor]: ...
 
+    def lookup_q(self, state: KBState, qscale, qoffset, ids, *,
+                 lazy_lr: float, zmax: float
+                 ) -> Tuple[torch.Tensor, KBState]: ...
+
+    def ivf_search(self, state: KBState, index, queries, k: int,
+                   nprobe: int) -> Tuple[torch.Tensor, torch.Tensor]: ...
+
+    def ivf_search_q(self, state: KBState, qscale, qoffset, index, queries,
+                     k: int, nprobe: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]: ...
+
 
 class DenseBackend:
     """The plain PyTorch reference ops: semantics ground truth."""
@@ -97,6 +131,22 @@ class DenseBackend:
 
     def nn_search(self, state, queries, k, *, exclude_ids=None):
         return kbm.kb_nn_search(state, queries, k, exclude_ids=exclude_ids)
+
+    def lookup_q(self, state, qscale, qoffset, ids, *, lazy_lr, zmax):
+        return kbm.kb_lookup_q(state, qscale, qoffset, ids,
+                               lazy_lr=lazy_lr, zmax=zmax)
+
+    def ivf_search(self, state, index, queries, k, nprobe):
+        return ivf.ivf_search_ref(state.table, index.centroids,
+                                  index.packed_vecs, index.packed_ids,
+                                  queries, k, nprobe)
+
+    def ivf_search_q(self, state, qscale, qoffset, index, queries, k,
+                     nprobe):
+        return ivf.ivf_search_quantized_ref(
+            state.table, qscale, qoffset, index.centroids,
+            index.packed_codes, index.packed_scale, index.packed_offset,
+            index.packed_ids, queries, k, nprobe)
 
 
 class CudaBackend:
@@ -142,6 +192,32 @@ class CudaBackend:
         return ops.overfetch_exclude_topk(
             lambda kk: ops.nn_search(queries, state.table, kk),
             state.table.shape[0], k, exclude_ids)
+
+    def lookup_q(self, state, qscale, qoffset, ids, *, lazy_lr, zmax):
+        flat = ids.reshape(-1).long()
+        rows = flat[(flat >= 0) & (flat < state.table.shape[0])]
+        state.version[rows] = (state.version[rows]
+                               + (state.grad_cnt[rows] > 0).to(torch.int32))
+        vals = ops.kb_fused_lookup_q(state.table, qscale, qoffset,
+                                     state.grad_sum, state.grad_cnt,
+                                     state.grad_sqnorm, flat,
+                                     lazy_lr=lazy_lr, zmax=zmax)
+        return vals.reshape(*ids.shape, -1), state
+
+    def ivf_search(self, state, index, queries, k, nprobe):
+        probes = ivf.ivf_probes(queries, index.centroids, nprobe)
+        _, ids = ops.ivf_stage2(index.packed_vecs, index.packed_ids,
+                                index.bucket_occ, queries, probes, k)
+        return ivf._rerank_live(state.table, queries, ids)
+
+    def ivf_search_q(self, state, qscale, qoffset, index, queries, k,
+                     nprobe):
+        probes = ivf.ivf_probes(queries, index.centroids, nprobe)
+        _, ids = ops.ivf_stage2_q(index.packed_codes, index.packed_scale,
+                                  index.packed_offset, index.packed_ids,
+                                  index.bucket_occ, queries, probes, k)
+        return ivf._rerank_live_q(state.table, qscale, qoffset, queries,
+                                  ids)
 
 
 def make_backend(name: str) -> KBBackend:
@@ -209,19 +285,23 @@ def _pad_repeat(a: np.ndarray, pad: int) -> np.ndarray:
 class KBEngine:
     """Stateful, host-facing shell around a ``KBBackend``: numpy in, numpy
     out, state on ``device`` updated in place. Single-threaded by
-    contract."""
+    contract, but for the ``IVFRefresher`` (see the module docstring)."""
 
     def __init__(self, num_entries: int, dim: int, *, backend="cuda",
                  lazy_lr: float = 0.1, zmax: float = 3.0,
                  lazy_update: bool = True, search_mode: str = "exact",
-                 storage: str = "fp32",
+                 ann_nlist: int = 64, ann_nprobe: int = 8,
+                 ann_stale_rows: Optional[int] = None,
+                 storage: str = "fp32", master_rows: int = 1024,
                  resident_rows: Optional[int] = None, device="cuda"):
-        if storage == "int8":
-            raise NotImplementedError(
-                "storage='int8' is not ported yet (ROADMAP Q2 item 6, the "
-                "int8 twins)")
-        if storage != "fp32":
-            raise ValueError(f"unknown storage {storage!r} (want fp32)")
+        if storage not in ("fp32", "int8"):
+            raise ValueError(f"unknown storage {storage!r} "
+                             "(want fp32 | int8)")
+        if storage == "int8" and not lazy_update:
+            raise ValueError(
+                "storage='int8' requires lazy_update=True: the immediate-"
+                "mode ablation scatter-adds into the table, which is not "
+                "defined over int8 codes")
         if resident_rows is not None:
             raise NotImplementedError(
                 "tiered residency (resident_rows) is not ported yet "
@@ -234,11 +314,40 @@ class KBEngine:
         # one zmax clips both at entry (lazy_grad, against the norm EMA)
         # and at apply time, as the JAX engine's default entry_zmax does
         self.lazy_lr, self.zmax, self.lazy_update = lazy_lr, zmax, lazy_update
-        self.search_mode = search_mode
         self.storage = storage
+        self._quantized = storage == "int8"
+        self.master_rows = master_rows
+        # -- ANN (IVF) serving state; see repro_torch.core.ann_index ------
+        self.search_mode = search_mode
+        self.ann_nlist, self.ann_nprobe = ann_nlist, ann_nprobe
+        # exact fallback once this many rows were written since the build;
+        # default: the whole bank rewritten
+        self.ann_stale_rows = (num_entries if ann_stale_rows is None
+                               else ann_stale_rows)
+        self.ann_index = None               # published by the refresher
+        self.total_write_rows = 0           # monotonic written-row counter
+        # one shard: the JAX engine's per-shard clocks with a single entry
+        self.shard_write_rows = np.zeros((1,), np.int64)
+        self._ann_shard_built_at = np.zeros((1,), np.int64)
+        self._build_stream = None
         self.search_stats = {"exact": 0, "ivf": 0}
         self.dispatches = 0         # device calls issued (bench metric)
-        self.state = kbm.kb_create(num_entries, dim, device=self.device)
+        if self._quantized:
+            # zero rows code as (codes 0, scale 1, offset 0): dequant is
+            # exactly 0.0, as the fp32 zero init
+            st = kbm.kb_create(num_entries, dim, device=self.device)
+            self.state = st._replace(table=torch.zeros(
+                (num_entries, dim), dtype=torch.int8, device=self.device))
+            self._qscale = torch.ones((num_entries,), dtype=torch.float32,
+                                      device=self.device)
+            self._qoffset = torch.zeros((num_entries,), dtype=torch.float32,
+                                        device=self.device)
+        else:
+            self.state = kbm.kb_create(num_entries, dim, device=self.device)
+            self._qscale = self._qoffset = None
+        # fp32 master set: exact rows as pushed by update, for the final
+        # re-rank in int8 mode; invalidated per id by lazy_grad
+        self._masters: "OrderedDict[int, np.ndarray]" = OrderedDict()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -253,16 +362,23 @@ class KBEngine:
         flat = ids.reshape(-1).astype(np.int64)
         if flat.size == 0:
             return np.zeros((*ids.shape, self.dim), np.float32)
-        padded = _pad_repeat(flat, _bucket(flat.size) - flat.size)
-        vals, self.state = self.backend.lookup(
-            self.state, self._tensor(padded), lazy_lr=self.lazy_lr,
-            zmax=self.zmax, apply_pending=self.lazy_update)
+        padded = self._tensor(_pad_repeat(flat, _bucket(flat.size)
+                                          - flat.size))
+        if self._quantized:
+            vals, self.state = self.backend.lookup_q(
+                self.state, self._qscale, self._qoffset, padded,
+                lazy_lr=self.lazy_lr, zmax=self.zmax)
+        else:
+            vals, self.state = self.backend.lookup(
+                self.state, padded, lazy_lr=self.lazy_lr, zmax=self.zmax,
+                apply_pending=self.lazy_update)
         self.dispatches += 1
         return vals[:flat.size].cpu().numpy().reshape(*ids.shape, -1)
 
     def update(self, ids, values) -> None:
         """Direct write (maker push); duplicate ids resolve last-writer-wins
-        (host-side dedupe: a device scatter's order is unspecified)."""
+        (host-side dedupe: a device scatter's order is unspecified). Each
+        distinct row is charged once to the ANN staleness clock."""
         ids = np.asarray(ids).reshape(-1).astype(np.int64)
         if ids.size == 0:
             return
@@ -270,20 +386,48 @@ class KBEngine:
         _, keep = np.unique(ids[::-1], return_index=True)
         keep = ids.size - 1 - keep          # last occurrence of each id
         ids, values = ids[keep], values[keep]
+        if self._quantized and self.master_rows > 0:
+            self._remember_masters(ids, values)
         pad = _bucket(ids.size) - ids.size
-        self.state = self.backend.update(
-            self.state, self._tensor(_pad_repeat(ids, pad)),
-            self._tensor(_pad_repeat(values, pad)))
+        ids_t = self._tensor(_pad_repeat(ids, pad))
+        values_t = self._tensor(_pad_repeat(values, pad))
+        if self._quantized:
+            kbm.kb_update_q(self.state, self._qscale, self._qoffset, ids_t,
+                            values_t)
+        else:
+            self.state = self.backend.update(self.state, ids_t, values_t)
         self.dispatches += 1
+        self._count_writes(ids)
+
+    def _remember_masters(self, ids: np.ndarray, values: np.ndarray) -> None:
+        """Keep the pre-quantization rows of the last ``master_rows``
+        distinct ids written, oldest evicted first, as the JAX engine's
+        insert-and-evict loop does (a write of at least ``master_rows`` rows
+        leaves exactly its last ``master_rows``)."""
+        if ids.size >= self.master_rows:
+            self._masters.clear()
+            ids, values = ids[-self.master_rows:], values[-self.master_rows:]
+        for g, v in zip(ids.tolist(), values):
+            self._masters[g] = v.copy()
+            self._masters.move_to_end(g)
+            if len(self._masters) > self.master_rows:
+                self._masters.popitem(last=False)
 
     def lazy_grad(self, ids, grads) -> None:
         """Cache gradients (or apply them at once when lazy_update=False).
         Padded entries carry a 0 mask and are inert; cache adds commute, so
-        a coalesced multi-client batch equals any serial interleaving."""
+        a coalesced multi-client batch equals any serial interleaving. The
+        touched rows are charged to the ANN staleness clock: the cached
+        gradient will reach the table."""
         ids = np.asarray(ids).reshape(-1).astype(np.int64)
         if ids.size == 0:
             return
         grads = np.asarray(grads, np.float32).reshape(ids.size, -1)
+        if self._quantized and self._masters:
+            # these rows' live values leave their masters once the cached
+            # gradient applies: drop the stale exact copies
+            for g in np.unique(ids).tolist():
+                self._masters.pop(g, None)
         n = ids.size
         pad = _bucket(n) - n
         ids_t = self._tensor(_pad_repeat(ids, pad))
@@ -292,6 +436,8 @@ class KBEngine:
         mask_t = self._tensor(np.concatenate([np.ones(n, np.float32),
                                               np.zeros(pad, np.float32)]))
         if self.lazy_update:
+            # lazy_grad touches only the fp32 caches, never the table, so
+            # the fp32 op serves both storage modes
             self.state = self.backend.lazy_grad(
                 self.state, ids_t, grads_t, zmax=self.zmax, mask=mask_t)
         else:
@@ -302,20 +448,34 @@ class KBEngine:
                 -self.lazy_lr * grads_t * mask_t[:, None],
                 kbm.occurrence_rounds(ids_t))
         self.dispatches += 1
+        self._count_writes(ids)
+
+    def _count_writes(self, ids: np.ndarray) -> None:
+        """Charge written rows to the ANN staleness clock (one shard)."""
+        self.total_write_rows += ids.size
+        self.shard_write_rows[0] += ids.size
 
     def flush(self) -> None:
         """Expiration path: apply every pending cached gradient now."""
-        self.state = self.backend.flush(self.state, lazy_lr=self.lazy_lr,
-                                        zmax=self.zmax)
+        if self._quantized:
+            kbm.kb_flush_q(self.state, self._qscale, self._qoffset,
+                           lazy_lr=self.lazy_lr, zmax=self.zmax)
+        else:
+            self.state = self.backend.flush(self.state, lazy_lr=self.lazy_lr,
+                                            zmax=self.zmax)
         self.dispatches += 1
 
     def nn_search(self, queries, k: int, *, mode: Optional[str] = None,
                   exclude_ids=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k MIPS over the bank. ``exclude_ids`` (B, E), -1 =
-        no-op, bans rows per query: the engine over-fetches ``k + E`` and
-        masks host-side, as the JAX engine does. Deterministic for a fixed
-        state, so the server may merge same-(k, mode, E) requests into one
-        call and slice the results."""
+        """Top-k MIPS over the bank. ``mode`` overrides ``search_mode`` per
+        request; ``"ivf"`` falls back to the exact path when the index is
+        absent or past ``ann_stale_rows`` (the winners are re-scored
+        against the live table, so the scores returned are exact for the
+        ids returned). ``exclude_ids`` (B, E), -1 = no-op, bans rows per
+        query: the engine over-fetches ``k + E`` through whichever path is
+        live and masks host-side, as the JAX engine does. Deterministic for
+        a fixed state and index, so the server may merge same-(k, mode, E)
+        requests into one call and slice the results."""
         queries = np.asarray(queries, np.float32)
         B = queries.shape[0]
         if exclude_ids is not None:
@@ -329,18 +489,125 @@ class KBEngine:
             order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
             return (np.take_along_axis(scores, order, 1),
                     np.take_along_axis(ids, order, 1))
-        _check_search_mode(self.search_mode if mode is None else mode)
-        q = np.concatenate([queries, np.zeros((_bucket(B) - B, self.dim),
-                                              np.float32)])
-        scores, ids = self.backend.nn_search(self.state, self._tensor(q), k)
-        self.search_stats["exact"] += 1
+        mode = self.search_mode if mode is None else mode
+        _check_search_mode(mode)
+        q = self._tensor(np.concatenate(
+            [queries, np.zeros((_bucket(B) - B, self.dim), np.float32)]))
+        idx = self.ann_index
+        if (mode == "ivf" and idx is not None
+                and self.ann_staleness_rows <= self.ann_stale_rows):
+            nprobe = min(self.ann_nprobe, idx.nlist)
+            if self._quantized:
+                # over-retrieve 4x so the fp32 master re-rank can recover
+                # near-ties the int8 shortlist mis-ordered
+                pool = int(idx.bucket_cap) * nprobe
+                kq = max(k, min(4 * k, pool))
+                scores, ids = self.backend.ivf_search_q(
+                    self.state, self._qscale, self._qoffset, idx, q, kq,
+                    nprobe)
+            else:
+                scores, ids = self.backend.ivf_search(self.state, idx, q, k,
+                                                      nprobe)
+            self.search_stats["ivf"] += 1
+        else:
+            if self._quantized:
+                scores, ids = kbm.kb_nn_search_q(
+                    self.state, self._qscale, self._qoffset, q, k)
+            else:
+                scores, ids = self.backend.nn_search(self.state, q, k)
+            self.search_stats["exact"] += 1
         self.dispatches += 1
-        return scores[:B].cpu().numpy(), ids[:B].cpu().numpy()
+        scores, ids = scores[:B].cpu().numpy(), ids[:B].cpu().numpy()
+        if self._quantized and self._masters:
+            scores, ids = self._master_rerank(queries, scores, ids)
+        return scores[:, :k], ids[:, :k]
+
+    def _master_rerank(self, queries: np.ndarray, scores: np.ndarray,
+                       ids: np.ndarray):
+        """int8 final-score repair: winners that still have an fp32 master
+        (pushed by update, not touched by lazy_grad since) are re-scored
+        against it, then each row re-sorts."""
+        scores, ids = scores.copy(), ids.copy()
+        for b in range(scores.shape[0]):
+            hit = False
+            for j in range(scores.shape[1]):
+                m = self._masters.get(int(ids[b, j]))
+                if m is not None:
+                    scores[b, j] = float(queries[b] @ m)
+                    hit = True
+            if hit:
+                order = np.argsort(-scores[b], kind="stable")
+                scores[b] = scores[b][order]
+                ids[b] = ids[b][order]
+        return scores, ids
+
+    # -- ANN index lifecycle (built off the serving path; see ann_index) ---
+
+    @property
+    def ann_staleness_rows(self) -> float:
+        """Rows written since the current index was built (inf if none)."""
+        if self.ann_index is None:
+            return float("inf")
+        return int((self.shard_write_rows - self._ann_shard_built_at).max())
+
+    def set_ann_index(self, index, *, built_at_shard_writes=None) -> None:
+        """Publish a built index. Index first, clock second: a reader that
+        pairs the OLD index with the NEW clock would understate staleness;
+        this order can only overstate it (a spurious, safe exact
+        fallback). ``built_at_shard_writes``: the write clock when the
+        build took its snapshot; without it, the index counts as fresh
+        now."""
+        if built_at_shard_writes is None:
+            built_at_shard_writes = self.shard_write_rows.copy()
+        self.ann_index = index
+        self._ann_shard_built_at = np.asarray(built_at_shard_writes,
+                                              np.int64)
+
+    def rebuild_ann_index(self, *, iters: int = 8, lock=None) -> int:
+        """Snapshot -> cluster -> pack -> publish; safe to call from a
+        background thread. The snapshot (a copy of the table, or of its
+        dequantization for int8) and the write clock are taken under
+        ``lock``, which the server's dispatcher holds for every op, so no
+        in-place op is halfway through. On the card the snapshot is queued
+        on the serving stream, the build runs on a stream of its own after
+        it, and the index is published only when that stream's work is
+        done. An int8 bank clusters the dequantized snapshot and packs
+        int8 rows (``QuantizedIVFIndex``). Returns 1, the number of
+        (sub-)indexes built: there is one shard."""
+        with lock if lock is not None else contextlib.nullcontext():
+            built_at = self.shard_write_rows.copy()
+            if self._quantized:
+                snap = kbm.dequantize_rows(self.state.table, self._qscale,
+                                           self._qoffset)
+            else:
+                snap = self.state.table.clone()
+            if self.device.type == "cuda":
+                serving = torch.cuda.current_stream(self.device)
+                ready = serving.record_event()
+        wrap = QuantizedIVFIndex if self._quantized else (lambda ix: ix)
+        if self.device.type == "cuda":
+            if self._build_stream is None:
+                self._build_stream = torch.cuda.Stream(self.device)
+            stream = self._build_stream
+            stream.wait_event(ready)
+            with torch.cuda.stream(stream):
+                index = wrap(build_ivf_index(snap, nlist=self.ann_nlist,
+                                             iters=iters))
+            stream.synchronize()
+            for t in index.tensors():
+                t.record_stream(serving)   # freed only after serving's use
+        else:
+            index = wrap(build_ivf_index(snap, nlist=self.ann_nlist,
+                                         iters=iters))
+        self.set_ann_index(index, built_at_shard_writes=built_at)
+        return 1
 
     def warmup(self, max_batch: int = 256) -> None:
         """Run every op once at the ``max_batch`` bucket on a small scratch
         state, so that the first request finds each kernel built and
-        loaded. The live state is never touched."""
+        loaded. The live state is never touched. (The int8 flush and exact
+        search are plain PyTorch; the IVF kernels are built at the first
+        search through an index.)"""
         bk, rows = self.backend, min(self.num_entries, 64)
         scratch = kbm.kb_create(rows, self.dim, device=self.device)
         b = _bucket(max_batch)
@@ -348,6 +615,14 @@ class KBEngine:
         ones = torch.ones((b, self.dim), device=self.device)
         bk.lazy_grad(scratch, ids, ones, zmax=self.zmax,
                      mask=torch.ones((b,), device=self.device))
+        if self._quantized:
+            qs = torch.ones((rows,), device=self.device)
+            qo = torch.zeros((rows,), device=self.device)
+            scratch = scratch._replace(table=torch.zeros(
+                (rows, self.dim), dtype=torch.int8, device=self.device))
+            bk.lookup_q(scratch, qs, qo, ids, lazy_lr=self.lazy_lr,
+                        zmax=self.zmax)
+            return
         bk.lookup(scratch, ids, lazy_lr=self.lazy_lr, zmax=self.zmax,
                   apply_pending=self.lazy_update)
         bk.nn_search(scratch, ones[:8], min(8, rows))
@@ -357,16 +632,30 @@ class KBEngine:
 
     def load_state(self, leaves: dict) -> None:
         """Replace the state with copies of numpy ``leaves`` keyed by the
-        ``KBState`` field names (``repro_torch.convert``)."""
+        ``KBState`` field names (``repro_torch.convert``); an int8 engine
+        takes int8 codes as ``table`` and its side-cars as ``scale`` and
+        ``offset``."""
         state = kb_state_from_numpy(leaves, self.device)
-        if tuple(state.table.shape) != (self.num_entries, self.dim):
-            raise ValueError(f"state table {tuple(state.table.shape)} does "
-                             f"not match the engine's "
-                             f"({self.num_entries}, {self.dim})")
+        want = torch.int8 if self._quantized else torch.float32
+        if (tuple(state.table.shape) != (self.num_entries, self.dim)
+                or state.table.dtype != want):
+            raise ValueError(f"state table {tuple(state.table.shape)} "
+                             f"{state.table.dtype} does not match the "
+                             f"engine's ({self.num_entries}, {self.dim}) "
+                             f"{want}")
+        if self._quantized:
+            self._qscale, self._qoffset = (
+                torch.tensor(np.asarray(leaves[f], np.float32),
+                             device=self.device)
+                for f in ("scale", "offset"))
         self.state = state
 
     def table_snapshot(self) -> np.ndarray:
-        """Host copy of the live table (pending gradients not applied)."""
+        """Host copy of the live table, fp32 (an int8 bank dequantized);
+        pending gradients not applied."""
+        if self._quantized:
+            return kbm.dequantize_rows(self.state.table, self._qscale,
+                                       self._qoffset).cpu().numpy()
         return self.state.table.to("cpu", copy=True).numpy()
 
     def version_snapshot(self) -> np.ndarray:
@@ -374,20 +663,20 @@ class KBEngine:
         return self.state.version.to("cpu", copy=True).numpy()
 
     def storage_stats(self) -> dict:
-        """Memory-residency accounting, in the JAX engine's keys: every row
-        is a resident fp32 row here."""
-        bpr = self.dim * self.state.table.element_size()
+        """Memory-residency accounting, in the JAX engine's keys: a row
+        costs D * 4 bytes in fp32 and D codes plus 8 bytes of scale and
+        offset in int8; every row is resident, plus the fp32 masters."""
+        bpr = (self.dim * self.state.table.element_size()
+               + (8 if self._quantized else 0))
+        master_bytes = sum(m.nbytes for m in self._masters.values())
         return {"mode": self.storage, "bytes_per_row": bpr,
                 "resident_rows": self.num_entries,
                 "total_rows": self.num_entries, "cold_rows": 0,
-                "bytes_resident": bpr * self.num_entries, "master_rows": 0,
+                "bytes_resident": bpr * self.num_entries + master_bytes,
+                "master_rows": len(self._masters),
                 "tier_faults": 0, "tier_spills": 0}
 
 
 def _check_search_mode(mode: str) -> None:
-    if mode == "ivf":
-        raise NotImplementedError(
-            "search_mode='ivf' is not ported yet (ROADMAP Q1 item 4, Q2 "
-            "item 5)")
-    if mode != "exact":
-        raise ValueError(f"unknown search mode {mode!r} (want exact)")
+    if mode not in ("exact", "ivf"):
+        raise ValueError(f"unknown search mode {mode!r} (want exact | ivf)")

@@ -1,8 +1,9 @@
 """Knowledge Bank (paper §3.2): the reference semantics of the port.
 
-The fp32 half of ``repro.core.knowledge_bank``: the shared ``KBState``
-and the ops every backend of ``repro_torch.core.kb_engine`` must agree
-with. The formulas are the JAX package's, term for term.
+The fp32 ops of ``repro.core.knowledge_bank`` and their int8 twins: the
+shared ``KBState`` and the ops every backend of
+``repro_torch.core.kb_engine`` must agree with. The formulas are the JAX
+package's, term for term.
 
 One difference of form: the JAX functions return new arrays, while these
 **update the given state's tensors in place** and return the same state
@@ -246,6 +247,17 @@ def topk_lowest_id(scores: torch.Tensor, k: int):
     return s[..., :k], i[..., :k]
 
 
+def _ban(scores: torch.Tensor, exclude_ids: Optional[torch.Tensor]):
+    """Set ``scores[b, exclude_ids[b, e]]`` to -inf, in place; -1 entries
+    are inert."""
+    if exclude_ids is not None:
+        excl = exclude_ids.long()
+        rows = torch.arange(excl.shape[0], device=excl.device)[:, None]
+        keep = excl >= 0
+        scores[rows.expand_as(excl)[keep], excl[keep]] = -torch.inf
+    return scores
+
+
 def kb_nn_search(kb: KBState, queries: torch.Tensor, k: int,
                  *, exclude_ids: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -253,10 +265,140 @@ def kb_nn_search(kb: KBState, queries: torch.Tensor, k: int,
 
     queries: (B, D) -> (scores (B, k), ids (B, k)). ``exclude_ids`` (B, E)
     bans rows per query; -1 entries are inert."""
-    scores = queries.to(torch.float32) @ kb.table.T
-    if exclude_ids is not None:
-        excl = exclude_ids.long()
-        rows = torch.arange(excl.shape[0], device=excl.device)[:, None]
-        keep = excl >= 0
-        scores[rows.expand_as(excl)[keep], excl[keep]] = -torch.inf
+    scores = _ban(queries.to(torch.float32) @ kb.table.T, exclude_ids)
+    return topk_lowest_id(scores, k)
+
+
+# ---------------------------------------------------------------------------
+# int8 storage: codes + per-row (scale, offset) side-cars
+# ---------------------------------------------------------------------------
+#
+# A quantized bank keeps ``KBState.table`` as (N, D) int8 codes and two
+# (N,) fp32 side-cars held beside the state, ``qscale`` and ``qoffset``.
+# Each row is coded on the symmetric range [-127, 127] with
+#
+#     o = (max + min) / 2        s = (max - min) / 254
+#
+# so the max lands on +127 and the min on -127, and re-quantizing a
+# dequantized row gives back the same codes: rows that are only read never
+# drift, and a repeated lookup returns the same bits. Scores against
+# quantized rows never build the dequantized matrix:
+#
+#     q . (c s + o) = s (q . c) + o sum(q)          (``quantized_scores``)
+#
+# The gradient caches stay fp32. Like the fp32 ops, these update the
+# tensors they are given in place; rounding is half to even
+# (``torch.round``, as ``jnp.round``).
+
+def quantize_rows(vals: torch.Tensor):
+    """Per-row affine int8 quantization. vals: (..., D) -> (codes int8,
+    scale (...,) f32, offset (...,) f32). Constant rows (max == min) get
+    scale 1 and codes 0, so their dequantization is the constant."""
+    vals = vals.to(torch.float32)
+    hi = torch.amax(vals, dim=-1)
+    lo = torch.amin(vals, dim=-1)
+    offset = 0.5 * (hi + lo)
+    scale = (hi - lo) / 254.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.clamp(torch.round((vals - offset[..., None])
+                                    / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale, offset
+
+
+def dequantize_rows(codes: torch.Tensor, scale: torch.Tensor,
+                    offset: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_rows``: (..., D) int8 -> (..., D) f32."""
+    return codes.to(torch.float32) * scale[..., None] + offset[..., None]
+
+
+def quantized_scores(queries: torch.Tensor, codes: torch.Tensor,
+                     scale: torch.Tensor, offset: torch.Tensor
+                     ) -> torch.Tensor:
+    """Scores against quantized rows without dequantizing them:
+    ``s * (q . c) + o * sum(q)``. queries (B, D), codes (N, D) -> (B, N),
+    exact with respect to the quantized values."""
+    qf = queries.to(torch.float32)
+    raw = qf @ codes.to(torch.float32).T
+    return raw * scale[None, :] + torch.sum(qf, -1, keepdim=True) * offset
+
+
+def kb_lookup_q(kb: KBState, qscale: torch.Tensor, qoffset: torch.Tensor,
+                ids: torch.Tensor, *, lazy_lr: float = 0.1,
+                zmax: float = 3.0, apply_pending: bool = True
+                ) -> Tuple[torch.Tensor, KBState]:
+    """``kb_lookup`` for an int8-coded table, in place on the state and on
+    ``qscale``/``qoffset``. Rows WITH pending gradients dequantize, take
+    the clipped average and re-quantize; rows without keep their exact
+    codes. The values returned are the dequantization of what the bank
+    now stores, so a repeated lookup with no write between is
+    bit-identical."""
+    flat = ids.reshape(-1).long()
+    codes, s, o = kb.table[flat], qscale[flat], qoffset[flat]
+    rows = dequantize_rows(codes, s, o)
+    if not apply_pending:
+        return rows.reshape(*ids.shape, -1), kb
+    cnt = kb.grad_cnt[flat]
+    delta = pending_delta(kb.grad_sum[flat], cnt, kb.grad_sqnorm[flat],
+                          lazy_lr=lazy_lr, zmax=zmax)
+    codes_n, s_n, o_n = quantize_rows(rows + delta)
+    upd = cnt > 0
+    codes_w = torch.where(upd[:, None], codes_n, codes)
+    s_w = torch.where(upd, s_n, s)
+    o_w = torch.where(upd, o_n, o)
+    # gather first, scatter after: duplicate ids write equal values
+    kb.version[flat] = kb.version[flat] + upd.to(torch.int32)
+    kb.table[flat] = codes_w
+    qscale[flat] = s_w
+    qoffset[flat] = o_w
+    kb.grad_sum[flat] = 0.0
+    kb.grad_cnt[flat] = 0.0
+    kb.grad_sqnorm[flat] = 0.0
+    return dequantize_rows(codes_w, s_w, o_w).reshape(*ids.shape, -1), kb
+
+
+def kb_update_q(kb: KBState, qscale, qoffset, ids, values) -> KBState:
+    """``kb_update`` for the quantized table: quantize the incoming rows
+    and write codes, scale and offset, in place."""
+    flat = ids.reshape(-1).long()
+    codes, s, o = quantize_rows(values.reshape(flat.shape[0], -1))
+    kb.version[flat] = kb.version[flat] + 1
+    kb.table[flat] = codes
+    qscale[flat] = s
+    qoffset[flat] = o
+    kb.grad_sum[flat] = 0.0
+    kb.grad_cnt[flat] = 0.0
+    kb.grad_sqnorm[flat] = 0.0
+    kb.step.add_(1)
+    return kb
+
+
+def kb_flush_q(kb: KBState, qscale, qoffset, *, lazy_lr: float = 0.1,
+               zmax: float = 3.0) -> KBState:
+    """``kb_flush`` for the quantized table, in place. Rows with an empty
+    gradient cache keep their exact codes. Only the pending rows are
+    dequantized and re-quantized (the JAX op computes every row and keeps
+    the pending ones: the same values)."""
+    rows = torch.nonzero(kb.grad_cnt > 0).squeeze(1)
+    vals = dequantize_rows(kb.table[rows], qscale[rows], qoffset[rows])
+    vals = vals + pending_delta(kb.grad_sum[rows], kb.grad_cnt[rows],
+                                kb.grad_sqnorm[rows], lazy_lr=lazy_lr,
+                                zmax=zmax)
+    codes, s, o = quantize_rows(vals)
+    kb.table[rows] = codes
+    qscale[rows] = s
+    qoffset[rows] = o
+    kb.version[rows] += 1
+    kb.grad_sum.zero_()
+    kb.grad_cnt.zero_()
+    kb.grad_sqnorm.zero_()
+    kb.step.add_(1)
+    return kb
+
+
+def kb_nn_search_q(kb: KBState, qscale, qoffset, queries, k: int, *,
+                   exclude_ids: Optional[torch.Tensor] = None):
+    """Exact MIPS over the quantized bank (``quantized_scores``), ties to
+    the lowest id; exact with respect to the quantized values."""
+    scores = _ban(quantized_scores(queries, kb.table, qscale, qoffset),
+                  exclude_ids)
     return topk_lowest_id(scores, k)

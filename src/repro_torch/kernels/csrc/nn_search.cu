@@ -23,13 +23,13 @@
 //      shared memory: a ballot finds the candidates that beat the list's
 //      last entry (rare once the list is warm), and these go in one at a
 //      time, lowest id first. A block writes its k best per query.
-//   2. nn_merge_topk: one block per query merges the slices' lists, each
-//      warp into a list of its own, then warp 0 merges the eight.
+//   2. merge_topk_lists (common.cuh): one block per query merges the
+//      slices' lists, each warp into a list of its own, then warp 0 merges
+//      the eight.
 // Lists are ordered by (score descending, id ascending), a strict total
 // order on distinct ids, so the result does not depend on the order of
 // the merge, and equal scores go to the lowest id as in _merge_topk. A
 // list starts filled with (-1e30, INT_MAX), the Pallas kernel's padding.
-#include <climits>
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -39,64 +39,8 @@ namespace {
 constexpr int QB = 32;         // queries per block of pass 1
 constexpr int THREADS = 256;   // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int KMAX = 128;      // largest supported k
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
-  return s1 > s2 || (s1 == s2 && i1 < i2);
-}
-
-// Insert (s, id), which beats ls[k-1], into the sorted list of length k.
-// Warp-cooperative: every lane of the warp calls it with the same values.
-__device__ void list_insert(float* ls, int* li, int k, float s, int id,
-                            int lane) {
-  int pos = 0;
-  for (int p0 = 0; p0 < k; p0 += 32) {
-    const int p = p0 + lane;
-    pos += __popc(__ballot_sync(FULL_MASK,
-                                p < k && better(ls[p], li[p], s, id)));
-  }
-  float rs[KMAX / 32];
-  int ri[KMAX / 32];
-#pragma unroll
-  for (int t = 0; t < KMAX / 32; ++t) {
-    const int p = t * 32 + lane;
-    if (p >= pos && p < k - 1) {
-      rs[t] = ls[p];
-      ri[t] = li[p];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < KMAX / 32; ++t) {
-    const int p = t * 32 + lane;
-    if (p >= pos && p < k - 1) {
-      ls[p + 1] = rs[t];
-      li[p + 1] = ri[t];
-    }
-  }
-  if (lane == 0) {
-    ls[pos] = s;
-    li[pos] = id;
-  }
-  __syncwarp();
-}
-
-// Each lane offers one candidate; those that beat the list's last entry go
-// in, lowest lane first, and the rest are tested again after each insert.
-__device__ void list_offer(float* ls, int* li, int k, float s, int id,
-                           bool valid, int lane) {
-  bool want = valid && better(s, id, ls[k - 1], li[k - 1]);
-  unsigned m = __ballot_sync(FULL_MASK, want);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    const float cs = __shfl_sync(FULL_MASK, s, src);
-    const int ci = __shfl_sync(FULL_MASK, id, src);
-    list_insert(ls, li, k, cs, ci, lane);
-    want = want && lane > src && better(s, id, ls[k - 1], li[k - 1]);
-    m = __ballot_sync(FULL_MASK, want);
-  }
-}
+constexpr int KMAX = TOPK_KMAX;
+constexpr float NEG = TOPK_NEG;
 
 __host__ __device__ constexpr int row_stride(int D) { return D + 4; }
 
@@ -210,43 +154,6 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    nn_merge_topk(const float* __restrict__ part_s,
-                  const int* __restrict__ part_i, int slices, int k,
-                  float* __restrict__ out_s, int64_t* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
-  float* ls = smem;                                      // [WARPS][k]
-  int* li = reinterpret_cast<int*>(smem + WARPS * k);    // [WARPS][k]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < WARPS * k; e += THREADS) {
-    ls[e] = NEG;
-    li[e] = INT_MAX;
-  }
-  __syncthreads();
-  const int64_t n = static_cast<int64_t>(slices) * k;
-  const float* ps = part_s + blockIdx.x * n;
-  const int* pi = part_i + blockIdx.x * n;
-  for (int64_t c0 = warp * 32; c0 < n; c0 += THREADS) {
-    const int64_t c = c0 + lane;
-    const bool ok = c < n;
-    list_offer(ls + warp * k, li + warp * k, k, ok ? ps[c] : NEG,
-               ok ? pi[c] : INT_MAX, ok, lane);
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < WARPS; ++w)
-    for (int c0 = 0; c0 < k; c0 += 32) {
-      const int c = c0 + lane;
-      const bool ok = c < k;
-      list_offer(ls, li, k, ok ? ls[w * k + c] : NEG,
-                 ok ? li[w * k + c] : INT_MAX, ok, lane);
-    }
-  for (int j = lane; j < k; j += 32) {
-    out_s[static_cast<int64_t>(blockIdx.x) * k + j] = ls[j];
-    out_i[static_cast<int64_t>(blockIdx.x) * k + j] = li[j];
-  }
-}
-
 template <int TR>
 cudaError_t plan_partial(long long N, int D, int k, int* slices,
                          long long* rows_per_slice) {
@@ -332,7 +239,7 @@ extern "C" int nn_search_launch(const float* queries, const float* bank,
   }
   if (err != cudaSuccess) return err;
   const size_t smem = (sizeof(float) + sizeof(int)) * WARPS * k;
-  nn_merge_topk<<<B, THREADS, smem, stream>>>(part_s, part_i, slices, k,
-                                              out_s, out_i);
+  merge_topk_lists<<<B, THREADS, smem, stream>>>(part_s, part_i, slices, k,
+                                                 out_s, out_i);
   return cudaGetLastError();
 }

@@ -18,7 +18,9 @@ import torch
 
 from repro_torch.core.knowledge_bank import topk_lowest_id
 from repro_torch.kernels import ref
+from repro_torch.kernels.ivf_stage2 import ivf_stage2_cuda, ivf_stage2_q_cuda
 from repro_torch.kernels.kb_fused_lookup import kb_fused_lookup_cuda
+from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
 from repro_torch.kernels.kb_gather import kb_gather_cuda
 from repro_torch.kernels.lazy_apply import lazy_apply_cuda
 from repro_torch.kernels.nn_search import nn_search_cuda
@@ -28,6 +30,9 @@ LAUNCHERS = {
     "kb_gather": kb_gather_cuda,
     "lazy_apply": lazy_apply_cuda,
     "nn_search": nn_search_cuda,
+    "kb_fused_lookup_q": kb_fused_lookup_q_cuda,
+    "ivf_stage2": ivf_stage2_cuda,
+    "ivf_stage2_q": ivf_stage2_q_cuda,
 }
 
 
@@ -78,6 +83,43 @@ def nn_search(queries, bank, k: int):
     if _on_cpu(bank):
         return ref.nn_search_ref(queries, bank, k)
     return nn_search_cuda(queries, bank, k)
+
+
+def kb_fused_lookup_q(codes, qscale, qoffset, grad_sum, grad_cnt,
+                      grad_sqnorm, ids, *, lazy_lr: float,
+                      zmax: float) -> torch.Tensor:
+    """int8 lookup with pending gradients applied and only those rows
+    re-quantized, in place; (B,) -> (B, D) dequantized rows."""
+    if _on_cpu(codes):
+        return ref.kb_fused_lookup_q_ref(codes, qscale, qoffset, grad_sum,
+                                         grad_cnt, grad_sqnorm, ids,
+                                         lazy_lr=lazy_lr, zmax=zmax)
+    return kb_fused_lookup_q_cuda(codes, qscale, qoffset, grad_sum,
+                                  grad_cnt, grad_sqnorm, ids.long(),
+                                  lazy_lr=lazy_lr, zmax=zmax)
+
+
+def ivf_stage2(packed_vecs, packed_ids, bucket_occ, queries, probes,
+               k: int):
+    """IVF stage 2 over fp32 rows; -> (snapshot scores, int64 ids), padded
+    with (-1e30, 2**31 - 1)."""
+    if _on_cpu(packed_vecs):
+        return ref.ivf_stage2_ref(packed_vecs, packed_ids, bucket_occ,
+                                  queries, probes, k)
+    return ivf_stage2_cuda(packed_vecs, packed_ids, bucket_occ, queries,
+                           probes.to(torch.int32), k)
+
+
+def ivf_stage2_q(packed_codes, packed_scale, packed_offset, packed_ids,
+                 bucket_occ, queries, probes, k: int):
+    """IVF stage 2 over int8 rows, scored without dequantizing them."""
+    if _on_cpu(packed_codes):
+        return ref.ivf_stage2_q_ref(packed_codes, packed_scale,
+                                    packed_offset, packed_ids, bucket_occ,
+                                    queries, probes, k)
+    return ivf_stage2_q_cuda(packed_codes, packed_scale, packed_offset,
+                             packed_ids, bucket_occ, queries,
+                             probes.to(torch.int32), k)
 
 
 def overfetch_exclude_topk(search, n_rows: int, k: int, exclude_ids):

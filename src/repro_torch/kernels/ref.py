@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each has its kernel's exact contract (the same in-place writes, the same
 treatment of ids outside [0, N), the same formula), so a kernel wrapper
@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.knowledge_bank import pending_delta, topk_lowest_id
+from repro_torch.core.knowledge_bank import (dequantize_rows, pending_delta,
+                                             quantize_rows, topk_lowest_id)
+from repro_torch.kernels.nn_search_ivf import (IMAX, NEG, STAGE2_BLOCK,
+                                               _chunk_rows, ivf_chunk_plan)
 
 
 def _valid(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -76,3 +79,88 @@ def nn_search_ref(queries, bank, k: int):
     (B, k)), ties to the lowest id (the Pallas kernel's ``_merge_topk``
     order)."""
     return topk_lowest_id(queries.to(torch.float32) @ bank.T, k)
+
+
+def kb_fused_lookup_q_ref(codes, qscale, qoffset, grad_sum, grad_cnt,
+                          grad_sqnorm, ids, *, lazy_lr: float,
+                          zmax: float) -> torch.Tensor:
+    """``kb_lookup_q`` without the version bump, in place on the int8
+    codes, the scale/offset side-cars and the caches: each requested row
+    with pending gradients is dequantized, takes its clipped delta and is
+    re-quantized; a row without keeps its exact codes, scale and offset.
+    Every requested row's caches are zeroed, and the (B, D) output is the
+    dequantization of what the bank now stores. Ids outside [0, N) read
+    zeros and change nothing."""
+    ids = ids.long()
+    ok = _valid(ids, codes.shape[0])
+    rows = ids[ok]
+    c, s, o, cnt = codes[rows], qscale[rows], qoffset[rows], grad_cnt[rows]
+    new = dequantize_rows(c, s, o) + pending_delta(
+        grad_sum[rows], cnt, grad_sqnorm[rows], lazy_lr=lazy_lr, zmax=zmax)
+    c_n, s_n, o_n = quantize_rows(new)
+    upd = cnt > 0
+    c = torch.where(upd[:, None], c_n, c)
+    s = torch.where(upd, s_n, s)
+    o = torch.where(upd, o_n, o)
+    codes[rows], qscale[rows], qoffset[rows] = c, s, o
+    grad_sum[rows] = 0.0
+    grad_cnt[rows] = 0.0
+    grad_sqnorm[rows] = 0.0
+    vals = torch.zeros((ids.shape[0], codes.shape[1]), dtype=torch.float32,
+                       device=codes.device)
+    vals[ok] = dequantize_rows(c, s, o)
+    return vals
+
+
+def _ivf_stage2(score_rows, packed_ids, bucket_occ, queries, probes,
+                k: int):
+    """The stage-2 kernels' contract over any row scorer: for each query,
+    the candidates are the packed slots of the chunks that
+    ``ivf_chunk_plan`` schedules (the occupied chunks of its probed
+    buckets); slots with id -1 never enter; the k best come out in
+    (score descending, id ascending) order, the Pallas ``_merge_topk``
+    order, padded with (NEG, IMAX). -> (scores (B, k) f32, ids (B, k)
+    int64), snapshot scores."""
+    B = queries.shape[0]
+    C = bucket_occ.shape[0]
+    cap = packed_ids.shape[0] // C
+    lb = _chunk_rows(cap, STAGE2_BLOCK)
+    sel, nvalid = ivf_chunk_plan(probes, bucket_occ, cap // lb, lb)
+    dev = queries.device
+    out_s = torch.full((B, k), NEG, dtype=torch.float32, device=dev)
+    out_i = torch.full((B, k), IMAX, dtype=torch.int64, device=dev)
+    slot = torch.arange(lb, device=dev)
+    for b in range(B):
+        chunks = sel[b, :int(nvalid[b])].long()
+        rows = (chunks[:, None] * lb + slot[None, :]).reshape(-1)
+        ids = packed_ids[rows].long()
+        keep = ids >= 0
+        rows, ids = rows[keep], ids[keep]
+        s = score_rows(queries[b].to(torch.float32), rows)
+        by_id = torch.argsort(ids, stable=True)
+        s, order = torch.sort(s[by_id], descending=True, stable=True)
+        n = min(k, s.shape[0])
+        out_s[b, :n] = s[:n]
+        out_i[b, :n] = ids[by_id][order[:n]]
+    return out_s, out_i
+
+
+def ivf_stage2_ref(packed_vecs, packed_ids, bucket_occ, queries, probes,
+                   k: int):
+    """Plain version of ``csrc/ivf_stage2.cu`` (the Pallas
+    ``ivf_stage2_pallas``): fp32 snapshot scores ``q . v``."""
+    return _ivf_stage2(
+        lambda q, rows: packed_vecs[rows].to(torch.float32) @ q,
+        packed_ids, bucket_occ, queries, probes, k)
+
+
+def ivf_stage2_q_ref(packed_codes, packed_scale, packed_offset, packed_ids,
+                     bucket_occ, queries, probes, k: int):
+    """Plain version of ``csrc/ivf_stage2_q.cu`` (the Pallas
+    ``ivf_stage2_quantized_pallas``): int8 snapshot rows scored
+    ``scale * (q . c) + sum(q) * offset``, never dequantized."""
+    return _ivf_stage2(
+        lambda q, rows: ((packed_codes[rows].to(torch.float32) @ q)
+                         * packed_scale[rows]
+                         + torch.sum(q) * packed_offset[rows]),
+        packed_ids, bucket_occ, queries, probes, k)

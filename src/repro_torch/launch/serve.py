@@ -7,10 +7,18 @@ stands up the request-coalescing ``KnowledgeBankServer`` on the CUDA
 kernel backend, fills the bank with N(0, 1) rows from ``--seed``, and
 drives it with ``--clients`` threads, each looping lookup ->
 lazy_grad(0.01 * vals) -> nn_search(k=8) ``--gen`` times. It prints the
-JAX launcher's two summary lines and ends with a ``flush`` of the served
+JAX launcher's summary lines and ends with a ``flush`` of the served
 bank. The default bank is ogbn-mag sized: 1,939,743 rows (all node types
 of OGB's ogbn-mag) of width 128 (its feature width), fp32, 2.02 GB with
 its gradient caches.
+
+``--kb-storage int8`` stores the rows as int8 codes with a per-row scale
+and offset; ``--kb-search ivf`` serves nn_search from the IVF index that a
+background refresher builds (``--nlist`` buckets, ``--nprobe`` probed per
+query): the launcher waits for the first build before the clients start.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --kb \
+      --kb-storage int8 --kb-search ivf
 
 The run is on the CUDA device unless ``--device cpu`` is given. Options of
 the JAX launcher that are not ported yet raise ``NotImplementedError``.
@@ -30,6 +38,23 @@ OGBN_MAG_DIM = 128
 NN_K = 8
 
 
+INDEX_BUILD_DEADLINE_S = 300.0
+
+
+def _first_index(server, refresher) -> float:
+    """Wait for the refresher's first index; returns the seconds it took.
+    Raises on a failed build or past the deadline."""
+    t0 = time.perf_counter()
+    while server.engine.ann_index is None:
+        if refresher.last_error is not None or not refresher.is_alive():
+            raise RuntimeError("IVF index build failed") \
+                from refresher.last_error
+        if time.perf_counter() - t0 > INDEX_BUILD_DEADLINE_S:
+            raise RuntimeError("IVF index build timed out")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
 def serve_kb(args) -> dict:
     """Concurrent-client KB serving on the coalescing server. Returns the
     run's numbers (also printed) and the closed server's engine."""
@@ -38,12 +63,26 @@ def serve_kb(args) -> dict:
                                  backend=args.kb_backend,
                                  coalesce=not args.no_coalesce,
                                  reorder=args.kb_reorder,
+                                 search_mode=args.kb_search,
+                                 ann_nlist=args.nlist,
+                                 ann_nprobe=args.nprobe,
+                                 storage=args.kb_storage,
                                  cache_rows=args.kb_cache_rows,
                                  device=args.device)
     server.update(np.arange(args.kb_entries),
                   rng.standard_normal((args.kb_entries, args.kb_dim),
                                       dtype=np.float32))
     server.warmup(args.batch * args.clients)
+    refresher, build_s = None, None
+    if args.kb_search == "ivf":
+        # the index maker clusters the bank off the serving path; serve
+        # once its first index is published
+        refresher = server.start_ann_refresher(min_period_s=0.01)
+        build_s = _first_index(server, refresher)
+        # one search through the index first, so that the build of the
+        # stage-2 kernel is not timed (warmup built the others)
+        server.nn_search(np.zeros((args.batch, args.kb_dim), np.float32),
+                         k=NN_K)
 
     def client(t: int, n_calls: int):
         crng = np.random.default_rng(args.seed + 1 + t)
@@ -62,17 +101,21 @@ def serve_kb(args) -> dict:
         th.join()
     dt = time.perf_counter() - t0
     calls = args.clients * args.gen * 3
-    server.flush()
     stats = dict(server.engine.search_stats)
+    rebuilds = refresher.rebuilds if refresher else 0
+    shard_rebuilds = refresher.shard_rebuilds if refresher else 0
+    index = server.engine.ann_index
+    server.flush()
     server.close()
-    print(f"kb-serve backend={args.kb_backend} search=exact "
+    print(f"kb-serve backend={args.kb_backend} search={args.kb_search} "
           f"coalesce={not args.no_coalesce} clients={args.clients}: "
           f"{calls / dt:.0f} req/s ({dt / calls * 1e6:.0f} us/req), "
           f"coalescing x{server.coalescing_factor:.1f}, "
           f"{server.metrics['dispatches']} device dispatches for "
           f"{server.metrics['requests']} requests, "
           f"nn ivf/exact={stats['ivf']}/{stats['exact']}, "
-          f"index rebuilds=0 (0 shard builds)", flush=True)
+          f"index rebuilds={rebuilds} ({shard_rebuilds} shard builds)",
+          flush=True)
     sst = server.engine.storage_stats()
     print(f"kb storage mode={sst['mode']} bytes/row={sst['bytes_per_row']} "
           f"resident={sst['resident_rows']}/{sst['total_rows']} rows "
@@ -82,11 +125,18 @@ def serve_kb(args) -> dict:
           f"/{server.metrics['cache_misses']}, "
           f"tier faults/spills={sst['tier_faults']}/{sst['tier_spills']}",
           flush=True)
+    if index is not None:
+        st = index.bucket_stats()
+        print(f"ivf buckets: cap={st['bucket_cap']} "
+              f"mean_occ={st['mean_occupancy']:.1f} "
+              f"max_occ={st['max_occupancy']} skew=x{st['skew']:.2f} "
+              f"headroom={st['headroom']}", flush=True)
     return {"req_per_s": calls / dt, "seconds": dt, "calls": calls,
             "dispatches": server.metrics["dispatches"],
             "requests": server.metrics["requests"],
             "coalescing_factor": server.coalescing_factor,
-            "engine": server.engine}
+            "search_stats": stats, "index_rebuilds": rebuilds,
+            "first_index_s": build_s, "engine": server.engine}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,6 +158,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-call locked baseline (benchmark ablation)")
     ap.add_argument("--kb-reorder", action="store_true",
                     help="cross-op reordering in the coalescing dispatcher")
+    ap.add_argument("--kb-storage", choices=["fp32", "int8"], default="fp32",
+                    help="bank row storage: fp32, or int8 codes with a "
+                         "per-row fp32 scale and offset")
+    ap.add_argument("--kb-search", choices=["exact", "ivf"], default="exact",
+                    help="nn_search mode; ivf serves from the index the "
+                         "background refresher builds")
+    ap.add_argument("--nlist", type=int, default=64,
+                    help="IVF buckets (k-means centroids)")
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="IVF buckets probed per query")
     ap.add_argument("--kb-cache-rows", type=int, default=0,
                     help="hot-id LRU capacity (rows) in front of the "
                          "engine; 0 disables the cache")

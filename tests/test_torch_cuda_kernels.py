@@ -1,5 +1,5 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on a
-card. Every test is marked ``cuda`` and skips where no CUDA device is
+card (the int8 lookup and the two IVF stage-2 kernels at the end). Every test is marked ``cuda`` and skips where no CUDA device is
 present (it decides inside the test, so that every xdist worker collects
 the same tests). The file imports no JAX, so it runs on a machine that
 has only PyTorch:
@@ -10,7 +10,10 @@ Tolerances: ids exact on queries whose k-th and (k+1)-th plain scores are
 more than 1e-4 apart; scores atol 1e-4 (sums of 128 products summed in
 another order than the plain version's matmul); rows atol 1e-5 and state
 leaves atol 1e-6 (each clip computed step by step as the plain version
-does, its squares summed in another order).
+does, its squares summed in another order). The IVF stage-2 kernels'
+scores, at the score scale of a clustered bank of width 128 (hundreds),
+are held to atol 1e-4 plus 8 fp32 ulps of the score, and their ids by
+gaps of 1e-4 plus twice that.
 """
 import numpy as np
 import pytest
@@ -18,6 +21,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.nn_search import KMAX
+
+RTOL = 8 * 2.0 ** -23     # 8 fp32 ulps of a score
 
 
 def _require_card():
@@ -117,3 +122,142 @@ def test_cuda_nn_search_ties_go_to_the_lowest_id():
     assert torch.equal(gi[:3].view(3, 3, 3) % 1000,
                        (gi[:3].view(3, 3, 3) % 1000)[:, :, :1].expand(
                            3, 3, 3))
+
+
+def _card_int8_bank(dev, n=50_021, d=128):
+    """(codes, scale, offset, grad_sum, grad_cnt, grad_sqnorm) on the card,
+    the int8 twin of _card_bank, with two constant rows."""
+    table, gsum, cnt, gsq = _card_bank(dev, n, d)
+    table[1] = 2.5
+    table[2] = 0.0
+    from repro_torch.core.knowledge_bank import quantize_rows
+    codes, s, o = quantize_rows(table)
+    return [codes, s, o, gsum, cnt, gsq]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_lookup_q_matches_plain():
+    """Scale and offset rtol 1e-6 / atol 1e-6, rows atol 1e-5, codes equal
+    but where a value (v - offset) / scale sits at a half-integer, caches
+    zeroed alike; untouched rows unchanged; a repeated lookup of rows
+    without pending gradients bit-identical."""
+    dev = _require_card()
+    base = _card_int8_bank(dev)
+    ids = torch.tensor([7, 50_020, 7, 3, 3, 1_000, -1, 12, 1, 2],
+                       device=dev)
+    got = [t.clone() for t in base]
+    want = [t.clone() for t in base]
+    v1 = ops.LAUNCHERS["kb_fused_lookup_q"](*got, ids, lazy_lr=0.1,
+                                            zmax=3.0)
+    v2 = ref.kb_fused_lookup_q_ref(*want, ids, lazy_lr=0.1, zmax=3.0)
+    torch.cuda.synchronize()
+    assert (v1 - v2).abs().max().item() <= 1e-5
+    assert torch.equal(v1[0], v1[2]) and not v1[6].any()
+    assert torch.allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+    assert torch.allclose(got[2], want[2], rtol=1e-6, atol=1e-6)
+    assert (got[0].int() - want[0].int()).abs().max().item() <= 1
+    for g, w in zip(got[3:], want[3:]):
+        assert (g - w).abs().max().item() <= 1e-6
+    again = ops.LAUNCHERS["kb_fused_lookup_q"](*got, ids, lazy_lr=0.1,
+                                               zmax=3.0)
+    assert torch.equal(again[ids >= 0], v1[ids >= 0])
+
+
+def _card_index(dev, quantized, n=60_000, d=128, nlist=16):
+    from repro_torch.core import ann_index
+    table = torch.from_numpy(ann_index.clustered_bank(
+        n, d, 40, seed=4, noise=0.5)).to(dev)
+    idx = ann_index.build_ivf_index(table, nlist=nlist, iters=4)
+    if quantized:
+        idx = ann_index.QuantizedIVFIndex(idx)
+    q = table[::1500][:37] + 0.01
+    return table, idx, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 32, 128])
+def test_cuda_ivf_stage2_matches_plain(quantized, k):
+    """Snapshot scores within atol 1e-4 plus 8 ulps of the score; the
+    top-k ids the same set where the k-th and (k+1)-th plain scores are
+    apart by more than 1e-4 plus twice that, and the same id at each rank
+    whose plain score is that far from both neighbours'."""
+    from repro_torch.kernels.nn_search_ivf import ivf_probes
+    dev = _require_card()
+    _, idx, q = _card_index(dev, quantized)
+    probes = ivf_probes(q, idx.centroids, 4)
+    if quantized:
+        args = (idx.packed_codes, idx.packed_scale, idx.packed_offset)
+        kern, plain = ops.LAUNCHERS["ivf_stage2_q"], ref.ivf_stage2_q_ref
+    else:
+        args = (idx.packed_vecs,)
+        kern, plain = ops.LAUNCHERS["ivf_stage2"], ref.ivf_stage2_ref
+    gs, gi = kern(*args, idx.packed_ids, idx.bucket_occ, q, probes, k)
+    ws, wi = plain(*args, idx.packed_ids, idx.bucket_occ, q, probes, k + 1)
+    assert ((gs - ws[:, :k]).abs() <= 1e-4 + RTOL * ws[:, :k].abs()).all()
+    # the set where the k-th and (k+1)-th plain scores are apart, each
+    # rank where its plain score is apart from both neighbours' (nearer
+    # scores may swap: their sums are rounded in another order)
+    w = ws.double()
+    near = 1e-4 + 2 * RTOL * torch.maximum(w[:, :-1].abs(), w[:, 1:].abs())
+    gap = w[:, :-1] - w[:, 1:] - near       # > 0: apart
+    sets = gap[:, k - 1] > 0
+    assert int(sets.sum()) > 0
+    assert torch.equal(torch.sort(gi[sets], 1).values,
+                       torch.sort(wi[sets, :k], 1).values)
+    left = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                      gap[:, :k - 1]], 1)
+    ranks = (left > 0) & (gap[:, :k] > 0)
+    assert int(ranks.sum()) > 0
+    assert torch.equal(gi[ranks], wi[:, :k][ranks])
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_stage2_pads_short_lists_and_breaks_ties_low():
+    """A bucket of three rows probed alone: k = 8 leaves five padding
+    entries (-1e30, 2**31 - 1); duplicated rows score alike and come out
+    lowest id first."""
+    from repro_torch.core.ann_index import IVFIndex
+    dev = _require_card()
+    rows = torch.randn((3, 64), device=dev)
+    vecs = torch.zeros((2 * 8, 64), device=dev)
+    vecs[:3] = rows
+    vecs[8:11] = rows                       # bucket 1: the same rows
+    ids = torch.full((16,), -1, dtype=torch.int32, device=dev)
+    ids[:3] = torch.tensor([5, 9, 2], dtype=torch.int32, device=dev)
+    ids[8:11] = torch.tensor([1, 7, 3], dtype=torch.int32, device=dev)
+    idx = IVFIndex(torch.zeros((2, 64), device=dev), vecs, ids, nlist=2,
+                   bucket_cap=8, n_rows=12)
+    q = torch.randn((2, 64), device=dev)
+    one = torch.tensor([[0], [1]], dtype=torch.int32, device=dev)
+    both = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32, device=dev)
+    for probes in (one, both):
+        gs, gi = ops.LAUNCHERS["ivf_stage2"](vecs, idx.packed_ids,
+                                             idx.bucket_occ, q, probes, 8)
+        ws, wi = ref.ivf_stage2_ref(vecs, idx.packed_ids, idx.bucket_occ, q,
+                                    probes, 8)
+        assert torch.equal(gi, wi)
+        assert (gs - ws).abs().max().item() <= 1e-4
+    assert (gi[:, 6:] == 2 ** 31 - 1).all() and (gs[:, 6:] == -1e30).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_stage2_unwritten_slots_merge_as_padding():
+    """A query that lists one bucket twice, or a bucket id outside
+    [0, C), leaves a partial slot that no block writes: it must merge as
+    padding, so the result is that of the valid, distinct probes alone."""
+    dev = _require_card()
+    _, idx, q = _card_index(dev, False, n=4000, d=64, nlist=8)
+    q = q[:3]
+    clean = torch.tensor([[0, 1], [2, 3], [4, 5]], dtype=torch.int32,
+                         device=dev)
+    odd = torch.tensor([[0, 1, 1], [2, 3, 99], [-7, 4, 5]],
+                       dtype=torch.int32, device=dev)
+    kern = ops.LAUNCHERS["ivf_stage2"]
+    for k in (8, 32):
+        ws, wi = kern(idx.packed_vecs, idx.packed_ids, idx.bucket_occ, q,
+                      clean, k)
+        gs, gi = kern(idx.packed_vecs, idx.packed_ids, idx.bucket_occ, q,
+                      odd, k)
+        assert torch.equal(gi, wi) and torch.equal(gs, ws)
+
