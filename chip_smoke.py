@@ -31,7 +31,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
    clients, each run ending in a flush: exact search over fp32 rows, then
    IVF search over fp32 and over int8 rows (``--kb-search ivf``, nlist 64,
    nprobe 8); every kernel counter is set to 0 just before each run and
-   read just after.
+   read just after;
+5. LM serving: the reduced yi-6b (2 layers, d 128, fp32) on the card
+   against the CPU on one set of parameters (hidden, prefill cache, four
+   decode steps' logits and ids), then repro_torch.launch.serve's
+   ``serve_lm`` at the full width of yi-6b (32 layers, d 4096, 32 heads,
+   4 KV heads, d_ff 11008, vocab 64000, bf16, random weights from seed 0)
+   at batch 4, a 2048-token prompt and 16 decoded tokens, twice: prefill
+   and decode times, peak device memory, 32 flash-attention launches per
+   prefill, and identical ids from the two runs; then one profiled
+   prefill and decode.
+
+Phase 2 also holds the flash-attention kernel against its plain version
+at the prefill's shapes (B 4, S 2048, H 32, KV 4, d 128, causal) in bf16
+and fp32, beside ``scaled_dot_product_attention`` as the library
+yardstick, and on smaller window and soft-cap cases; phase 3 first sends
+out-of-range ids to a cuda server, which must refuse them, leave the bank
+as it was and serve the next request.
 
 It prints the kernels' record as one JSON line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -50,12 +66,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ann_index  # noqa: E402
 from repro_torch.core import knowledge_bank as kbm  # noqa: E402
-from repro_torch.core.kb_engine import KBEngine, make_kb_ops  # noqa: E402
+from repro_torch.core.async_runtime import KnowledgeBankServer  # noqa: E402
+from repro_torch.core.kb_engine import (KBEngine, KBIdError,  # noqa: E402
+                                        make_kb_ops)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.nn_search_ivf import ivf_probes  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 BATCH = 32                          # 8 clients x batch 4, coalesced
@@ -63,6 +83,7 @@ K = 8
 LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, 700 W
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12            # dense tensor-core peak
 SERVE_ROUNDS = 32
 NLIST, NPROBE = 64, 8               # the launcher's IVF defaults
 KQ = 32                             # the int8 engine's 4k over-retrieval
@@ -81,6 +102,15 @@ ID_GAP = 1e-4
 # half-integer (the clip's sum of squares runs in another order)
 RTOL_Q = 1e-6
 HALF_TOL = 1e-4
+# flash attention against its plain version: tests/test_kernels.py's
+# bounds (a bf16 output may round one ulp the other way)
+ATOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the LM's serve run: batch, prompt and decoded tokens
+LM_B, LM_PROMPT, LM_GEN = 4, 2048, 16
+# the reduced LM, card against CPU: hidden states (after the final norm, up
+# to ~4) and logits move by a few fp32 ulps per layer, the matmul and
+# flash sums running in another order
+ATOL_LM = 5e-5
 
 KERNELS = {
     "kb_fused_lookup": "src/repro/kernels/kb_fused_lookup.py:84",
@@ -90,12 +120,16 @@ KERNELS = {
     "kb_fused_lookup_q": "src/repro/kernels/kb_fused_lookup.py:209",
     "ivf_stage2": "src/repro/kernels/nn_search_ivf.py:186",
     "ivf_stage2_q": "src/repro/kernels/nn_search_ivf.py:281",
+    "flash_attention": "src/repro/kernels/flash_attention.py:85",
 }
-# the path each kernel's launches are read from (phase 3 or 4)
-KERNEL_PATH = {"kb_fused_lookup": "serve_exact", "kb_gather":
-               "engine_immediate", "lazy_apply": "serve_exact",
-               "nn_search": "serve_exact", "kb_fused_lookup_q": "serve_int8_ivf",
-               "ivf_stage2": "serve_fp32_ivf", "ivf_stage2_q": "serve_int8_ivf"}
+# the path each kernel's launches are read from (phase 3, 4 or 5)
+KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
+               "kb_gather": "engine_immediate",
+               "lazy_apply": "serve_exact", "nn_search": "serve_exact",
+               "kb_fused_lookup_q": "serve_int8_ivf",
+               "ivf_stage2": "serve_fp32_ivf",
+               "ivf_stage2_q": "serve_int8_ivf",
+               "flash_attention": "serve_lm"}
 
 
 def log(msg: str) -> None:
@@ -132,8 +166,8 @@ def time_ms(fn, iters: int, setup=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -269,6 +303,76 @@ def phase2_ivf(table, codes, qscale, qoffset, ids):
         log(f"phase 2: {name} at k = {other}: "
             f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
     return results
+
+
+FLASH_SMALL = [  # (B, S, H, KV, d, causal, window, softcap)
+    (2, 1000, 8, 2, 128, True, 256, 0.0),
+    (2, 512, 8, 2, 64, True, 0, 30.0),
+    (1, 300, 4, 1, 32, True, 100, 20.0),
+    (2, 200, 4, 4, 128, False, 0, 0.0),
+]
+
+
+def flash_bound(q, k, causal: bool, flop_per_s: float):
+    """q, k, v read once and o written once; 4 d operations per (query,
+    key) pair the mask keeps, per head (no window here)."""
+    B, S, H, d = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound(nbytes, 4.0 * B * H * d * pairs, flop_per_s)
+
+
+def phase2_flash():
+    """Flash attention at the LM prefill's shapes in bf16 (the serve
+    dtype) and fp32, against its plain version and beside
+    ``scaled_dot_product_attention``; then smaller window and soft-cap
+    cases."""
+    kern = ops.LAUNCHERS["flash_attention"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    cfg = get_config("yi-6b")
+    H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    out = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOP_PER_S),
+                        (torch.float32, FP32_FLOP_PER_S)):
+        q, k, v = (torch.randn((LM_B, LM_PROMPT, n, d), generator=g,
+                               device=dev).to(dtype) for n in (H, KV, KV))
+        o_k = kern(q, k, v, causal=True)
+        o_p = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_err(o_k, o_p)
+        require(err <= ATOL_FLASH[dtype],
+                f"flash_attention {dtype} disagrees: {err}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out[dtype] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: kern(q, k, v, causal=True), 10),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True), 3),
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            bound=flash_bound(q, k, True, peak))
+        log(f"phase 2: flash_attention {dtype} (B {LM_B}, S {LM_PROMPT}, "
+            f"H {H}, KV {KV}, d {d}, causal): {out[dtype]}")
+        del q, k, v, o_k, o_p
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, KV, d, causal, window, softcap in FLASH_SMALL:
+            q, k, v = (torch.randn((B, S, n, d), generator=g,
+                                   device=dev).to(dtype)
+                       for n in (H, KV, KV))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            err = max_err(kern(q, k, v, **kw),
+                          ref.flash_attention_ref(q, k, v, **kw))
+            require(err <= ATOL_FLASH[dtype],
+                    f"flash_attention {dtype} {B, S, H, KV, d, kw}: {err}")
+            log(f"phase 2: flash_attention {dtype} B {B} S {S} H {H} KV "
+                f"{KV} d {d} {kw}: max_abs_err={err}")
+    res, f = dict(out[torch.bfloat16]), out[torch.float32]
+    res["fp32"] = {"max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                   "plain_ms": f["plain_ms"], "library_ms": f["library_ms"],
+                   "bound_ms": f["bound"][0], "bound_by": f["bound"][1]}
+    return res
 
 
 def phase2_kernels():
@@ -437,15 +541,15 @@ def phase2_kernels():
         bound=bound(nbytes, 2.0 * BATCH * N_ROWS * DIM))
 
     results.update(phase2_ivf(table, codes, qscale, qoffset, ids))
-    del codes, qscale, qoffset
+    del codes, qscale, qoffset, table
+    torch.cuda.empty_cache()
+    results["flash_attention"] = phase2_flash()
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
         log(f"phase 2: {name} ok: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']} plain_ms={r['plain_ms']} "
             f"library_ms={r['library_ms']} bound_ms={b_ms} ({b_by})")
-    del table
-    torch.cuda.empty_cache()
     return results
 
 
@@ -623,7 +727,55 @@ def _ivf_parity(storage: str):
     return n_decided
 
 
+def _ids_refused():
+    """Out-of-range ids on a cuda server, fp32 and int8: each request is
+    refused with KBIdError, the bank stays bit-identical, and the next
+    request is served (the CUDA context is intact)."""
+    n, d = 10_007, DIM
+    fill = np.random.default_rng(15).standard_normal((n, d)).astype(
+        np.float32)
+    for storage in ("fp32", "int8"):
+        srv = KnowledgeBankServer(n, d, backend="cuda", storage=storage,
+                                  device="cuda")
+        srv.update(np.arange(n), fill)
+        srv.lazy_grad(np.array([1, 2]), fill[:2])
+        want = srv.lookup(np.array([5, 6]))
+        eng = srv.engine
+
+        def bank():
+            return [t.clone() for t in eng.state] + [
+                t.clone() for t in (eng._qscale, eng._qoffset)
+                if t is not None]
+
+        before = bank()
+        refused = 0
+        for bad in (n, -1):
+            for call in (lambda: srv.lookup(np.array([3, bad])),
+                         lambda: srv.update(np.array([bad]), fill[:1]),
+                         lambda: srv.lazy_grad(np.array([bad]), fill[:1]),
+                         # -1 is an exclusion list's inert padding
+                         lambda: srv.nn_search(fill[:2], K, exclude_ids=(
+                             np.array([[-2 if bad < 0 else bad],
+                                       [-1]])))):
+                try:
+                    call()
+                except KBIdError:
+                    refused += 1
+        torch.cuda.synchronize()
+        require(refused == 8, f"{storage}: {8 - refused} bad requests "
+                "were not refused")
+        require(all(torch.equal(a, b) for a, b in zip(bank(), before)),
+                f"{storage}: a refused request changed the bank")
+        require(np.array_equal(srv.lookup(np.array([5, 6])), want),
+                f"{storage}: the server did not serve the next request")
+        srv.close()
+    log("phase 3: out-of-range ids (N and -1) refused with KBIdError on a "
+        "cuda server, fp32 and int8 (lookup, update, lazy_grad, nn_search "
+        "exclusion); bank unchanged; next request served")
+
+
 def phase3_engine():
+    _ids_refused()
     counts = {}
     for lazy_update in (True, False):
         ops.reset_launch_counts()
@@ -750,6 +902,144 @@ def phase4_serve():
     return paths
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase5_reduced():
+    """The reduced yi-6b (2 layers, d 128, fp32) on the card against the
+    CPU, on one set of parameters and prompts: the prefill's hidden states
+    and cache (its attention through the flash kernel on the card, the
+    plain version on the CPU), then four decode steps fed the CPU's
+    greedy ids, their logits and ids."""
+    cfg = get_config("yi-6b").reduced()
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    p_dev = _to(p_cpu, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, LM_PROMPT)).astype(np.int32))
+    C = LM_PROMPT + 5
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        cache_d, h_d = model.prefill(p_dev, toks.cuda(), cache_len=C)
+        flash = ops.launch_counts()["flash_attention"]
+        cache_c, h_c = model.prefill(p_cpu, toks, cache_len=C)
+        err_h = max_err(h_d.cpu(), h_c)
+        err_kv = max(max_err(cache_d["groups"]["pos0"][n].cpu(),
+                             cache_c["groups"]["pos0"][n]) for n in "kv")
+        last, err_l, decided = toks[:, -1:], 0.0, 0
+        for _ in range(4):
+            l_d = model.decode_step(p_dev, cache_d, last.cuda())[0][:, -1]
+            l_c = model.decode_step(p_cpu, cache_c, last)[0][:, -1]
+            l_d = l_d.cpu()
+            err_l = max(err_l, max_err(l_d, l_c))
+            top2 = l_c.topk(2).values
+            ok = (top2[:, 0] - top2[:, 1]) > ID_GAP
+            require(torch.equal(l_d.argmax(-1)[ok], l_c.argmax(-1)[ok]),
+                    "reduced yi-6b: card and CPU ids differ")
+            decided += int(ok.sum())
+            last = l_c.argmax(-1, keepdim=True).to(torch.int32)
+    require(flash == cfg.num_layers,
+            f"reduced yi-6b prefill launched flash {flash} times")
+    require(max(err_h, err_kv, err_l) <= ATOL_LM,
+            f"reduced yi-6b card vs CPU: hidden {err_h}, cache {err_kv}, "
+            f"logits {err_l}")
+    log(f"phase 5: reduced yi-6b ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, fp32), prompt 2 x {LM_PROMPT}, 4 decode steps: "
+        f"card vs CPU max abs err hidden {err_h}, cache k/v {err_kv}, "
+        f"logits {err_l}; ids equal on the {decided} decided steps; "
+        f"{flash} flash launches on the card")
+
+
+def lm_run(label: str):
+    """``serve_lm`` at the full width of yi-6b, with every kernel counter
+    set to 0 just before it and read just after."""
+    cfg = get_config("yi-6b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.serve_lm(cfg, batch=LM_B, prompt_len=LM_PROMPT, gen=LM_GEN,
+                         seed=0, device="cuda")
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen = res["generated"]
+    require(gen.shape == (LM_B, LM_GEN)
+            and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+            and bool(torch.isfinite(res["last_logits"]).all()),
+            f"{label}: ids out of range or logits not finite")
+    require(res["prefill_launches"]["flash_attention"] == cfg.num_layers
+            and res["decode_launches"]["flash_attention"] == 0,
+            f"{label}: flash launches {res['prefill_launches']} in the "
+            f"prefill, {res['decode_launches']} in the decode")
+    log(f"phase 5: {label}: prefill({LM_B}x{LM_PROMPT}) "
+        f"{res['prefill_ms']} ms, decode {res['decode_ms_per_token']} "
+        f"ms/token, peak device memory {peak} bytes, {wall:.1f} s with "
+        f"init; launches {counts}")
+    return res, counts
+
+
+def profile_lm():
+    """One prefill and four decode steps of the full-width yi-6b under
+    ``torch.profiler``: wall time, device time by kernel, busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("yi-6b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_B, LM_PROMPT)).astype(np.int32)).cuda()
+    state = {}
+
+    def prefill():
+        state["cache"], _ = model.prefill(
+            params, toks, cache_len=LM_PROMPT + LM_GEN + 1)
+
+    def decode():
+        last = toks[:, -1:]
+        for _ in range(4):
+            logits, _ = model.decode_step(params, state["cache"], last)
+            last = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+    with torch.inference_mode():
+        for label, fn in (("prefill", prefill), ("decode 4 steps", decode)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            # device-side events only: a CPU op's device time repeats
+            # that of the kernels it launched
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+            log(f"phase 5: profiled {label} ({LM_B}x{LM_PROMPT}): wall "
+                f"{wall_ms} ms, device {dev_ms} ms "
+                f"({100 * dev_ms / wall_ms:.1f}% busy under the profiler); "
+                "top: " + "; ".join(
+                    f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.4g} ms" for e in top))
+
+
+def phase5_lm():
+    phase5_reduced()
+    res1, counts = lm_run("yi-6b full width run 1")
+    res2, _ = lm_run("yi-6b full width run 2")
+    require(np.array_equal(res1["generated"], res2["generated"]),
+            "the two full-width runs generated different ids")
+    log("phase 5: the two full-width runs generated the same ids")
+    del res1, res2
+    profile_lm()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -766,6 +1056,9 @@ def main() -> int:
     t = time.perf_counter()
     paths = phase4_serve()
     log(f"phase 4: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths["serve_lm"] = phase5_lm()
+    log(f"phase 5: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]
@@ -786,7 +1079,8 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"fp32": r["fp32"]} if "fp32" in r else {})})
     log("kernels: " + "; ".join(
         f"{k['name']} err={k['max_abs_err']:.3g} ms={k['ms']:.4g} "
         f"plain={k['plain_ms']:.4g} bound={k['bound_ms']:.4g} "

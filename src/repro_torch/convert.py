@@ -8,6 +8,11 @@ the engine's side-cars as ``scale`` and ``offset``, as the JAX engine's
 ``export_rows`` names them. The tests start both packages from one such
 dict; ``KBEngine.load_state`` takes one too.
 
+``lm_params_from_numpy`` turns the JAX ``LM.init`` pytree, flattened to
+numpy arrays under ``::``-joined key paths (as
+``repro.checkpoint.checkpointing.flatten_params`` writes them), into the
+port's nested parameter dicts.
+
 ``ivf_index_from`` turns an IVF index of either package (any object with
 the index's array attributes, read through ``np.asarray``, so a JAX
 ``IVFIndex`` or ``QuantizedIVFIndex`` converts without this module
@@ -47,6 +52,31 @@ def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
         f: torch.tensor(np.asarray(leaves[f], dtype=dtype(f)),
                         device=device)
         for f in KBState._fields})
+
+
+LM_KEY_SEP = "::"
+# the fp32 leaves of an LM (norm scales); every other leaf is cfg.dtype
+LM_FP32_LEAVES = ("ln1", "ln2", "final_norm")
+
+
+def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg,
+                         device="cuda") -> dict:
+    """The port's LM parameters on ``device`` from ``{"a::b::c": array}``:
+    the norm scales in fp32, every other leaf in ``cfg.dtype`` (a bf16 leaf
+    that was widened to fp32 to be stored in numpy narrows back exactly).
+    Arrays may also be bf16 arrays of ``ml_dtypes``."""
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    params: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split(LM_KEY_SEP)
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        want = torch.float32 if leaf in LM_FP32_LEAVES else dtype
+        node[leaf] = torch.tensor(np.asarray(arr, np.float32),
+                                  device=device).to(want)
+    return params
 
 
 def kb_state_to_numpy(state: KBState) -> Dict[str, np.ndarray]:

@@ -33,7 +33,7 @@ Differences of form from the JAX module:
   tear (``KBEngine.rebuild_ann_index``).
 
 ``ShardedIVFIndex`` and its builders wait for the sharded backend
-(ROADMAP Q1 item 9).
+(ROADMAP Q1 item 6).
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ trainer gradients with no ordering guarantee).
 (``repro_torch.core.ann_index.IVFRefresher``), which takes its snapshots
 under the engine lock that the dispatcher holds for every op.
 
-Not ported yet (ROADMAP Q1 items 5 and 7): the maker runtime and the row
+Not ported yet (ROADMAP Q1 items 2 and 3): the maker runtime and the row
 export/import of the wire fleet.
 """
 from __future__ import annotations
@@ -297,6 +297,12 @@ class KnowledgeBankServer:
                                             shape=shape, meta=meta))
 
     def _submit_nowait(self, req: _Request) -> _Request:
+        # refuse out-of-range ids here, in the caller's thread, so that a
+        # bad request never joins (and fails) a merged run of good ones
+        if req.ids is not None:
+            self.engine.check_ids(req.ids, req.op)
+        if req.excl is not None:
+            self.engine.check_ids(req.excl, "nn_search exclude_ids", low=-1)
         if self.coalesce:
             with self._cond:
                 if self._closed:

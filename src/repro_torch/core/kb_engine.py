@@ -47,6 +47,14 @@ they see there. Two deliberate differences from the JAX engine:
   op runs could tear. On the card the build then runs on a stream of its
   own, and the index is published only once that stream's work is done.
 
+**Ids outside [0, N) are refused.** ``lookup``, ``update``, ``lazy_grad``
+and ``nn_search(exclude_ids=)`` (where -1 is the inert padding) check their
+ids on the host before any device op and raise ``KBIdError``, one error on
+every backend and storage mode, with the state left as it was. The JAX
+engine clamps such reads and drops such writes; on the card an index out of
+range is a device-side assert that would poison the process's CUDA context,
+so the port refuses both (ROADMAP, deliberate differences).
+
 Options this slice does not port raise ``NotImplementedError`` naming the
 ROADMAP item that holds them: ``resident_rows`` and the sharded backend.
 
@@ -77,6 +85,11 @@ from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
 from repro_torch.kernels import nn_search_ivf as ivf
 from repro_torch.kernels import ops
+
+
+class KBIdError(IndexError):
+    """An id outside [0, num_entries) sent to ``KBEngine``: refused on the
+    host before any device op, with the bank unchanged."""
 
 
 class KBBackend(Protocol):
@@ -230,7 +243,7 @@ def make_backend(name: str) -> KBBackend:
         return DenseBackend()
     if name == "sharded":
         raise NotImplementedError(
-            "the sharded backend is not ported yet (ROADMAP Q1 item 9)")
+            "the sharded backend is not ported yet (ROADMAP Q1 item 6)")
     raise ValueError(f"unknown KB backend {name!r} (want cuda | dense)")
 
 
@@ -352,6 +365,19 @@ class KBEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def check_ids(self, ids, what: str, *, low: int = 0) -> None:
+        """Raise ``KBIdError`` unless every id lies in [low, num_entries)
+        (``low`` is -1 for exclusion lists, whose -1 entries are inert)."""
+        ids = np.asarray(ids)
+        if ids.size == 0:
+            return
+        bad = (ids < low) | (ids >= self.num_entries)
+        if bad.any():
+            raise KBIdError(
+                f"{what}: ids {ids[bad][:8].tolist()} lie outside "
+                f"[{low}, {self.num_entries}); the request is refused and "
+                "the bank is unchanged")
+
     # -- embedding ops -----------------------------------------------------
 
     def lookup(self, ids) -> np.ndarray:
@@ -360,6 +386,7 @@ class KBEngine:
         duplicate ids and the bucket padding, which repeats a real id."""
         ids = np.asarray(ids)
         flat = ids.reshape(-1).astype(np.int64)
+        self.check_ids(flat, "lookup")
         if flat.size == 0:
             return np.zeros((*ids.shape, self.dim), np.float32)
         padded = self._tensor(_pad_repeat(flat, _bucket(flat.size)
@@ -380,6 +407,7 @@ class KBEngine:
         (host-side dedupe: a device scatter's order is unspecified). Each
         distinct row is charged once to the ANN staleness clock."""
         ids = np.asarray(ids).reshape(-1).astype(np.int64)
+        self.check_ids(ids, "update")
         if ids.size == 0:
             return
         values = np.asarray(values, np.float32).reshape(ids.size, -1)
@@ -420,6 +448,7 @@ class KBEngine:
         touched rows are charged to the ANN staleness clock: the cached
         gradient will reach the table."""
         ids = np.asarray(ids).reshape(-1).astype(np.int64)
+        self.check_ids(ids, "lazy_grad")
         if ids.size == 0:
             return
         grads = np.asarray(grads, np.float32).reshape(ids.size, -1)
@@ -480,6 +509,7 @@ class KBEngine:
         B = queries.shape[0]
         if exclude_ids is not None:
             excl = np.asarray(exclude_ids, np.int64).reshape(B, -1)
+            self.check_ids(excl, "nn_search exclude_ids", low=-1)
             scores, ids = self.nn_search(
                 queries, min(k + excl.shape[1], self.num_entries), mode=mode)
             banned = ((ids[:, :, None] == excl[:, None, :])

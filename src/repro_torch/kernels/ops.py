@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.knowledge_bank import topk_lowest_id
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cuda, ivf_stage2_q_cuda
 from repro_torch.kernels.kb_fused_lookup import kb_fused_lookup_cuda
 from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
@@ -33,6 +34,7 @@ LAUNCHERS = {
     "kb_fused_lookup_q": kb_fused_lookup_q_cuda,
     "ivf_stage2": ivf_stage2_cuda,
     "ivf_stage2_q": ivf_stage2_q_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -120,6 +122,17 @@ def ivf_stage2_q(packed_codes, packed_scale, packed_offset, packed_ids,
     return ivf_stage2_q_cuda(packed_codes, packed_scale, packed_offset,
                              packed_ids, bucket_occ, queries,
                              probes.to(torch.int32), k)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Attention with an online softmax in the JAX layout: q (B, S, H, d),
+    k/v (B, S, KV, d) -> (B, S, H, d) in q's dtype."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, softcap=softcap)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
 
 
 def overfetch_exclude_topk(search, n_rows: int, k: int, exclude_ids):

@@ -9,10 +9,13 @@ calls these.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.knowledge_bank import (dequantize_rows, pending_delta,
                                              quantize_rows, topk_lowest_id)
+from repro_torch.kernels.flash_attention import KV_TILE
 from repro_torch.kernels.nn_search_ivf import (IMAX, NEG, STAGE2_BLOCK,
                                                _chunk_rows, ivf_chunk_plan)
 
@@ -164,3 +167,51 @@ def ivf_stage2_q_ref(packed_codes, packed_scale, packed_offset, packed_ids,
                          * packed_scale[rows]
                          + torch.sum(q) * packed_offset[rows]),
         packed_ids, bucket_occ, queries, probes, k)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Plain version of ``csrc/flash_attention.cu`` (the Pallas
+    ``flash_attention_pallas``, and ``flash_attention_jax``), in the JAX
+    layout: q (B, S, H, d), k/v (B, S, KV, d) -> (B, S, H, d) in q's
+    dtype. Query head h reads KV head h // (H / KV), without a repeated
+    copy. The fp32 kernel's arithmetic over KV tiles of ``KV_TILE`` keys,
+    all in fp32: q cast and scaled by 1/sqrt(d) before the product, the
+    optional tanh soft cap, masked scores -1e30, the online softmax
+    (running max m, sum l, accumulator), and out = acc / max(l, 1e-30).
+    Tiles that the kernel skips (above the causal diagonal, before the
+    window) leave m, l and acc as they are here too, or are wiped by the
+    first tile with a live score, so the two agree but for the order of
+    their fp32 sums (the bf16 kernel's differences: its source header)."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    if k.shape != (B, S, KV, d) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"(B, S, KV, d) = ({B}, {S}, KV, {d})")
+    qf = (q.float() * (1.0 / math.sqrt(d))).view(B, S, KV, H // KV, d)
+    m = torch.full((B, KV, H // KV, S), NEG, device=q.device)
+    lsum = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, S, d), device=q.device)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    for k0 in range(0, S, KV_TILE):
+        kb = k[:, k0:k0 + KV_TILE].float()               # (B, c, KV, d)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kb)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+        mask = torch.ones((S, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= qpos >= kpos
+        if window:
+            mask &= qpos - kpos < window
+        s = torch.where(mask, s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lsum = lsum * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqc,bckd->bkgqd", p, v[:, k0:k0 + KV_TILE].float())
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)

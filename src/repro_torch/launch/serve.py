@@ -1,5 +1,18 @@
-"""Knowledge-Bank serving on the port: the in-process client mode of
-``repro.launch.serve --kb``.
+"""Serving on the port: LM prefill + greedy decode, and the in-process
+client mode of ``repro.launch.serve --kb``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+      --batch 2 --prompt-len 8 --gen 4
+
+LM mode (no ``--kb``) does what the JAX launcher's does: the reduced
+config of ``--arch``, random weights from ``--seed`` (here a
+``torch.Generator`` on the device), prompts from
+``np.random.default_rng(seed)``, prefill into a cache of
+``prompt_len + gen + 1`` slots, then ``--gen`` greedy decode steps fed
+the prompt's last token first (so, as in the JAX launcher, that token is
+seen twice: at its position and at position ``prompt_len``). It prints
+the JAX launcher's two lines. ``serve_lm`` takes any config, the
+unreduced one included, and optional parameters.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --kb
 
@@ -30,8 +43,13 @@ import threading
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.async_runtime import KnowledgeBankServer
+from repro_torch.env import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import build_model
 
 OGBN_MAG_ROWS = 1_939_743
 OGBN_MAG_DIM = 128
@@ -139,10 +157,72 @@ def serve_kb(args) -> dict:
             "first_index_s": build_s, "engine": server.engine}
 
 
+def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+             device="cuda", params=None) -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
+    ``gen`` tokens greedily, as ``repro.launch.serve``'s LM mode does.
+    ``params`` (``LM.init``'s tree, e.g. from
+    ``repro_torch.convert.lm_params_from_numpy``) default to random ones
+    from ``seed``. Returns the generated ids (batch, gen), the last step's
+    logits (batch, vocab), the prefill and per-token decode times in ms
+    (host clock around work that ends in a device sync), and the kernel
+    launches each phase made."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (batch, prompt_len))
+                            .astype(np.int32)).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def launches_since(before):
+        return {n: c - before[n] for n, c in ops.launch_counts().items()}
+
+    with torch.inference_mode():
+        sync()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        cache, _ = model.prefill(params, toks,
+                                 cache_len=prompt_len + gen + 1)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        prefill_launches = launches_since(before)
+        before = ops.launch_counts()
+        last = toks[:, -1:]
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = model.decode_step(params, cache, last)
+            last = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            out.append(last)
+        sync()
+        t_decode = time.perf_counter() - t0
+    generated = torch.cat(out, 1).cpu().numpy()
+    print(f"arch={cfg.name} prefill({batch}x{prompt_len})="
+          f"{t_prefill * 1e3:.0f}ms decode {gen} tok: "
+          f"{t_decode / gen * 1e3:.1f} ms/tok", flush=True)
+    print("generated:", generated[0].tolist(), flush=True)
+    return {"generated": generated, "last_logits": logits[:, -1],
+            "prefill_ms": t_prefill * 1e3,
+            "decode_ms_per_token": t_decode / gen * 1e3,
+            "prefill_launches": prefill_launches,
+            "decode_launches": launches_since(before)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, default="yi-6b",
+                    help="LM mode: the model (its reduced config)")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="LM mode: prompt tokens per sequence")
     ap.add_argument("--kb", action="store_true",
-                    help="serve the knowledge bank (the only mode ported)")
+                    help="serve the knowledge bank instead of the LM")
     ap.add_argument("--kb-backend", choices=["cuda", "dense"],
                     default="cuda",
                     help="cuda: the kernel backend; dense: the plain "
@@ -152,7 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gen", type=int, default=16,
-                    help="lookup/lazy_grad/nn_search rounds per client")
+                    help="tokens to decode (LM), or lookup/lazy_grad/"
+                         "nn_search rounds per client (--kb)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-coalesce", action="store_true",
                     help="per-call locked baseline (benchmark ablation)")
@@ -174,28 +255,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--listen", default="", metavar="HOST:PORT",
-                    help="not ported yet (ROADMAP Q1 item 7)")
+                    help="not ported yet (ROADMAP Q1 item 4)")
     ap.add_argument("--kb-join", default="", metavar="I/N",
-                    help="not ported yet (ROADMAP Q1 item 7)")
+                    help="not ported yet (ROADMAP Q1 item 4)")
     ap.add_argument("--kb-makers", default="",
-                    help="not ported yet (ROADMAP Q1 item 5)")
+                    help="not ported yet (ROADMAP Q1 item 2)")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if not args.kb:
-        raise NotImplementedError(
-            "LM serving (serve.py --arch) is not ported yet (ROADMAP Q1 "
-            "item 10); pass --kb")
     if args.listen or args.kb_join:
         raise NotImplementedError(
             "--listen / --kb-join (the wire protocol and the fleet) are not "
-            "ported yet (ROADMAP Q1 item 7)")
+            "ported yet (ROADMAP Q1 item 4)")
     if args.kb_makers:
         raise NotImplementedError(
             "--kb-makers (the maker runtime) is not ported yet (ROADMAP Q1 "
-            "item 5)")
+            "item 2)")
+    if not args.kb:
+        return serve_lm(get_config(args.arch).reduced(), batch=args.batch,
+                        prompt_len=args.prompt_len, gen=args.gen,
+                        seed=args.seed, device=args.device)
     return serve_kb(args)
 
 

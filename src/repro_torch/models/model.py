@@ -1,0 +1,224 @@
+"""The language model of the llama family (attention + SwiGLU layers); the
+port of ``repro/models/model.py``'s ``LM`` for that spec.
+
+Parameters keep the JAX package's pytree as nested dicts, with each layer
+parameter stacked over the ``G`` scan groups, so that a JAX checkpoint
+converts leaf by leaf (``repro_torch.convert.lm_params_from_numpy``). A
+Python loop over the groups takes the place of ``lax.scan`` and indexes
+group ``g`` of each stacked tensor (a view, not a copy).
+
+The decode cache is a dict as in JAX: ``groups/pos{p}/k|v`` of shape
+(G, B, C, KV, hd), ``pos`` (B, C) the absolute position held by each ring
+slot (-1 empty), and ``t`` the next token's position, a Python int. Decode
+writes slot ``t % C`` in place and returns the same dict.
+
+Mamba, RWKV6, MoE, cross-attention and the vision and audio front-ends
+raise ``NotImplementedError`` naming the ROADMAP item that holds them, and
+``build_model`` builds only the archs whose parity with the JAX package
+the port's tests hold (``PORTED_ARCHS``).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+PORTED_ARCHS = ("yi-6b",)
+_NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
+
+
+def _layer(tree, g: int):
+    """Group ``g`` of every stacked tensor of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.spec = self._group_spec()
+
+    # ------------------------------------------------------------------
+    def _group_spec(self) -> List[Tuple[str, str]]:
+        cfg = self.cfg
+        if cfg.frontend != "none":
+            raise NotImplementedError(
+                f"the {cfg.frontend} front-end {_NOT_PORTED}")
+        if cfg.cross_attention:
+            raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
+        pat = cfg.layer_pattern()
+        gs = cfg.group_size()
+        mixers = [pat[i % len(pat)] for i in range(gs)]
+        spec = []
+        for p in range(gs):
+            if mixers[p] != "attn":
+                raise NotImplementedError(
+                    f"the {mixers[p]} mixer {_NOT_PORTED}; its kernel is "
+                    "ROADMAP Q2")
+            if cfg.is_moe and (p % cfg.moe_every == cfg.moe_every - 1):
+                raise NotImplementedError(f"the MoE feed-forward "
+                                          f"{_NOT_PORTED}")
+            spec.append(("attn", "swiglu"))
+        return spec
+
+    @property
+    def num_groups(self) -> int:
+        return self.cfg.num_groups()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return T.model_dtype(self.cfg)
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def init(self, gen: torch.Generator) -> Dict:
+        """Random parameters on ``gen``'s device, with the JAX package's
+        distributions: embeddings N(0, 0.02^2), weights truncated-normal
+        fan-in, norm scales 0 (fp32)."""
+        cfg = self.cfg
+        G, D, dev = self.num_groups, cfg.d_model, gen.device
+
+        def embed():
+            out = torch.empty((cfg.vocab_size, D), dtype=self.dtype,
+                              device=dev)
+            return L.embed_init_(out, gen)
+
+        params: Dict = {"embed": {"tok": embed()},
+                        "final_norm": torch.zeros((D,), device=dev)}
+        if not cfg.tie_embeddings:
+            params["out_embed"] = embed()
+        groups: Dict = {}
+        for p, (_, ffnk) in enumerate(self.spec):
+            groups[f"pos{p}"] = {
+                "ln1": torch.zeros((G, D), device=dev),
+                "ln2": torch.zeros((G, D), device=dev),
+                "attn": T.attn_init(gen, cfg, batch_dims=(G,)),
+                "ffn": T.ffn_init(gen, cfg, ffnk, batch_dims=(G,))}
+        params["groups"] = groups
+        return params
+
+    def out_embed(self, params):
+        return params.get("out_embed", params["embed"]["tok"])
+
+    # ------------------------------------------------------------------
+    # train / prefill forward
+    # ------------------------------------------------------------------
+    def hidden(self, params, tokens, *, impl="auto", collect_cache=False):
+        """tokens: (B, S) integer ids. Returns (h (B, S, D) after the final
+        norm, cache_ys): with ``collect_cache``, cache_ys holds each
+        position's keys and values stacked over the groups,
+        ``{"pos{p}": {"k", "v": (G, B, S, KV, hd)}}``, else None."""
+        cfg = self.cfg
+        h = params["embed"]["tok"][tokens.long()]
+        positions = torch.arange(h.shape[1], device=h.device)
+        ks = {p: [] for p in range(len(self.spec))}
+        vs = {p: [] for p in range(len(self.spec))}
+        for g in range(self.num_groups):
+            gp = _layer(params["groups"], g)
+            for p, (_, ffnk) in enumerate(self.spec):
+                lp = gp[f"pos{p}"]
+                hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+                a, (k, v) = T.attn_apply(lp["attn"], hn, cfg,
+                                         positions=positions,
+                                         window=cfg.window, impl=impl)
+                if collect_cache:
+                    ks[p].append(k)
+                    vs[p].append(v)
+                h = h + a
+                hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+                h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if not collect_cache:
+            return h, None
+        return h, {f"pos{p}": {"k": torch.stack(ks[p]),
+                               "v": torch.stack(vs[p])} for p in ks}
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def cache_shapes(self, B: int, C: int) -> Dict:
+        """(shape, dtype) of every cache leaf but ``t``. C = cache length
+        for attention layers."""
+        G = self.num_groups
+        KV, hd = self.cfg.num_kv_heads, self.cfg.head_dim_
+        kv = ((G, B, C, KV, hd), self.dtype)
+        return {"groups": {f"pos{p}": {"k": kv, "v": kv}
+                           for p in range(len(self.spec))},
+                "pos": ((B, C), torch.int32)}
+
+    def init_cache(self, B: int, C: int, *, device) -> Dict:
+        shapes = self.cache_shapes(B, C)
+        cache = {"groups": {pk: {n: torch.zeros(s, dtype=dt, device=device)
+                                 for n, (s, dt) in ent.items()}
+                            for pk, ent in shapes["groups"].items()},
+                 "t": 0}
+        s, dt = shapes["pos"]
+        cache["pos"] = torch.full(s, -1, dtype=dt, device=device)
+        return cache
+
+    def decode_step(self, params, cache, token):
+        """token: (B, 1) ids. Returns (logits (B, 1, V), cache), the cache
+        updated in place: slot t % C of every layer and of ``pos``, then
+        t + 1."""
+        cfg = self.cfg
+        t = cache["t"]
+        h = params["embed"]["tok"][token.long()]             # (B, 1, D)
+        kv_pos = cache["pos"]
+        C = kv_pos.shape[1]
+        kv_pos[:, t % C] = t
+        window = self._serve_window(C)
+        for g in range(self.num_groups):
+            gp = _layer(params["groups"], g)
+            for p, (_, ffnk) in enumerate(self.spec):
+                lp = gp[f"pos{p}"]
+                cc = cache["groups"][f"pos{p}"]
+                hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+                a, _, _ = T.attn_decode(lp["attn"], hn, cc["k"][g],
+                                        cc["v"][g], kv_pos, t, cfg,
+                                        window=window)
+                h = h + a
+                hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+                h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        logits = h @ self.out_embed(params).T
+        cache["t"] = t + 1
+        return logits, cache
+
+    def _serve_window(self, cache_len: int) -> int:
+        """Ring caches shorter than the context imply a sliding window
+        equal to the cache length; full caches use the config's train
+        window."""
+        cfg = self.cfg
+        if cache_len <= cfg.serve_long_window:
+            return cache_len
+        return cfg.window
+
+    # ------------------------------------------------------------------
+    def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
+        """Run the full prompt, return (cache, last_hidden)."""
+        B, S = tokens.shape
+        h, cache_ys = self.hidden(params, tokens, impl="auto",
+                                  collect_cache=True)
+        C = cache_len or S + 64
+        cache = self.init_cache(B, C, device=h.device)
+        for pk, ent in cache_ys.items():
+            tgt = cache["groups"][pk]
+            tgt["k"][:, :, :S] = ent["k"]
+            tgt["v"][:, :, :S] = ent["v"]
+        pos = torch.arange(C, dtype=torch.int32, device=h.device)
+        cache["pos"][:] = torch.where(pos < S, pos, -1)
+        cache["t"] = S
+        return cache, h
+
+
+def build_model(cfg: ModelConfig) -> LM:
+    if cfg.name not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.name} {_NOT_PORTED}: the port builds {PORTED_ARCHS}")
+    return LM(cfg)

@@ -1,0 +1,112 @@
+"""Attention mixer and feed-forward block of the llama path; the port of
+``repro/models/transformer.py``.
+
+Parameters are plain dicts of tensors under the JAX package's names
+(wq/wk/wv/wo, wi/wg/wo), stacked over ``batch_dims`` as there. The initialisers
+fill tensors on the generator's device. Decode writes the new token's key
+and value into the caller's cache in place. The MoE and GELU feed-forwards
+and cross-attention (whisper) are not ported yet (ROADMAP Q1 item 7).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+_NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _dense(gen, cfg, d_in, d_out, batch_dims, scale=1.0):
+    out = torch.empty((*batch_dims, d_in, d_out), dtype=model_dtype(cfg),
+                      device=gen.device)
+    return L.dense_init_(out, gen, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# attention mixer
+# ---------------------------------------------------------------------------
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, batch_dims=()):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    return {
+        "wq": _dense(gen, cfg, D, H * hd, batch_dims),
+        "wk": _dense(gen, cfg, D, KV * hd, batch_dims),
+        "wv": _dense(gen, cfg, D, KV * hd, batch_dims),
+        "wo": _dense(gen, cfg, H * hd, D, batch_dims,
+                     scale=1.0 / max(cfg.num_layers, 1) ** 0.5),
+    }
+
+
+def _qkv(params, x, cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    k = (x @ params["wk"]).reshape(B, S, KV, hd)
+    v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def attn_apply(params, x, cfg: ModelConfig, *, positions, causal=True,
+               window=0, impl="auto"):
+    """Full-sequence attention (train / prefill). x: (B, S, D). Returns
+    (y, (k, v)) with k and v after rope, for the cache."""
+    q, k, v = _qkv(params, x, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = L.attention(q, k, v, causal=causal, window=window,
+                      softcap=cfg.logit_softcap, impl=impl)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, -1) @ params["wo"], (k, v)
+
+
+def attn_decode(params, x1, kc, vc, kv_pos, t: int, cfg: ModelConfig, *,
+                window=0):
+    """One-token decode against a (ring-buffer) cache.
+
+    x1: (B,1,D); kc/vc: (B,C,KV,hd), written in place: the new token's key
+    and value go to slot t % C; kv_pos: (B,C) absolute positions (-1
+    empty), which must already hold t at that slot (``LM.decode_step``
+    writes it once for every layer); t: absolute position of the new
+    token. Returns (y1, kc, vc).
+    """
+    B = x1.shape[0]
+    C = kc.shape[1]
+    q, k, v = _qkv(params, x1, cfg)
+    tpos = torch.full((B,), t, dtype=torch.int32, device=x1.device)
+    q = L.apply_rope(q, tpos[:, None], cfg.rope_theta)
+    k = L.apply_rope(k, tpos[:, None], cfg.rope_theta)
+    slot = t % C
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    out = L.decode_attention(q, kc, vc, kv_pos, window=window,
+                             softcap=cfg.logit_softcap, q_position=tpos)
+    return out.reshape(B, 1, -1) @ params["wo"], kc, vc
+
+
+# ---------------------------------------------------------------------------
+# feed-forward
+# ---------------------------------------------------------------------------
+
+
+def ffn_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+             batch_dims=()):
+    if kind != "swiglu":
+        raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
+    D, F = cfg.d_model, cfg.d_ff
+    return {"wi": _dense(gen, cfg, D, F, batch_dims),
+            "wg": _dense(gen, cfg, D, F, batch_dims),
+            "wo": _dense(gen, cfg, F, D, batch_dims)}
+
+
+def ffn_apply(params, x, cfg: ModelConfig, kind: str):
+    """The feed-forward block; the JAX function's aux loss is MoE's, and
+    is 0 for SwiGLU, so only y is returned."""
+    if kind != "swiglu":
+        raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
+    return L.swiglu(x, params["wi"], params["wg"], params["wo"])

@@ -1,5 +1,6 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on a
-card (the int8 lookup and the two IVF stage-2 kernels at the end). Every test is marked ``cuda`` and skips where no CUDA device is
+card (the int8 lookup, the two IVF stage-2 kernels and flash attention at
+the end). Every test is marked ``cuda`` and skips where no CUDA device is
 present (it decides inside the test, so that every xdist worker collects
 the same tests). The file imports no JAX, so it runs on a machine that
 has only PyTorch:
@@ -13,7 +14,9 @@ leaves atol 1e-6 (each clip computed step by step as the plain version
 does, its squares summed in another order). The IVF stage-2 kernels'
 scores, at the score scale of a clustered bank of width 128 (hundreds),
 are held to atol 1e-4 plus 8 fp32 ulps of the score, and their ids by
-gaps of 1e-4 plus twice that.
+gaps of 1e-4 plus twice that. Flash attention outputs: fp32 atol 2e-5,
+bf16 atol 2e-2 (tests/test_kernels.py's bounds; a bf16 output may round
+one ulp the other way).
 """
 import numpy as np
 import pytest
@@ -261,3 +264,53 @@ def test_cuda_ivf_stage2_unwritten_slots_merge_as_padding():
                       odd, k)
         assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
+
+
+FLASH_CASES = [  # (B, S, H, KV, d, causal, window, softcap)
+    (2, 128, 2, 2, 64, True, 0, 0.0),
+    (2, 256, 2, 2, 64, False, 0, 0.0),
+    (2, 256, 2, 2, 64, True, 64, 0.0),
+    (2, 256, 2, 2, 64, True, 0, 30.0),
+    (1, 512, 2, 2, 64, True, 100, 20.0),
+    (2, 200, 4, 2, 128, True, 0, 0.0),       # GQA, a ragged edge
+    (1, 300, 8, 1, 32, False, 50, 0.0),      # MQA, window, not causal
+    (1, 2048, 8, 2, 128, True, 0, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(case, dtype, atol):
+    dev = _require_card()
+    B, S, H, KV, d, causal, window, softcap = case
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev).to(dtype)
+               for n in (H, KV, KV))
+    kern = ops.LAUNCHERS["flash_attention"]
+    before = kern.launches
+    got = kern(q, k, v, causal=causal, window=window, softcap=softcap)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_cannot_take():
+    dev = _require_card()
+    q = torch.randn((1, 64, 4, 64), device=dev)
+    kv = torch.randn((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48].contiguous(),
+                            kv[..., :48].contiguous(), kv[..., :48]
+                            .contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q[:, :, :3].contiguous(), kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.flash_attention(q.half(), kv.half(), kv.half())

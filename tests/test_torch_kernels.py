@@ -252,7 +252,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["kb_gather"])
     with pytest.raises(ValueError, match="unknown kernel source"):
-        _build.build(["flash_attention"])
+        _build.build(["mamba_scan"])
 
 
 def test_build_dir_follows_the_sources(tmp_path, monkeypatch):
