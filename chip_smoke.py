@@ -40,19 +40,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
    at batch 4, a 2048-token prompt and 16 decoded tokens, twice: prefill
    and decode times, peak device memory, 32 flash-attention launches per
    prefill, and identical ids from the two runs; then one profiled
-   prefill and decode.
+   prefill and decode;
+6. RWKV6 serving: the reduced rwkv6-7b (2 layers, d 128, 4 WKV heads of
+   32, fp32) on the card against the CPU (hidden, the prefill cache's
+   state S and x_prev, four decode steps' logits and ids); then, with
+   yi-6b's weights freed and the peak-memory counter reset, ``serve_lm``
+   at the full width of rwkv6-7b (32 layers, d 4096, 64 WKV heads of 64,
+   d_ff 14336, vocab 65536, bf16, random weights from seed 0) at batch 4,
+   a 2048-token prompt and 16 decoded tokens, twice: 32 WKV launches per
+   prefill and none in decode, identical ids; then one profiled prefill
+   and decode.
 
 Phase 2 also holds the flash-attention kernel against its plain version
 at the prefill's shapes (B 4, S 2048, H 32, KV 4, d 128, causal) in bf16
 and fp32, beside ``scaled_dot_product_attention`` as the library
-yardstick, and on smaller window and soft-cap cases; phase 3 first sends
-out-of-range ids to a cuda server, which must refuse them, leave the bank
-as it was and serve the next request.
+yardstick, and on smaller window and soft-cap cases, and the WKV kernel
+(y and the final state) at the rwkv6-7b prefill's shapes (B 4, S 2048,
+H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases; phase 3
+first sends out-of-range ids to a cuda server, which must refuse them,
+leave the bank as it was and serve the next request.
 
 It prints the kernels' record as one JSON line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
 or of the JAX package.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -105,6 +117,11 @@ HALF_TOL = 1e-4
 # flash attention against its plain version: tests/test_kernels.py's
 # bounds (a bf16 output may round one ulp the other way)
 ATOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# WKV against its plain version, y and the final state:
+# tests/test_kernels.py's atol plus 1e-5 of the value (y reaches tens at
+# the model's ranges; its 64-term sums and the state carried over 2048
+# steps run in another order and with fused multiply-adds)
+ATOL_WKV, RTOL_WKV = 5e-5, 1e-5
 # the LM's serve run: batch, prompt and decoded tokens
 LM_B, LM_PROMPT, LM_GEN = 4, 2048, 16
 # the reduced LM, card against CPU: hidden states (after the final norm, up
@@ -121,15 +138,17 @@ KERNELS = {
     "ivf_stage2": "src/repro/kernels/nn_search_ivf.py:186",
     "ivf_stage2_q": "src/repro/kernels/nn_search_ivf.py:281",
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
+    "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:54",
 }
-# the path each kernel's launches are read from (phase 3, 4 or 5)
+# the path each kernel's launches are read from (phase 3, 4, 5 or 6)
 KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "kb_gather": "engine_immediate",
                "lazy_apply": "serve_exact", "nn_search": "serve_exact",
                "kb_fused_lookup_q": "serve_int8_ivf",
                "ivf_stage2": "serve_fp32_ivf",
                "ivf_stage2_q": "serve_int8_ivf",
-               "flash_attention": "serve_lm"}
+               "flash_attention": "serve_lm",
+               "rwkv_wkv": "serve_rwkv"}
 
 
 def log(msg: str) -> None:
@@ -375,6 +394,71 @@ def phase2_flash():
     return res
 
 
+WKV_SMALL = [  # (B, S, H, d, dtype)
+    (2, 200, 4, 16, torch.float32),      # a ragged last chunk
+    (3, 333, 8, 32, torch.bfloat16),
+    (1, 1000, 2, 64, torch.float32),
+    (2, 1, 3, 32, torch.bfloat16),       # one step
+]
+
+
+def wkv_inputs(B, S, H, d, dtype, g):
+    """r, k, v N(0, 1) in ``dtype``; w = exp(-exp(N(-2, 0.5))) and u
+    0.1 N(0, 1) in fp32: the rwkv6 model's ranges (the projections of a
+    normed input; the decay base dec_0 = -2 plus a low-rank term)."""
+    dev = torch.device("cuda")
+    r, k, v = (torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+        (B, S, H, d), generator=g, device=dev)))
+    u = 0.1 * torch.randn((H, d), generator=g, device=dev)
+    return r, k, v, w, u
+
+
+def wkv_err(got, want) -> float:
+    """Max abs error of (y, S_fin) against the plain version's; raises
+    where an entry is off by more than ATOL_WKV + RTOL_WKV |want|."""
+    for a, b, what in zip(got, want, ("y", "S_fin")):
+        over = (a - b).abs() - RTOL_WKV * b.abs() > ATOL_WKV
+        require(not bool(over.any()),
+                f"rwkv_wkv {what} disagrees at {int(over.sum())} entries")
+    return max(max_err(a, b) for a, b in zip(got, want))
+
+
+def phase2_wkv():
+    """The WKV kernel against its plain version at the rwkv6-7b prefill's
+    shapes (B 4, S 2048, H 64, d 64; r, k, v bf16), then on smaller
+    cases."""
+    kern = ops.LAUNCHERS["rwkv_wkv"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cfg = get_config("rwkv6-7b")
+    H, d = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    args = wkv_inputs(LM_B, LM_PROMPT, H, d, torch.bfloat16, g)
+    got, want = kern(*args), ref.rwkv_wkv_ref(*args)
+    torch.cuda.synchronize()
+    err = wkv_err(got, want)
+    # r, k, v read once, w and u once, y and S_fin written once; 2 FMAs
+    # per (b, h, t, i, j)
+    n = args[0].numel()
+    nbytes = 3 * n * 2 + n * 4 + args[4].numel() * 4 + n * 4 \
+        + LM_B * H * d * d * 4
+    res = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args), 20),
+               plain_ms=time_ms(lambda: ref.rwkv_wkv_ref(*args), 2),
+               library_ms=None,
+               bound=bound(nbytes, 4.0 * LM_B * H * LM_PROMPT * d * d))
+    log(f"phase 2: rwkv_wkv bf16 (B {LM_B}, S {LM_PROMPT}, H {H}, d {d}): "
+        f"{res}; y up to {float(want[0].abs().max())}, S_fin up to "
+        f"{float(want[1].abs().max())}")
+    del args, got, want
+    for B, S, H, d, dtype in WKV_SMALL:
+        args = wkv_inputs(B, S, H, d, dtype, g)
+        got, want = kern(*args), ref.rwkv_wkv_ref(*args)
+        torch.cuda.synchronize()
+        log(f"phase 2: rwkv_wkv {dtype} B {B} S {S} H {H} d {d}: "
+            f"max_abs_err={wkv_err(got, want)}")
+    return res
+
+
 def phase2_kernels():
     """Each kernel against its plain version at the serve path's shapes."""
     kernels = ops.LAUNCHERS
@@ -544,6 +628,7 @@ def phase2_kernels():
     del codes, qscale, qoffset, table
     torch.cuda.empty_cache()
     results["flash_attention"] = phase2_flash()
+    results["rwkv_wkv"] = phase2_wkv()
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
@@ -908,55 +993,64 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase5_reduced():
-    """The reduced yi-6b (2 layers, d 128, fp32) on the card against the
-    CPU, on one set of parameters and prompts: the prefill's hidden states
-    and cache (its attention through the flash kernel on the card, the
-    plain version on the CPU), then four decode steps fed the CPU's
-    greedy ids, their logits and ids."""
-    cfg = get_config("yi-6b").reduced()
+def reduced_parity(arch: str, kernel: str, rtol: float):
+    """The reduced ``arch`` (2 layers, d 128, fp32) on the card against
+    the CPU, on one set of parameters and prompts: the prefill's hidden
+    states and cache (its ``kernel`` on the card, the plain version on the
+    CPU), then four decode steps fed the CPU's greedy ids, their logits
+    and ids. Each value within ATOL_LM plus ``rtol`` of its CPU value."""
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0))
     p_dev = _to(p_cpu, "cuda")
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, LM_PROMPT)).astype(np.int32))
     C = LM_PROMPT + 5
+
+    def err(a, b, what):
+        a = a.cpu()
+        over = (a - b).abs() - rtol * b.abs() > ATOL_LM
+        require(not bool(over.any()), f"reduced {arch} card vs CPU: {what} "
+                f"off at {int(over.sum())} entries")
+        return max_err(a, b)
+
     with torch.inference_mode():
         ops.reset_launch_counts()
         cache_d, h_d = model.prefill(p_dev, toks.cuda(), cache_len=C)
-        flash = ops.launch_counts()["flash_attention"]
+        launches = ops.launch_counts()[kernel]
         cache_c, h_c = model.prefill(p_cpu, toks, cache_len=C)
-        err_h = max_err(h_d.cpu(), h_c)
-        err_kv = max(max_err(cache_d["groups"]["pos0"][n].cpu(),
-                             cache_c["groups"]["pos0"][n]) for n in "kv")
-        last, err_l, decided = toks[:, -1:], 0.0, 0
+        errs = {"hidden": err(h_d, h_c, "hidden")}
+        for n, leaf in cache_c["groups"]["pos0"].items():
+            errs[f"cache {n}"] = err(cache_d["groups"]["pos0"][n], leaf,
+                                     f"cache {n}")
+        last, errs["logits"], decided = toks[:, -1:], 0.0, 0
         for _ in range(4):
             l_d = model.decode_step(p_dev, cache_d, last.cuda())[0][:, -1]
             l_c = model.decode_step(p_cpu, cache_c, last)[0][:, -1]
+            errs["logits"] = max(errs["logits"], err(l_d, l_c, "logits"))
             l_d = l_d.cpu()
-            err_l = max(err_l, max_err(l_d, l_c))
             top2 = l_c.topk(2).values
             ok = (top2[:, 0] - top2[:, 1]) > ID_GAP
             require(torch.equal(l_d.argmax(-1)[ok], l_c.argmax(-1)[ok]),
-                    "reduced yi-6b: card and CPU ids differ")
+                    f"reduced {arch}: card and CPU ids differ")
             decided += int(ok.sum())
             last = l_c.argmax(-1, keepdim=True).to(torch.int32)
-    require(flash == cfg.num_layers,
-            f"reduced yi-6b prefill launched flash {flash} times")
-    require(max(err_h, err_kv, err_l) <= ATOL_LM,
-            f"reduced yi-6b card vs CPU: hidden {err_h}, cache {err_kv}, "
-            f"logits {err_l}")
-    log(f"phase 5: reduced yi-6b ({cfg.num_layers} layers, d "
+    require(launches == cfg.num_layers,
+            f"reduced {arch} prefill launched {kernel} {launches} times")
+    phase = "phase 5" if arch == "yi-6b" else "phase 6"
+    log(f"{phase}: reduced {arch} ({cfg.num_layers} layers, d "
         f"{cfg.d_model}, fp32), prompt 2 x {LM_PROMPT}, 4 decode steps: "
-        f"card vs CPU max abs err hidden {err_h}, cache k/v {err_kv}, "
-        f"logits {err_l}; ids equal on the {decided} decided steps; "
-        f"{flash} flash launches on the card")
+        f"card vs CPU max abs err {errs}; ids equal on the {decided} "
+        f"decided steps; {launches} {kernel} launches on the card")
 
 
-def lm_run(label: str):
-    """``serve_lm`` at the full width of yi-6b, with every kernel counter
-    set to 0 just before it and read just after."""
-    cfg = get_config("yi-6b")
+def lm_run(label: str, arch: str = "yi-6b",
+           kernel: str = "flash_attention"):
+    """``serve_lm`` at the full width of ``arch``, with every kernel
+    counter set to 0 just before it and read just after; ``kernel`` must
+    have been launched once per layer in the prefill and never in the
+    decode."""
+    cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -971,23 +1065,25 @@ def lm_run(label: str):
             and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
             and bool(torch.isfinite(res["last_logits"]).all()),
             f"{label}: ids out of range or logits not finite")
-    require(res["prefill_launches"]["flash_attention"] == cfg.num_layers
-            and res["decode_launches"]["flash_attention"] == 0,
-            f"{label}: flash launches {res['prefill_launches']} in the "
+    require(res["prefill_launches"][kernel] == cfg.num_layers
+            and res["decode_launches"][kernel] == 0,
+            f"{label}: {kernel} launches {res['prefill_launches']} in the "
             f"prefill, {res['decode_launches']} in the decode")
-    log(f"phase 5: {label}: prefill({LM_B}x{LM_PROMPT}) "
+    phase = "phase 5" if arch == "yi-6b" else "phase 6"
+    log(f"{phase}: {label}: prefill({LM_B}x{LM_PROMPT}) "
         f"{res['prefill_ms']} ms, decode {res['decode_ms_per_token']} "
         f"ms/token, peak device memory {peak} bytes, {wall:.1f} s with "
         f"init; launches {counts}")
     return res, counts
 
 
-def profile_lm():
-    """One prefill and four decode steps of the full-width yi-6b under
+def profile_lm(arch: str = "yi-6b"):
+    """One prefill and four decode steps of the full-width ``arch`` under
     ``torch.profiler``: wall time, device time by kernel, busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config("yi-6b")
+    phase = "phase 5" if arch == "yi-6b" else "phase 6"
+    cfg = get_config(arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1020,8 +1116,8 @@ def profile_lm():
                   and e.self_device_time_total > 0]
             dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
             top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-            log(f"phase 5: profiled {label} ({LM_B}x{LM_PROMPT}): wall "
-                f"{wall_ms} ms, device {dev_ms} ms "
+            log(f"{phase}: profiled {arch} {label} ({LM_B}x{LM_PROMPT}): "
+                f"wall {wall_ms} ms, device {dev_ms} ms "
                 f"({100 * dev_ms / wall_ms:.1f}% busy under the profiler); "
                 "top: " + "; ".join(
                     f"{e.key[:60]} x{e.count} "
@@ -1029,7 +1125,7 @@ def profile_lm():
 
 
 def phase5_lm():
-    phase5_reduced()
+    reduced_parity("yi-6b", "flash_attention", rtol=0.0)
     res1, counts = lm_run("yi-6b full width run 1")
     res2, _ = lm_run("yi-6b full width run 2")
     require(np.array_equal(res1["generated"], res2["generated"]),
@@ -1037,6 +1133,30 @@ def phase5_lm():
     log("phase 5: the two full-width runs generated the same ids")
     del res1, res2
     profile_lm()
+    return counts
+
+
+def phase6_rwkv():
+    # the state S is a sum over the 2048 steps: RTOL_WKV of its value too
+    reduced_parity("rwkv6-7b", "rwkv_wkv", rtol=RTOL_WKV)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    require(held < 2 ** 30, f"{held} bytes still allocated before the "
+            "rwkv6-7b runs: yi-6b's weights were not freed")
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 6: {held} bytes allocated before the full-width runs")
+    res1, counts = lm_run("rwkv6-7b full width run 1", "rwkv6-7b",
+                          "rwkv_wkv")
+    res2, counts2 = lm_run("rwkv6-7b full width run 2", "rwkv6-7b",
+                           "rwkv_wkv")
+    require(counts["flash_attention"] == counts2["flash_attention"] == 0,
+            "the rwkv6-7b runs launched flash attention")
+    require(np.array_equal(res1["generated"], res2["generated"]),
+            "the two full-width rwkv6-7b runs generated different ids")
+    log("phase 6: the two full-width runs generated the same ids")
+    del res1, res2
+    profile_lm("rwkv6-7b")
     return counts
 
 
@@ -1059,6 +1179,9 @@ def main() -> int:
     t = time.perf_counter()
     paths["serve_lm"] = phase5_lm()
     log(f"phase 5: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths["serve_rwkv"] = phase6_rwkv()
+    log(f"phase 6: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]

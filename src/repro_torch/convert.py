@@ -55,16 +55,20 @@ def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
 
 
 LM_KEY_SEP = "::"
-# the fp32 leaves of an LM (norm scales); every other leaf is cfg.dtype
-LM_FP32_LEAVES = ("ln1", "ln2", "final_norm")
+# the fp32 leaves of an LM, as ``repro.models`` makes them: the norm
+# scales, and RWKV6's per-head bonus ``u``, decay base ``dec_0`` and
+# group-norm scale ``ln_x`` (repro/models/ssm.py:203-206); every other
+# leaf, RWKV6's ``mu`` included, is cfg.dtype
+LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "u", "dec_0", "ln_x")
 
 
 def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg,
                          device="cuda") -> dict:
     """The port's LM parameters on ``device`` from ``{"a::b::c": array}``:
-    the norm scales in fp32, every other leaf in ``cfg.dtype`` (a bf16 leaf
-    that was widened to fp32 to be stored in numpy narrows back exactly).
-    Arrays may also be bf16 arrays of ``ml_dtypes``."""
+    the leaves of ``LM_FP32_LEAVES`` in fp32, every other leaf in
+    ``cfg.dtype`` (a bf16 leaf that was widened to fp32 to be stored in
+    numpy narrows back exactly). Arrays may also be bf16 arrays of
+    ``ml_dtypes``."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     params: dict = {}

@@ -25,6 +25,7 @@ from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
 from repro_torch.kernels.kb_gather import kb_gather_cuda
 from repro_torch.kernels.lazy_apply import lazy_apply_cuda
 from repro_torch.kernels.nn_search import nn_search_cuda
+from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cuda
 
 LAUNCHERS = {
     "kb_fused_lookup": kb_fused_lookup_cuda,
@@ -35,6 +36,7 @@ LAUNCHERS = {
     "ivf_stage2": ivf_stage2_cuda,
     "ivf_stage2_q": ivf_stage2_q_cuda,
     "flash_attention": flash_attention_cuda,
+    "rwkv_wkv": rwkv_wkv_cuda,
 }
 
 
@@ -133,6 +135,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                        window=window, softcap=softcap)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
+
+
+def rwkv_wkv(r, k, v, w, u):
+    """The RWKV6 WKV recurrence from a zero state: r/k/v/w (B, S, H, d),
+    u (H, d) -> (y (B, S, H, d), state after the last step (B, H, d, d)),
+    both fp32."""
+    if _on_cpu(r):
+        return ref.rwkv_wkv_ref(r, k, v, w, u)
+    return rwkv_wkv_cuda(r, k, v, w, u)
 
 
 def overfetch_exclude_topk(search, n_rows: int, k: int, exclude_ids):

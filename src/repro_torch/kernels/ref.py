@@ -215,3 +215,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+
+
+def rwkv_wkv_ref(r, k, v, w, u):
+    """The RWKV6 WKV recurrence (``repro/kernels/ref.py:80``), one time
+    step at a time in fp32: r/k/v/w (B, S, H, d) in any float dtype, u
+    (H, d). With S_0 = 0, each step takes
+    y_t[j] = sum_i r_t[i] (S[i, j] + u[i] k_t[i] v_t[j]), then
+    S <- S * w_t[:, None] + k_t v_t^T. Returns (y (B, S, H, d), S_fin
+    (B, H, d, d)), both fp32; S_fin is the state after the last step."""
+    B, S, H, d = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[None, :, :, None]                      # (1, H, d, 1)
+    state = torch.zeros((B, H, d, d), device=r.device)
+    y = torch.empty((B, S, H, d), device=r.device)
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]   # (B, H, d, d)
+        y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], state + u * kv)
+        state = state * w[:, t, :, :, None] + kv
+    return y, state

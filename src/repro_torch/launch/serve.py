@@ -3,6 +3,8 @@ client mode of ``repro.launch.serve --kb``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
       --batch 2 --prompt-len 8 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --batch 2 --prompt-len 16 --gen 4
 
 LM mode (no ``--kb``) does what the JAX launcher's does: the reduced
 config of ``--arch``, random weights from ``--seed`` (here a
@@ -11,8 +13,12 @@ config of ``--arch``, random weights from ``--seed`` (here a
 ``prompt_len + gen + 1`` slots, then ``--gen`` greedy decode steps fed
 the prompt's last token first (so, as in the JAX launcher, that token is
 seen twice: at its position and at position ``prompt_len``). It prints
-the JAX launcher's two lines. ``serve_lm`` takes any config, the
-unreduced one included, and optional parameters.
+the JAX launcher's two lines. The archs it builds are
+``repro_torch.models.PORTED_ARCHS`` (yi-6b, whose prefill attention runs
+on the flash-attention kernel, and rwkv6-7b, whose prefill WKV recurrence
+runs on the WKV kernel); any other ``--arch`` raises
+``NotImplementedError`` naming ROADMAP. ``serve_lm`` takes any config of
+those archs, the unreduced one included, and optional parameters.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --kb
 

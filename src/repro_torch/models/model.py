@@ -1,5 +1,6 @@
-"""The language model of the llama family (attention + SwiGLU layers); the
-port of ``repro/models/model.py``'s ``LM`` for that spec.
+"""The language model of the llama family (attention + SwiGLU layers) and
+of rwkv6 (RWKV6 + SwiGLU layers); the port of ``repro/models/model.py``'s
+``LM`` for those specs.
 
 Parameters keep the JAX package's pytree as nested dicts, with each layer
 parameter stacked over the ``G`` scan groups, so that a JAX checkpoint
@@ -7,13 +8,16 @@ converts leaf by leaf (``repro_torch.convert.lm_params_from_numpy``). A
 Python loop over the groups takes the place of ``lax.scan`` and indexes
 group ``g`` of each stacked tensor (a view, not a copy).
 
-The decode cache is a dict as in JAX: ``groups/pos{p}/k|v`` of shape
-(G, B, C, KV, hd), ``pos`` (B, C) the absolute position held by each ring
-slot (-1 empty), and ``t`` the next token's position, a Python int. Decode
-writes slot ``t % C`` in place and returns the same dict.
+The decode cache is a dict as in JAX, with an entry per mixer position:
+an attention layer's ``groups/pos{p}/k|v`` of shape (G, B, C, KV, hd), an
+RWKV6 layer's ``groups/pos{p}/S`` (G, B, Hn, hd, hd) fp32 and ``x_prev``
+(G, B, D); ``pos`` (B, C) the absolute position held by each ring slot
+(-1 empty), present only when some layer attends; and ``t`` the next
+token's position, a Python int. Decode writes slot ``t % C`` and the RWKV6
+states in place and returns the same dict.
 
-Mamba, RWKV6, MoE, cross-attention and the vision and audio front-ends
-raise ``NotImplementedError`` naming the ROADMAP item that holds them, and
+Mamba, MoE, cross-attention and the vision and audio front-ends raise
+``NotImplementedError`` naming the ROADMAP item that holds them, and
 ``build_model`` builds only the archs whose parity with the JAX package
 the port's tests hold (``PORTED_ARCHS``).
 """
@@ -25,9 +29,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 
-PORTED_ARCHS = ("yi-6b",)
+PORTED_ARCHS = ("yi-6b", "rwkv6-7b")
+MIXERS = ("attn", "rwkv6")
 _NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
 
 
@@ -56,14 +62,14 @@ class LM:
         mixers = [pat[i % len(pat)] for i in range(gs)]
         spec = []
         for p in range(gs):
-            if mixers[p] != "attn":
+            if mixers[p] not in MIXERS:
                 raise NotImplementedError(
                     f"the {mixers[p]} mixer {_NOT_PORTED}; its kernel is "
                     "ROADMAP Q2")
             if cfg.is_moe and (p % cfg.moe_every == cfg.moe_every - 1):
                 raise NotImplementedError(f"the MoE feed-forward "
                                           f"{_NOT_PORTED}")
-            spec.append(("attn", "swiglu"))
+            spec.append((mixers[p], "swiglu"))
         return spec
 
     @property
@@ -94,11 +100,12 @@ class LM:
         if not cfg.tie_embeddings:
             params["out_embed"] = embed()
         groups: Dict = {}
-        for p, (_, ffnk) in enumerate(self.spec):
+        init = {"attn": T.attn_init, "rwkv6": ssm.rwkv6_init}
+        for p, (mixer, ffnk) in enumerate(self.spec):
             groups[f"pos{p}"] = {
                 "ln1": torch.zeros((G, D), device=dev),
                 "ln2": torch.zeros((G, D), device=dev),
-                "attn": T.attn_init(gen, cfg, batch_dims=(G,)),
+                mixer: init[mixer](gen, cfg, batch_dims=(G,)),
                 "ffn": T.ffn_init(gen, cfg, ffnk, batch_dims=(G,))}
         params["groups"] = groups
         return params
@@ -112,45 +119,62 @@ class LM:
     def hidden(self, params, tokens, *, impl="auto", collect_cache=False):
         """tokens: (B, S) integer ids. Returns (h (B, S, D) after the final
         norm, cache_ys): with ``collect_cache``, cache_ys holds each
-        position's keys and values stacked over the groups,
-        ``{"pos{p}": {"k", "v": (G, B, S, KV, hd)}}``, else None."""
+        position's cache entries stacked over the groups, an attention
+        layer's keys and values ``{"k", "v": (G, B, S, KV, hd)}`` and an
+        RWKV6 layer's final state ``{"S": (G, B, Hn, hd, hd), "x_prev":
+        (G, B, D)}``, under ``"pos{p}"``; else None."""
         cfg = self.cfg
         h = params["embed"]["tok"][tokens.long()]
         positions = torch.arange(h.shape[1], device=h.device)
-        ks = {p: [] for p in range(len(self.spec))}
-        vs = {p: [] for p in range(len(self.spec))}
+        ys: Dict[str, Dict[str, list]] = {}
         for g in range(self.num_groups):
             gp = _layer(params["groups"], g)
-            for p, (_, ffnk) in enumerate(self.spec):
+            for p, (mixer, ffnk) in enumerate(self.spec):
                 lp = gp[f"pos{p}"]
                 hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-                a, (k, v) = T.attn_apply(lp["attn"], hn, cfg,
-                                         positions=positions,
-                                         window=cfg.window, impl=impl)
+                if mixer == "attn":
+                    a, (k, v) = T.attn_apply(lp["attn"], hn, cfg,
+                                             positions=positions,
+                                             window=cfg.window, impl=impl)
+                    ent = {"k": k, "v": v}
+                else:
+                    a, ent = ssm.rwkv6_apply_state(lp["rwkv6"], hn, cfg)
                 if collect_cache:
-                    ks[p].append(k)
-                    vs[p].append(v)
+                    for n, x in ent.items():
+                        ys.setdefault(f"pos{p}", {}).setdefault(
+                            n, []).append(x)
                 h = h + a
                 hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
                 h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         if not collect_cache:
             return h, None
-        return h, {f"pos{p}": {"k": torch.stack(ks[p]),
-                               "v": torch.stack(vs[p])} for p in ks}
+        return h, {pk: {n: torch.stack(xs) for n, xs in ent.items()}
+                   for pk, ent in ys.items()}
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
     def cache_shapes(self, B: int, C: int) -> Dict:
         """(shape, dtype) of every cache leaf but ``t``. C = cache length
-        for attention layers."""
+        for attention layers; ``pos`` only when some layer attends."""
+        cfg = self.cfg
         G = self.num_groups
-        KV, hd = self.cfg.num_kv_heads, self.cfg.head_dim_
+        KV, hd = cfg.num_kv_heads, cfg.head_dim_
+        Hn, rhd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         kv = ((G, B, C, KV, hd), self.dtype)
-        return {"groups": {f"pos{p}": {"k": kv, "v": kv}
-                           for p in range(len(self.spec))},
-                "pos": ((B, C), torch.int32)}
+        groups = {}
+        for p, (mixer, _) in enumerate(self.spec):
+            if mixer == "attn":
+                groups[f"pos{p}"] = {"k": kv, "v": kv}
+            else:
+                groups[f"pos{p}"] = {
+                    "S": ((G, B, Hn, rhd, rhd), torch.float32),
+                    "x_prev": ((G, B, cfg.d_model), self.dtype)}
+        shapes = {"groups": groups}
+        if any(mixer == "attn" for mixer, _ in self.spec):
+            shapes["pos"] = ((B, C), torch.int32)
+        return shapes
 
     def init_cache(self, B: int, C: int, *, device) -> Dict:
         shapes = self.cache_shapes(B, C)
@@ -158,30 +182,39 @@ class LM:
                                  for n, (s, dt) in ent.items()}
                             for pk, ent in shapes["groups"].items()},
                  "t": 0}
-        s, dt = shapes["pos"]
-        cache["pos"] = torch.full(s, -1, dtype=dt, device=device)
+        if "pos" in shapes:
+            s, dt = shapes["pos"]
+            cache["pos"] = torch.full(s, -1, dtype=dt, device=device)
         return cache
 
     def decode_step(self, params, cache, token):
         """token: (B, 1) ids. Returns (logits (B, 1, V), cache), the cache
-        updated in place: slot t % C of every layer and of ``pos``, then
-        t + 1."""
+        updated in place: slot t % C of every attention layer and of
+        ``pos``, every RWKV6 layer's state, then t + 1."""
         cfg = self.cfg
         t = cache["t"]
         h = params["embed"]["tok"][token.long()]             # (B, 1, D)
-        kv_pos = cache["pos"]
-        C = kv_pos.shape[1]
-        kv_pos[:, t % C] = t
-        window = self._serve_window(C)
+        kv_pos = cache.get("pos")
+        if kv_pos is not None:
+            C = kv_pos.shape[1]
+            kv_pos[:, t % C] = t
+            window = self._serve_window(C)
         for g in range(self.num_groups):
             gp = _layer(params["groups"], g)
-            for p, (_, ffnk) in enumerate(self.spec):
+            for p, (mixer, ffnk) in enumerate(self.spec):
                 lp = gp[f"pos{p}"]
                 cc = cache["groups"][f"pos{p}"]
                 hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-                a, _, _ = T.attn_decode(lp["attn"], hn, cc["k"][g],
-                                        cc["v"][g], kv_pos, t, cfg,
-                                        window=window)
+                if mixer == "attn":
+                    a, _, _ = T.attn_decode(lp["attn"], hn, cc["k"][g],
+                                            cc["v"][g], kv_pos, t, cfg,
+                                            window=window)
+                else:
+                    a, st = ssm.rwkv6_decode(
+                        lp["rwkv6"], hn, {"S": cc["S"][g],
+                                          "x_prev": cc["x_prev"][g]}, cfg)
+                    cc["S"][g] = st["S"]
+                    cc["x_prev"][g] = st["x_prev"]
                 h = h + a
                 hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
                 h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
@@ -209,10 +242,15 @@ class LM:
         cache = self.init_cache(B, C, device=h.device)
         for pk, ent in cache_ys.items():
             tgt = cache["groups"][pk]
-            tgt["k"][:, :, :S] = ent["k"]
-            tgt["v"][:, :, :S] = ent["v"]
-        pos = torch.arange(C, dtype=torch.int32, device=h.device)
-        cache["pos"][:] = torch.where(pos < S, pos, -1)
+            if "k" in ent:
+                tgt["k"][:, :, :S] = ent["k"]
+                tgt["v"][:, :, :S] = ent["v"]
+            else:
+                tgt["S"].copy_(ent["S"])
+                tgt["x_prev"].copy_(ent["x_prev"])
+        if "pos" in cache:
+            pos = torch.arange(C, dtype=torch.int32, device=h.device)
+            cache["pos"][:] = torch.where(pos < S, pos, -1)
         cache["t"] = S
         return cache, h
 

@@ -16,7 +16,10 @@ scores, at the score scale of a clustered bank of width 128 (hundreds),
 are held to atol 1e-4 plus 8 fp32 ulps of the score, and their ids by
 gaps of 1e-4 plus twice that. Flash attention outputs: fp32 atol 2e-5,
 bf16 atol 2e-2 (tests/test_kernels.py's bounds; a bf16 output may round
-one ulp the other way).
+one ulp the other way). The WKV recurrence's y and final state: atol 5e-5
+(tests/test_kernels.py's bound) plus rtol 1e-5, since at the model's
+ranges y reaches tens and its 64-term sums, and the state carried over
+2048 steps, run in another order and with fused multiply-adds.
 """
 import numpy as np
 import pytest
@@ -314,3 +317,59 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take():
         ops.flash_attention(q.transpose(1, 2), kv, kv)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         ops.flash_attention(q.half(), kv.half(), kv.half())
+
+
+WKV_CASES = [  # (B, S, H, d): the rwkv6-7b prefill's, then smaller ones
+    (4, 2048, 64, 64),
+    (2, 200, 4, 16),          # a ragged last chunk
+    (3, 333, 8, 32),
+    (1, 1000, 2, 64),
+    (2, 1, 3, 32),            # one step
+]
+
+
+def wkv_inputs(B, S, H, d, dtype, dev, seed=0):
+    """r, k, v N(0, 1) in ``dtype``, w = exp(-exp(N(-2, 0.5))) and u
+    0.1 N(0, 1) in fp32: the rwkv6 model's ranges (dec_0 = -2 plus a
+    low-rank term; the projections of a normed input)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+        (B, S, H, d), generator=g, device=dev)))
+    u = 0.1 * torch.randn((H, d), generator=g, device=dev)
+    return r, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_cuda_rwkv_wkv_matches_plain(case, dtype):
+    dev = _require_card()
+    args = wkv_inputs(*case, dtype, dev, seed=sum(case))
+    kern = ops.LAUNCHERS["rwkv_wkv"]
+    before = kern.launches
+    y, s_fin = kern(*args)
+    want_y, want_s = ref.rwkv_wkv_ref(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    B, S, H, d = case
+    assert y.dtype == s_fin.dtype == torch.float32
+    assert y.shape == (B, S, H, d) and s_fin.shape == (B, H, d, d)
+    for got, want in ((y, want_y), (s_fin, want_s)):
+        assert bool(((got - want).abs() <= 5e-5 + 1e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_wkv_refuses_what_it_cannot_take():
+    dev = _require_card()
+    r, k, v, w, u = wkv_inputs(1, 8, 2, 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv_wkv(*wkv_inputs(1, 8, 2, 128, torch.float32, dev))
+    with pytest.raises(ValueError, match="float32"):
+        ops.rwkv_wkv(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rwkv_wkv(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     w, u)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.rwkv_wkv(r.half(), k.half(), v.half(), w, u)

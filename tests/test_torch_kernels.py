@@ -243,6 +243,55 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
 
 
+def _wkv_tensors(B, S, H, d, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(B + S + H + d)
+    r, k, v = (torch.from_numpy(0.5 * rng.standard_normal(
+        (B, S, H, d)).astype(np.float32)).to(dtype) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, H, d)).astype(
+        np.float32))
+    u = torch.from_numpy(0.1 * rng.standard_normal((H, d)).astype(
+        np.float32))
+    return [t.to(device) for t in (r, k, v, w, u)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_wkv_wrapper_takes_the_plain_version_only_on_the_cpu(dtype):
+    """CPU tensors run the plain version (every d, none of them launched);
+    a tensor on any other device goes to the kernel's launcher, which
+    refuses it before it builds anything."""
+    ops.reset_launch_counts()
+    for d in (16, 64, 128):
+        args = _wkv_tensors(2, 7, 3, d, dtype)
+        y, s_fin = ops.rwkv_wkv(*args)
+        want_y, want_s = ref.rwkv_wkv_ref(*args)
+        assert torch.equal(y, want_y) and torch.equal(s_fin, want_s)
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    meta = _wkv_tensors(2, 7, 3, 64, dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rwkv_wkv(*meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.LAUNCHERS["rwkv_wkv"](*meta)
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+
+
+@pytest.mark.parametrize("d", [8, 48, 128])
+def test_rwkv_wkv_kernel_refuses_head_dims_it_cannot_take(d):
+    meta = _wkv_tensors(1, 4, 2, d, device="meta")
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv_wkv(*meta)
+
+
+def test_rwkv_wkv_kernel_refuses_other_dtypes_and_shapes():
+    r, k, v, w, u = _wkv_tensors(1, 4, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.rwkv_wkv(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(ValueError, match="shape"):
+        ops.rwkv_wkv(r, k, v[:, :3], w, u)
+    with pytest.raises(ValueError, match=r"\(H, d\)"):
+        ops.rwkv_wkv(r, k, v, w, u[:1])
+    assert ops.launch_counts()["rwkv_wkv"] == 0
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     """A missing compiler is an error, never a quiet switch to the plain
     version."""

@@ -63,7 +63,7 @@ def test_configs_are_the_jax_packages():
 
 
 def test_unported_archs_and_parts_refuse_naming_roadmap():
-    assert PORTED_ARCHS == ("yi-6b",)
+    assert PORTED_ARCHS == ("yi-6b", "rwkv6-7b")
     for arch in ARCH_IDS:
         if arch not in PORTED_ARCHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -71,7 +71,6 @@ def test_unported_archs_and_parts_refuse_naming_roadmap():
     from repro_torch.models.model import LM
     base = get_config("yi-6b").reduced()
     for cfg in (base.replace(ssm_type="mamba"),
-                base.replace(ssm_type="rwkv6"),
                 base.replace(num_experts=4, experts_per_token=2),
                 base.replace(frontend="vision", num_frontend_tokens=4),
                 base.replace(cross_attention=True)):
