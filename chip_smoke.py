@@ -16,7 +16,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    k = 8; the same bank quantized to int8 for the int8 lookup; an IVF
    index of 64 buckets built by the port over each bank for the two
    stage-2 kernels (k = 8 over fp32 rows, the int8 engine's kq = 32 over
-   int8 rows). Error, kernel time, plain time, the least time the card
+   int8 rows), and a 3-shard index of 64 buckets per shard over the fp32
+   bank for the sharded stage-2 kernel (8 probes per shard; k = 8 over
+   fp32 rows and the sharded int8 shortlist's kq = 32 over its int8
+   twin). Error, kernel time, plain time, the least time the card
    could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
    from this run's data) and, where one PyTorch call computes the same
    function, that call's time;
@@ -26,12 +29,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    storage (every leaf, scale and offset, versions), and IVF search on one
    index, fp32 and int8; a repeated cuda run bit-identical, and two index
    builds of one snapshot identical. The lazy_update=False run is the path
-   of the row gather kernel;
+   of the row gather kernel. Then the sharded backend (3 shards) against
+   its plain reference on one op stream, exact search per shard and IVF
+   through one sharded index, fp32 and int8 (an int8 index over the fp32
+   table); a repeated run bit-identical; and a partial rebuild of one
+   shard on the card that leaves the other shards' arrays bit-identical
+   and their write clocks as they were;
 4. serve: repro_torch.launch.serve at full width on the cuda backend, 8
    clients, each run ending in a flush: exact search over fp32 rows, then
    IVF search over fp32 and over int8 rows (``--kb-search ivf``, nlist 64,
-   nprobe 8); every kernel counter is set to 0 just before each run and
-   read just after;
+   nprobe 8), then ``--kb-backend sharded --kb-shards 3 --kb-search ivf``
+   (64 buckets and 8 probes per shard); every kernel counter is set to 0
+   just before each run and read just after. Then, on a server of the
+   sharded run's configuration with its refresher, the rows of shard 1
+   that the refresher's per-shard budget asks for are rewritten twice:
+   with their own values, when the refresher must rebuild shard 1 alone,
+   shards 0 and 2 keeping their arrays bit for bit and their clocks; and
+   with fresh N(0, 1) values, when it stays partial only if shard 1's new
+   buckets fit the common capacity (which it did, and the capacity before
+   and after, are printed);
 5. LM serving: the reduced yi-6b (2 layers, d 128, fp32) on the card
    against the CPU on one set of parameters (hidden, prefill cache, four
    decode steps' logits and ids), then repro_torch.launch.serve's
@@ -82,14 +98,16 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ann_index  # noqa: E402
 from repro_torch.core import knowledge_bank as kbm  # noqa: E402
 from repro_torch.core.async_runtime import KnowledgeBankServer  # noqa: E402
-from repro_torch.core.kb_engine import (KBEngine, KBIdError,  # noqa: E402
-                                        make_kb_ops)
+from repro_torch.core.kb_engine import (  # noqa: E402
+    DenseBackend, KBEngine, KBIdError, ShardedBackend, make_kb_ops)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.nn_search_ivf import ivf_probes  # noqa: E402
+from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
+    global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
+SHARDS = 3                          # the smallest count that divides N_ROWS
 BATCH = 32                          # 8 clients x batch 4, coalesced
 K = 8
 LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
@@ -139,6 +157,7 @@ KERNELS = {
     "ivf_stage2_q": "src/repro/kernels/nn_search_ivf.py:281",
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
     "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:54",
+    "ivf_stage2_sharded": "src/repro/kernels/nn_search_ivf.py:381",
 }
 # the path each kernel's launches are read from (phase 3, 4, 5 or 6)
 KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
@@ -148,7 +167,8 @@ KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "ivf_stage2": "serve_fp32_ivf",
                "ivf_stage2_q": "serve_int8_ivf",
                "flash_attention": "serve_lm",
-               "rwkv_wkv": "serve_rwkv"}
+               "rwkv_wkv": "serve_rwkv",
+               "ivf_stage2_sharded": "serve_sharded_ivf"}
 
 
 def log(msg: str) -> None:
@@ -321,6 +341,56 @@ def phase2_ivf(table, codes, qscale, qoffset, ids):
         other = KQ if k == K else K
         log(f"phase 2: {name} at k = {other}: "
             f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
+    del index, index_q
+    results.update(phase2_ivf_sharded(table, queries))
+    return results
+
+
+def phase2_ivf_sharded(table, queries):
+    """The sharded stage-2 kernel at the serve shapes: a SHARDS-shard
+    index of NLIST buckets per shard built by the port over the fp32 bank
+    (and its int8 twin, as the sharded int8 engine makes it), the 32
+    queries probing NPROBE buckets of each shard."""
+    kernels = ops.LAUNCHERS
+    t0 = time.perf_counter()
+    index = ann_index.build_sharded_ivf_index(table, SHARDS, nlist=NLIST)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index_q = ann_index.QuantizedShardedIVFIndex(index)
+    log(f"phase 2: {SHARDS}-shard index built in {build_s:.3f} s: "
+        f"{index.shard_stats()}")
+    results = {}
+    for name, idx, args, k, row_bytes, plain in (
+            ("ivf_stage2_sharded", index, (index.packed_vecs,), K,
+             4 * DIM + 4, ref.ivf_stage2_sharded_ref),
+            ("ivf_stage2_sharded_q", index_q, (index_q.packed_codes,
+                                               index_q.packed_scale,
+                                               index_q.packed_offset), KQ,
+             DIM + 12, ref.ivf_stage2_sharded_q_ref)):
+        probes = sharded_probes(queries, idx.centroids, SHARDS, NPROBE)
+        tail = (idx.packed_ids, idx.bucket_occ, queries, probes)
+        s_k, i_k = kernels[name](*args, *tail, k)
+        s_p, i_p = plain(*args, *tail, k + 1)
+        torch.cuda.synchronize()
+        require(s_k.shape == (BATCH, SHARDS, k), f"{name}: {s_k.shape}")
+        s_k, i_k, s_p, i_p = (x.reshape(BATCH * SHARDS, -1)
+                              for x in (s_k, i_k, s_p, i_p))
+        err = max_err(s_k, s_p[:, :k])
+        require(err <= ATOL_SCORES, f"{name} scores disagree: {err}")
+        n_sets, n_ranks = check_topk(s_k, i_k, s_p, i_p, k, name)
+        log(f"phase 2: {name} ({BATCH} queries x {SHARDS} shards, k = {k}): "
+            f"top-k sets equal on the {n_sets} (query, shard) lists whose "
+            f"k-th and (k+1)-th plain scores are > {ID_GAP} apart; ids "
+            f"equal on the {n_ranks} ranks whose scores are > {ID_GAP} from "
+            f"both neighbours")
+        # the bound over the globalised probes, B * S lists of k written
+        gprobes = global_probes(probes, idx.bucket_occ.shape[0])
+        results[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: kernels[name](*args, *tail, k), 20),
+            plain_ms=time_ms(lambda: plain(*args, *tail, k), 3),
+            library_ms=None,
+            bound=ivf_bound(idx, gprobes, k * SHARDS, row_bytes))
     return results
 
 
@@ -812,6 +882,152 @@ def _ivf_parity(storage: str):
     return n_decided
 
 
+class ShardedReference(ShardedBackend):
+    """The plain reference of ``ShardedBackend`` on the card: the dense
+    backend's row ops and exact search (the bank's exact top-k is what the
+    shards' merged top-k lists hold), and IVF through the meshless oracle
+    ``ivf_search_sharded_ref`` (with the 4k shortlist of an int8 index)."""
+
+    def __init__(self, n_shards: int):
+        super().__init__(n_shards)
+        dense = DenseBackend()
+        self.lookup, self.update = dense.lookup, dense.update
+        self.lazy_grad, self.flush = dense.lazy_grad, dense.flush
+        self.nn_search = dense.nn_search
+
+    def ivf_search(self, state, index, queries, k, nprobe):
+        if hasattr(index, "packed_codes"):
+            rows, kq = index.packed_codes, 4 * k
+            extra = dict(packed_scale=index.packed_scale,
+                         packed_offset=index.packed_offset)
+        else:
+            rows, kq, extra = index.packed_vecs, k, {}
+        s, i = ivf_search_sharded_ref(state.table, index.centroids, rows,
+                                      index.packed_ids, queries, kq, nprobe,
+                                      n_shards=index.n_shards, **extra)
+        return s[:, :k], i[:, :k]
+
+
+def _sharded_stream(plain: bool, storage: str):
+    """One op stream through a SHARDS-shard engine, the kernel backend or
+    its plain reference: the row ops, exact search per shard with and
+    without exclusion, then IVF through one sharded index that the kernel
+    engine built (``index``: reuse it), with and without exclusion.
+    Returns the outputs, the final state as numpy, and the index."""
+    n, d = 100_002, DIM                 # SHARDS x 33,334
+    rng = np.random.default_rng(16)
+    bank = 0.2 * ann_index.clustered_bank(n, d, 256, noise=0.5, seed=17)
+    backend = ShardedReference(SHARDS) if plain else ShardedBackend(SHARDS)
+    eng = KBEngine(n, d, backend=backend,
+                   storage=storage, search_mode="ivf", ann_nlist=NLIST,
+                   ann_nprobe=NPROBE, device="cuda")
+    eng.update(np.arange(n), bank)
+    # ids straddle the shard boundaries (33,334 and 66,668)
+    ids = np.array([3, 33_333, 33_334, 3, n - 1, 66_667, 66_668, 500])
+    out = {}
+    eng.lazy_grad(ids, rng.standard_normal((ids.size, d)))
+    out["lookup"] = eng.lookup(ids)
+    eng.lazy_grad(ids[::-1], rng.standard_normal((ids.size, d)))
+    eng.flush()
+    q = (bank[rng.integers(0, n, 8)]
+         + 0.05 * rng.standard_normal((8, d))).astype(np.float32)
+    out["exact_s"], out["exact_i"] = eng.nn_search(q, K, mode="exact")
+    excl = np.stack([out["exact_i"][:, 0], out["exact_i"][:, 1],
+                     np.full(8, -1)], 1)
+    out["exactx_s"], out["exactx_i"] = eng.nn_search(q, K, mode="exact",
+                                                     exclude_ids=excl)
+    return eng, q, excl, out
+
+
+def _sharded_parity(storage: str):
+    """The sharded kernel backend against its plain reference on one op
+    stream (state, lookups, exact and IVF searches), the kernel run twice
+    bit for bit, two sharded builds of one snapshot identical, and the
+    launches of the kernel run."""
+    ops.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        eng, q, excl, out = _sharded_stream(False, storage)
+        eng.rebuild_ann_index()
+        out["ivf_s"], out["ivf_i"] = eng.nn_search(q, K)
+        out["ivfx_s"], out["ivfx_i"] = eng.nn_search(q, K, exclude_ids=excl)
+        torch.cuda.synchronize()
+        runs.append((eng, out, convert.kb_state_to_numpy(eng.state)))
+    counts = ops.launch_counts()
+    (eng_c, out_c, st_c), (eng_c2, out_c2, st_c2) = runs
+    require(all(torch.equal(a, b) for a, b in
+                zip(eng_c.ann_index.tensors(), eng_c2.ann_index.tensors())),
+            f"two sharded {storage} builds of one snapshot differ")
+    eng_d, q, excl, out_d = _sharded_stream(True, storage)
+    eng_d.set_ann_index(eng_c.ann_index)
+    out_d["ivf_s"], out_d["ivf_i"] = eng_d.nn_search(q, K)
+    out_d["ivfx_s"], out_d["ivfx_i"] = eng_d.nn_search(q, K,
+                                                       exclude_ids=excl)
+    st_d = convert.kb_state_to_numpy(eng_d.state)
+    for key in st_c:
+        require(np.array_equal(st_c[key], st_c2[key]),
+                f"sharded {storage}: repeated run differs in {key}")
+        tol = 0 if key in ("version", "grad_cnt", "step") else 1e-6
+        err = np.abs(st_c[key].astype(np.float64)
+                     - st_d[key].astype(np.float64)).max()
+        require(err <= tol, f"sharded {storage} vs plain {key}: {err}")
+    n_decided = 0
+    for key in out_c:
+        require(np.array_equal(out_c[key], out_c2[key]),
+                f"sharded {storage}: repeated run differs in {key}")
+        if key.endswith("_i"):
+            s_d = out_d[key[:-1] + "s"]
+            gap = np.concatenate([s_d[:, :-1] - s_d[:, 1:],
+                                  np.full((len(s_d), 1), np.inf)], 1)
+            ok = (gap > ID_GAP) & (np.roll(gap, 1, 1) > ID_GAP)
+            n_decided += int(ok.sum())
+            require(np.array_equal(out_c[key][ok], out_d[key][ok]),
+                    f"sharded {storage} vs plain {key}")
+        else:
+            tol = ATOL_ROWS if key == "lookup" else ATOL_SCORES
+            require(np.abs(out_c[key] - out_d[key]).max() <= tol,
+                    f"sharded {storage} vs plain {key}")
+    require(eng_c.search_stats == {"exact": 2, "ivf": 2},
+            f"sharded {storage}: {eng_c.search_stats}")
+    kern = "ivf_stage2_sharded" + ("_q" if storage == "int8" else "")
+    require(counts[kern] > 0 and counts["nn_search"] > 0
+            and counts["kb_fused_lookup"] > 0 and counts["ivf_stage2"] == 0
+            and counts["ivf_stage2_q"] == 0,
+            f"sharded {storage} engine launches: {counts}")
+    return eng_c, n_decided, counts
+
+
+def shard_rows(t, sh: int):
+    """Shard ``sh``'s block of a shard-major index array."""
+    per = t.shape[0] // SHARDS
+    return t[sh * per:(sh + 1) * per]
+
+
+def _sharded_partial_rebuild(eng):
+    """Rewrite 5000 rows of shard 1 of a built SHARDS-shard engine and
+    rebuild that shard alone on the card: shards 0 and 2 keep their arrays
+    and their clocks."""
+    old, clocks = eng.ann_index, eng._ann_shard_built_at.copy()
+    n_local = eng.num_entries // SHARDS
+    rows = np.arange(n_local, n_local + 5000)
+    # scaled by 1.01 (tests/test_sharded_ivf.py's perturbation): the
+    # buckets keep their sizes, so the common capacity holds
+    eng.update(rows, 1.01 * eng.table_snapshot()[rows])
+    require(eng.rebuild_ann_index(shards=[1]) == 1,
+            "a partial rebuild of shard 1 re-clustered another shard")
+    new = eng.ann_index
+    require(new.bucket_cap == old.bucket_cap, "the capacity changed")
+    for sh in range(SHARDS):
+        same = all(torch.equal(shard_rows(a, sh), shard_rows(b, sh))
+                   for a, b in zip(old.tensors(), new.tensors()))
+        require(same == (sh != 1), f"partial rebuild: shard {sh} "
+                f"{'kept its arrays' if same else 'changed'}")
+    kept = [0, 2]
+    require(np.array_equal(eng._ann_shard_built_at[kept], clocks[kept])
+            and eng.ann_shard_staleness_rows[1] == 0,
+            "partial rebuild: the clocks moved")
+
+
 def _ids_refused():
     """Out-of-range ids on a cuda server, fp32 and int8: each request is
     refused with KBIdError, the bank stays bit-identical, and the next
@@ -921,12 +1137,26 @@ def phase3_engine():
         log(f"phase 3: {storage} ivf on one index: cuda == dense ({n_decided}"
             f" decided ids exact); two builds of one snapshot identical; "
             f"launches {counts[f'ivf_{storage}']}")
+    for storage in ("fp32", "int8"):
+        eng, n_decided, counts[f"sharded_{storage}"] = _sharded_parity(
+            storage)
+        log(f"phase 3: sharded ({SHARDS} shards) {storage}: kernel backend "
+            f"== plain reference (state, lookups, exact and ivf searches, "
+            f"{n_decided} decided ids exact); repeated run bit-identical; "
+            f"two builds of one snapshot identical; launches "
+            f"{counts[f'sharded_{storage}']}")
+        _sharded_partial_rebuild(eng)
+        log(f"phase 3: sharded {storage}: a partial rebuild of shard 1 on "
+            f"the card left shards 0 and 2 bit-identical, their clocks "
+            f"kept")
+        del eng
     return counts
 
 
 def serve_run(label: str, extra, rounds: int):
     """One full-width serve run through the launcher, with every kernel
-    counter set to 0 just before it and read just after."""
+    counter set to 0 just before it and read just after (``extra`` may
+    name another ``--kb-backend``)."""
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -950,7 +1180,8 @@ def serve_run(label: str, extra, rounds: int):
         f"of 8 clients ({res['requests']} requests, {res['dispatches']} "
         f"dispatches), nn ivf/exact={res['search_stats']['ivf']}/"
         f"{res['search_stats']['exact']}, index rebuilds="
-        f"{res['index_rebuilds']}, first index built in "
+        f"{res['index_rebuilds']} ({res['shard_rebuilds']} shard builds), "
+        f"first index built in "
         f"{'n/a' if first is None else f'{first:.3f} s'}; {wall:.1f} s with "
         f"fill and warm-up; peak device memory {peak} bytes; launches "
         f"{counts} (one of each non-IVF kernel in the warm-up on a scratch "
@@ -984,7 +1215,155 @@ def phase4_serve():
         if storage == "int8":
             require(c["kb_fused_lookup_q"] > 1,
                     f"the int8 serve path missed kb_fused_lookup_q: {c}")
+    paths["serve_sharded_ivf"] = serve_sharded()
     return paths
+
+
+def serve_sharded():
+    """``--kb-backend sharded --kb-shards SHARDS --kb-search ivf`` at full
+    width through the launcher, then the partial rebuilds on a server of
+    the same configuration (``sharded_rewrites``)."""
+    res, c = serve_run(f"fp32 sharded ivf ({SHARDS} shards)",
+                       ["--kb-backend", "sharded", "--kb-shards",
+                        str(SHARDS), "--kb-search", "ivf", "--nlist",
+                        str(NLIST), "--nprobe", str(NPROBE)], SERVE_ROUNDS)
+    require(res["search_stats"]["exact"] == 0
+            and res["search_stats"]["ivf"] > 0
+            and c["ivf_stage2_sharded"] > 1 and c["ivf_stage2"] == 0
+            and c["kb_fused_lookup"] > 1 and c["lazy_apply"] > 1,
+            f"the sharded ivf serve did not search through its index: "
+            f"{res['search_stats']}, {c}")
+    for st in res["engine"].ann_index.shard_stats():
+        log(f"phase 4: sharded ivf shard {st}")
+    first_s = res["first_index_s"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_rewrites(first_s)
+    return c
+
+
+def _await_rebuild(refresher, before: int, acked: float) -> float:
+    """Wait until the refresher's ``shard_rebuilds`` leaves ``before``;
+    the seconds from ``acked`` to then."""
+    deadline = acked + 120.0
+    while refresher.shard_rebuilds == before:
+        require(refresher.last_error is None and time.perf_counter()
+                < deadline, f"no rebuild: {refresher.last_error}")
+        time.sleep(0.001)
+    return time.perf_counter() - acked
+
+
+def _shards_same(old, new, shards) -> bool:
+    return all(torch.equal(shard_rows(a, sh), shard_rows(b, sh))
+               for sh in shards for a, b in zip(old.tensors(),
+                                                new.tensors()))
+
+
+def sharded_rewrites(first_s: float):
+    """A server of the served configuration (the launcher's seed-0 bank,
+    SHARDS shards, NLIST buckets each) with its refresher; the rows of
+    shard 1 that the refresher's per-shard budget asks for are rewritten
+    twice. First with their own values: the buckets keep their sizes, so
+    the refresher must rebuild shard 1 alone (shard_rebuilds + 1), shards
+    0 and 2 keeping their arrays bit for bit and their clocks. Then with
+    fresh N(0, 1) values: the refresher stays partial only if shard 1's
+    new buckets fit the common capacity, else it repacks every shard at a
+    larger one (shard_rebuilds + SHARDS); which one it took, the capacity
+    before and after and the headroom are printed, and searches for the
+    rewritten rows through the new index must find what the exact search
+    finds. Last, the full and the one-shard
+    build are timed in turns on the same bank and lock."""
+    server = KnowledgeBankServer(N_ROWS, DIM,
+                                 backend=ShardedBackend(SHARDS),
+                                 search_mode="ivf", ann_nlist=NLIST,
+                                 ann_nprobe=NPROBE, device="cuda")
+    try:
+        eng = server.engine
+        server.update(np.arange(N_ROWS), np.random.default_rng(0)
+                      .standard_normal((N_ROWS, DIM), dtype=np.float32))
+        refresher = server.start_ann_refresher(min_period_s=0.01)
+        serve._first_index(server, refresher)
+        n_local, budget = N_ROWS // SHARDS, refresher.rebuild_shard_rows
+        rows = np.arange(n_local, n_local + budget)
+
+        # 1. the rows' own current values
+        old, clocks = eng.ann_index, eng._ann_shard_built_at.copy()
+        before = refresher.shard_rebuilds
+        values = eng.state.table[n_local:n_local + budget].cpu().numpy()
+        t0 = time.perf_counter()
+        server.update(rows, values)
+        acked = time.perf_counter()
+        seen_s = _await_rebuild(refresher, before, acked)
+        new = eng.ann_index
+        require(refresher.shard_rebuilds == before + 1
+                and new.bucket_cap == old.bucket_cap,
+                f"the refresher rebuilt {refresher.shard_rebuilds - before} "
+                f"shards (capacity {old.bucket_cap} -> {new.bucket_cap})")
+        require(_shards_same(old, new, (0, 2)),
+                "the partial rebuild changed shard 0 or 2")
+        require(np.array_equal(eng._ann_shard_built_at[[0, 2]],
+                               clocks[[0, 2]]), "the untouched clocks moved")
+        stats = server.stats()
+        log(f"phase 4: partial rebuild of shard 1 after {budget} rows "
+            f"written with their own values: {refresher.last_build_s:.4f} s "
+            f"snapshot to publication, seen {seen_s:.4f} s after the write "
+            f"was acknowledged ({acked - t0:.4f} s after it was sent); the "
+            f"first full build ({SHARDS} shards) took {first_s:.4f} s; "
+            f"shards 0 and 2 bit-identical, their clocks kept; server "
+            f"stats: rebuilds {stats['rebuilds']}, shard_rebuilds "
+            f"{stats['shard_rebuilds']} (was {before})")
+
+        # 2. fresh values: the buckets of shard 1 change their sizes
+        old, before = eng.ann_index, refresher.shard_rebuilds
+        head = [st["headroom"] for st in old.shard_stats()]
+        fresh = np.random.default_rng(1).standard_normal(
+            (budget, DIM), dtype=np.float32)
+        server.update(rows, fresh)
+        acked = time.perf_counter()
+        seen_s = _await_rebuild(refresher, before, acked)
+        new, grew = eng.ann_index, refresher.shard_rebuilds - before
+        if grew == 1:
+            require(new.bucket_cap == old.bucket_cap
+                    and _shards_same(old, new, (0, 2)),
+                    "a partial rebuild moved the capacity or shards 0, 2")
+        else:
+            require(grew == SHARDS and new.bucket_cap > old.bucket_cap,
+                    f"fresh rewrite: {grew} shard builds, capacity "
+                    f"{old.bucket_cap} -> {new.bucket_cap}")
+        probe = fresh[::budget // 256][:256]
+        exact = eng.search_stats["exact"]
+        _, top = server.nn_search(probe, k=K)
+        require(eng.search_stats["exact"] == exact,
+                f"a search fell back to exact: {eng.search_stats}")
+        _, want = server.nn_search(probe, k=K, mode="exact")
+        found = float(np.mean(top[:, 0] == want[:, 0]))
+        require(found >= 0.95, f"rewritten rows as queries: top-1 through "
+                f"the index == exact for {found}")
+        log(f"phase 4: {budget} rows of shard 1 rewritten with fresh "
+            f"N(0, 1) values: the refresher "
+            f"{'stayed partial' if grew == 1 else 'repacked every shard'} "
+            f"(shard_rebuilds + {grew}), {refresher.last_build_s:.4f} s "
+            f"snapshot to publication, seen {seen_s:.4f} s after the "
+            f"acknowledgement; bucket_cap {old.bucket_cap} -> "
+            f"{new.bucket_cap}; headroom before {head}, after "
+            f"{[st['headroom'] for st in new.shard_stats()]}; "
+            f"{len(probe)} rewritten rows as queries: top-1 through the "
+            f"index == exact for {found}")
+
+        # 3. the two builds warm, in turns, on the same bank and lock
+        refresher.stop()
+        took = {"full": [], "shard 1": []}
+        for label, shards in (("full", None), ("shard 1", [1])) * 3:
+            t0 = time.perf_counter()
+            n = eng.rebuild_ann_index(shards=shards, lock=refresher.lock)
+            took[label].append(time.perf_counter() - t0)
+            require(n == (1 if shards else SHARDS), f"{label}: {n} shards")
+        log(f"phase 4: rebuild_ann_index on the served bank, in turns: "
+            f"all {SHARDS} shards {took['full']} s, shard 1 alone "
+            f"{took['shard 1']} s")
+    finally:
+        server.close()
 
 
 def _to(tree, device):
@@ -1187,6 +1566,8 @@ def main() -> int:
     paths["engine_int8"] = engine_counts["int8"]
     paths["engine_fp32_ivf"] = engine_counts["ivf_fp32"]
     paths["engine_int8_ivf"] = engine_counts["ivf_int8"]
+    paths["engine_sharded_fp32"] = engine_counts["sharded_fp32"]
+    paths["engine_sharded_int8"] = engine_counts["sharded_int8"]
 
     record = []
     for name, replaces in KERNELS.items():

@@ -16,7 +16,9 @@ port's nested parameter dicts.
 ``ivf_index_from`` turns an IVF index of either package (any object with
 the index's array attributes, read through ``np.asarray``, so a JAX
 ``IVFIndex`` or ``QuantizedIVFIndex`` converts without this module
-importing JAX) into the port's, so that one index can be searched by both.
+importing JAX) into the port's, so that one index can be searched by both;
+``sharded_ivf_index_from`` does the same for a ``ShardedIVFIndex`` or
+``QuantizedShardedIVFIndex``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.ann_index import IVFIndex, QuantizedIVFIndex
+from repro_torch.core.ann_index import (IVFIndex, QuantizedIVFIndex,
+                                        QuantizedShardedIVFIndex,
+                                        ShardedIVFIndex)
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
 
@@ -114,3 +118,33 @@ def ivf_index_from(src, device="cuda"):
     return QuantizedIVFIndex(base, quantized=(
         t("packed_codes", np.int8), t("packed_scale", np.float32),
         t("packed_offset", np.float32)))
+
+
+def sharded_ivf_index_from(src, device="cuda"):
+    """The port's ``ShardedIVFIndex`` (or ``QuantizedShardedIVFIndex``,
+    with its fp32 ``base``, when ``src`` has ``packed_codes``) holding
+    copies of ``src``'s arrays on ``device``."""
+    device = resolve_device(device)
+
+    def copy(obj, name, dtype):
+        return torch.tensor(np.asarray(getattr(obj, name), dtype=dtype),
+                            device=device)
+
+    quantized = hasattr(src, "packed_codes")
+    b = src.base if quantized else src
+    base = ShardedIVFIndex(
+        copy(b, "centroids", np.float32), copy(b, "packed_vecs", np.float32),
+        copy(b, "packed_ids", np.int32), n_shards=int(src.n_shards),
+        nlist=int(src.nlist), bucket_cap=int(src.bucket_cap),
+        n_rows=int(src.n_rows), bucket_occ=copy(b, "bucket_occ", np.int32))
+    slots = base.n_shards * base.nlist * base.bucket_cap
+    if base.packed_ids.shape[0] != slots:
+        raise ValueError(f"{base.packed_ids.shape[0]} packed slots != "
+                         f"{base.n_shards} shards x nlist {base.nlist} x "
+                         f"cap {base.bucket_cap}")
+    if not quantized:
+        return base
+    return QuantizedShardedIVFIndex(base, quantized=(
+        copy(src, "packed_codes", np.int8),
+        copy(src, "packed_scale", np.float32),
+        copy(src, "packed_offset", np.float32)))

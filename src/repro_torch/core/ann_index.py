@@ -1,5 +1,5 @@
 """Asynchronously-clustered IVF index for the Knowledge Bank (§3.1, §3.2):
-the single-shard half of ``repro.core.ann_index``.
+the port of ``repro.core.ann_index``.
 
 A background ``IVFRefresher`` thread snapshots the bank, k-means
 partitions it into ``nlist`` buckets and publishes the new index into the
@@ -17,28 +17,38 @@ Index layout, as in the JAX package:
 - ``bucket_occ``  : (C,) int32, rows per bucket; each bucket is filled from
   its start, so its occupied slots are its first ``bucket_occ[b]``.
 
+Sharded banks (``ShardedIVFIndex``): shard ``s`` owns the rows
+``[s*N/S, (s+1)*N/S)`` and has a sub-index of its own, clustered over only
+those rows, with ``nlist`` buckets; every array is shard-major, so shard
+s's slice of each is its complete sub-index, and the packed ids are
+global. ``build_sharded_ivf_index(base=, shards=)`` re-clusters only the
+listed shards and copies the others from ``base`` bit for bit (a full
+repack when a rebuilt shard outgrows the common capacity), and the
+refresher rebuilds exactly the shards whose own write clock crossed its
+budget.
+
 Differences of form from the JAX module:
 
 - the arrays are torch tensors on the device of the table the index was
-  built from, and the build runs there (on the card at serving scale);
+  built from, and the build runs there (on the card at serving scale),
+  one shard after another for a sharded index;
 - the k-means sums per cluster are a one-hot product over fixed chunks of
   rows, never a scatter-add with float atomics, so two builds of one
   snapshot give identical arrays on the card, as they do in JAX;
-- ``QuantizedIVFIndex`` keeps no fp32 copy of the packed rows (the JAX one
-  keeps its ``base`` for the sharded partial rebuilds, which are not
-  ported), so an int8 bank's index holds no fp32 copy of the bank;
+- ``QuantizedIVFIndex`` keeps no fp32 copy of the packed rows, so an int8
+  bank's index holds no fp32 copy of the bank; ``QuantizedShardedIVFIndex``
+  keeps its fp32 ``base``, as the JAX one does, because a partial rebuild
+  copies the untouched shards from it;
 - ``IVFRefresher`` takes an optional lock that the server's dispatcher
   holds per op, and the engine takes its snapshot under it: the port's
   state is updated in place, so a snapshot taken while an op runs could
   tear (``KBEngine.rebuild_ann_index``).
-
-``ShardedIVFIndex`` and its builders wait for the sharded backend
-(ROADMAP Q1 item 6).
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -187,9 +197,11 @@ def _round_capacity(biggest: int) -> int:
     return -(-biggest // 128) * 128
 
 
-def _pack_buckets(tbl, assign, C: int, cap: int):
+def _pack_buckets(tbl, assign, C: int, cap: int, *, id_offset: int = 0):
     """Group the rows of ``tbl`` by bucket into the padded layout, each
-    bucket from its start in row order, -1 ids in the padding."""
+    bucket from its start in row order, -1 ids in the padding.
+    ``id_offset`` turns row positions into bank ids (shard s of a sharded
+    build packs its slice with offset s * N / S)."""
     N, D = tbl.shape
     dev = tbl.device
     order = torch.argsort(assign, stable=True)
@@ -197,7 +209,7 @@ def _pack_buckets(tbl, assign, C: int, cap: int):
     start = torch.searchsorted(sa, torch.arange(C, device=dev))
     slots = sa * cap + (torch.arange(N, device=dev) - start[sa])
     packed_ids = torch.full((C * cap,), -1, dtype=torch.int32, device=dev)
-    packed_ids[slots] = order.to(torch.int32)
+    packed_ids[slots] = (order + id_offset).to(torch.int32)
     packed_vecs = torch.zeros((C * cap, D), dtype=torch.float32, device=dev)
     packed_vecs[slots] = tbl[order]
     return packed_vecs, packed_ids
@@ -216,6 +228,119 @@ def build_ivf_index(table, *, nlist: int = 64, iters: int = 8,
     packed_vecs, packed_ids = _pack_buckets(tbl, assign, C, cap)
     return IVFIndex(centroids, packed_vecs, packed_ids, nlist=C,
                     bucket_cap=cap, n_rows=tbl.shape[0], bucket_occ=occ)
+
+
+class ShardedIVFIndex:
+    """Per-shard sub-indexes of a row-sharded bank in one set of
+    shard-major arrays: shard s's centroids are rows ``[s*C, (s+1)*C)``,
+    its buckets the slots ``[s*C*cap, (s+1)*C*cap)`` (``cap`` common to
+    every shard), ``bucket_occ`` (S*C,) in the same global bucket order,
+    and ``packed_ids`` global bank ids. ``nlist`` is per shard."""
+
+    __slots__ = ("centroids", "packed_vecs", "packed_ids", "n_shards",
+                 "nlist", "bucket_cap", "n_rows", "bucket_occ")
+
+    def __init__(self, centroids, packed_vecs, packed_ids, *, n_shards: int,
+                 nlist: int, bucket_cap: int, n_rows: int, bucket_occ=None):
+        self.centroids = centroids
+        self.packed_vecs = packed_vecs
+        self.packed_ids = packed_ids
+        self.n_shards = n_shards
+        self.nlist = nlist
+        self.bucket_cap = bucket_cap
+        self.n_rows = n_rows
+        if bucket_occ is None:          # derive from the packed layout
+            bucket_occ = (packed_ids.reshape(n_shards * nlist, bucket_cap)
+                          >= 0).sum(1).to(torch.int32)
+        self.bucket_occ = bucket_occ
+
+    def shard_stats(self) -> list:
+        """Each shard's bucket-occupancy summary, with its ``shard`` id. The
+        capacity is common, so a shard whose ``headroom`` nears 0 is the
+        one whose next rebuild forces a full repack."""
+        pid = self.packed_ids.reshape(self.n_shards, -1)
+        return [dict(_bucket_occupancy_stats(pid[s], self.nlist,
+                                             self.bucket_cap), shard=s)
+                for s in range(self.n_shards)]
+
+    def tensors(self):
+        return (self.centroids, self.packed_vecs, self.packed_ids,
+                self.bucket_occ)
+
+
+def build_sharded_ivf_index(table, n_shards: int, *, nlist: int = 64,
+                            iters: int = 8, tol: float = 1e-4,
+                            base: Optional[ShardedIVFIndex] = None,
+                            shards: Optional[Sequence[int]] = None
+                            ) -> ShardedIVFIndex:
+    """Cluster each shard's rows of a table snapshot (N, D) into its own
+    sub-index, one shard after another, on the table's device and the
+    caller's stream.
+
+    With ``base`` and ``shards``, only the listed shards are re-clustered
+    and every other shard's arrays are copied from ``base`` bit for bit;
+    an empty list returns ``base`` itself. If a rebuilt shard's largest
+    bucket outgrows ``base.bucket_cap``, every shard is re-clustered and
+    repacked at the larger capacity (the caller sees
+    ``result.bucket_cap != base.bucket_cap``). Raises for a bank that
+    ``n_shards`` does not divide and for shard ids outside
+    ``[0, n_shards)``. The same snapshot and shard list always give the
+    same index."""
+    tbl = table.to(torch.float32)
+    N, D = tbl.shape
+    if N % n_shards:
+        raise ValueError(f"bank rows {N} not divisible by {n_shards} shards")
+    n_local = N // n_shards
+    C = max(1, min(nlist, n_local))
+    if base is not None and (base.n_shards != n_shards or base.nlist != C):
+        base = None                     # shape changed: full rebuild
+    if shards is not None:
+        bad = [int(s) for s in shards if not 0 <= int(s) < n_shards]
+        if bad:
+            raise ValueError(f"shard ids {bad} out of range "
+                             f"[0, {n_shards})")
+    rebuild = (range(n_shards) if base is None or shards is None
+               else sorted({int(s) for s in shards}))
+    if base is not None and not rebuild:
+        return base                     # empty shard list: no-op
+
+    def rows(s):
+        return tbl[s * n_local:(s + 1) * n_local]
+
+    def cluster(s):
+        return kmeans(rows(s), C, iters=iters, tol=tol)
+
+    def biggest():
+        return max(int(torch.bincount(a, minlength=C).max())
+                   for _, a in built.values())
+
+    built = {s: cluster(s) for s in rebuild}
+    cap = _round_capacity(biggest())
+    if base is not None and cap <= base.bucket_cap:
+        cap = base.bucket_cap           # partial rebuild keeps the layout
+    elif base is not None:              # capacity grew: repack every shard
+        base = None
+        built.update({s: cluster(s) for s in range(n_shards)
+                      if s not in built})
+        cap = _round_capacity(biggest())
+    dev = tbl.device
+    if base is None:
+        cent = torch.zeros((n_shards * C, D), dtype=torch.float32, device=dev)
+        vecs = torch.zeros((n_shards * C * cap, D), dtype=torch.float32,
+                           device=dev)
+        ids = torch.full((n_shards * C * cap,), -1, dtype=torch.int32,
+                         device=dev)
+        occ = torch.zeros((n_shards * C,), dtype=torch.int32, device=dev)
+    else:                               # untouched shards: base verbatim
+        cent, vecs, ids, occ = (t.clone() for t in base.tensors())
+    for s, (centroids, assign) in built.items():
+        lo, hi = s * C * cap, (s + 1) * C * cap
+        vecs[lo:hi], ids[lo:hi] = _pack_buckets(rows(s), assign, C, cap,
+                                                id_offset=s * n_local)
+        cent[s * C:(s + 1) * C] = centroids
+        occ[s * C:(s + 1) * C] = torch.bincount(assign, minlength=C)
+    return ShardedIVFIndex(cent, vecs, ids, n_shards=n_shards, nlist=C,
+                           bucket_cap=cap, n_rows=N, bucket_occ=occ)
 
 
 class QuantizedIVFIndex:
@@ -252,13 +377,52 @@ class QuantizedIVFIndex:
                 self.packed_offset, self.packed_ids, self.bucket_occ)
 
 
+class QuantizedShardedIVFIndex:
+    """A ``ShardedIVFIndex`` whose packed rows are int8 codes with a
+    per-slot (scale, offset), by ``quantize_rows``'s rule. It keeps its
+    fp32 ``base``, which the next partial rebuild copies the untouched
+    shards from. ``quantized`` gives the (codes, scale, offset) arrays
+    directly (an index carried over from the JAX package)."""
+
+    __slots__ = ("centroids", "packed_codes", "packed_scale",
+                 "packed_offset", "packed_ids", "n_shards", "nlist",
+                 "bucket_cap", "n_rows", "bucket_occ", "base")
+
+    def __init__(self, base: ShardedIVFIndex, quantized=None):
+        codes, scale, offset = (quantize_rows(base.packed_vecs)
+                                if quantized is None else quantized)
+        self.centroids = base.centroids
+        self.packed_codes = codes
+        self.packed_scale = scale
+        self.packed_offset = offset
+        self.packed_ids = base.packed_ids
+        self.n_shards = base.n_shards
+        self.nlist = base.nlist
+        self.bucket_cap = base.bucket_cap
+        self.n_rows = base.n_rows
+        self.bucket_occ = base.bucket_occ
+        self.base = base
+
+    def shard_stats(self) -> list:
+        return self.base.shard_stats()
+
+    def tensors(self):
+        return (self.centroids, self.packed_codes, self.packed_scale,
+                self.packed_offset, self.packed_ids, self.bucket_occ)
+
+
 class IVFRefresher(threading.Thread):
-    """Background index maker: polls the engine's write counters and
-    rebuilds the index whenever ``rebuild_rows`` rows were written since
-    the last build, or no index exists yet. ``lock`` (the server's engine
-    lock) is held while the engine takes its snapshot, and only then.
-    ``rebuilds`` counts published indexes; ``last_error`` keeps the last
-    build's exception (the thread lives on)."""
+    """Background index maker: polls the engine's write clocks and
+    rebuilds whenever an index is missing or a shard's rows written since
+    its own last build reached ``rebuild_shard_rows``, that is
+    ``rebuild_rows // engine.ann_shards`` (one shard on the single-index
+    engines, where it is ``rebuild_rows``). Only those shards are
+    re-clustered. ``lock`` (the server's engine lock) is held while the
+    engine takes its snapshot, and only then. ``rebuilds`` counts
+    published indexes, ``shard_rebuilds`` the sub-indexes re-clustered
+    (the engine reports a full repack as every shard), ``last_build_s``
+    the last rebuild's seconds, snapshot to publication; ``last_error``
+    keeps the last build's exception (the thread lives on)."""
 
     def __init__(self, engine, *, rebuild_rows: Optional[int] = None,
                  iters: int = 8, min_period_s: float = 0.01, lock=None,
@@ -267,24 +431,34 @@ class IVFRefresher(threading.Thread):
         self.engine = engine
         self.rebuild_rows = (max(1, engine.num_entries // 4)
                              if rebuild_rows is None else rebuild_rows)
+        self.rebuild_shard_rows = max(1, self.rebuild_rows
+                                      // engine.ann_shards)
         self.iters = iters
         self.min_period_s = min_period_s
         self.lock = lock
         self.stop_event = threading.Event()
         self.rebuilds = 0
         self.shard_rebuilds = 0
+        self.last_build_s: Optional[float] = None
         self.last_error: Optional[BaseException] = None
 
-    def stale(self) -> bool:
-        return (self.engine.ann_index is None
-                or self.engine.ann_staleness_rows >= self.rebuild_rows)
+    def stale_shards(self) -> list:
+        """Shard ids past their budget (every shard while no index
+        exists)."""
+        if self.engine.ann_index is None:
+            return list(range(self.engine.ann_shards))
+        per_shard = self.engine.ann_shard_staleness_rows
+        return np.flatnonzero(per_shard >= self.rebuild_shard_rows).tolist()
 
     def run(self):
         while not self.stop_event.is_set():
-            if self.stale():
+            stale = self.stale_shards()
+            if stale:
                 try:
+                    t0 = time.perf_counter()
                     self.shard_rebuilds += self.engine.rebuild_ann_index(
-                        iters=self.iters, lock=self.lock)
+                        iters=self.iters, shards=stale, lock=self.lock)
+                    self.last_build_s = time.perf_counter() - t0
                     self.rebuilds += 1
                     self.last_error = None
                 except Exception as e:   # keep the maker alive; a dead

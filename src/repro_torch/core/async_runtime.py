@@ -20,7 +20,9 @@ trainer gradients with no ordering guarantee).
 
 ``start_ann_refresher`` registers the IVF index maker
 (``repro_torch.core.ann_index.IVFRefresher``), which takes its snapshots
-under the engine lock that the dispatcher holds for every op.
+under the engine lock that the dispatcher holds for every op; on the
+sharded backend (pass ``backend=ShardedBackend(S)``) it rebuilds each
+shard's sub-index on its own clock.
 
 Not ported yet (ROADMAP Q1 items 2 and 3): the maker runtime and the row
 export/import of the wire fleet.
@@ -152,6 +154,7 @@ class KnowledgeBankServer:
         self._closed = False
         self._dispatcher = None
         self._ann_refresher = None
+        self._ann_closed_counts = {"rebuilds": 0, "shard_rebuilds": 0}
         if coalesce:
             self._dispatcher = threading.Thread(
                 target=self._dispatch_loop, daemon=True, name="kb-dispatch")
@@ -227,7 +230,8 @@ class KnowledgeBankServer:
         """Server metrics, the derived staleness and coalescing ratios, the
         engine's search counters and storage accounting, in the JAX
         server's keys (``maker_stats`` stays empty: no maker runtime
-        yet)."""
+        yet), and the index maker's ``rebuilds`` (indexes published) and
+        ``shard_rebuilds`` (sub-indexes re-clustered), 0 without one."""
         with self._mlock:
             m = dict(self.metrics)
         storage = self.engine.storage_stats()
@@ -240,13 +244,23 @@ class KnowledgeBankServer:
                 "backend": self.engine.backend.name,
                 "num_entries": int(self.engine.num_entries),
                 "dim": int(self.engine.dim),
-                "storage": storage, "maker_stats": {}}
+                "storage": storage, "maker_stats": {},
+                **self._ann_counts()}
+
+    def _ann_counts(self) -> dict:
+        """The index maker's counters (its last ones once closed)."""
+        r = self._ann_refresher
+        if r is None:
+            return dict(self._ann_closed_counts)
+        return {"rebuilds": r.rebuilds, "shard_rebuilds": r.shard_rebuilds}
 
     def start_ann_refresher(self, **kwargs) -> IVFRefresher:
         """Start the IVF index maker: a daemon thread that rebuilds the
         engine's index off the serving path, taking each snapshot under
-        the engine lock. Stopped by ``close``. Returns the thread (its
-        ``rebuilds`` counter and ``last_error`` are the hooks)."""
+        the engine lock; on the sharded backend only the shards with
+        ``rebuild_rows // S`` rows written since their last build. Stopped
+        by ``close``. Returns the thread (its ``rebuilds`` and
+        ``shard_rebuilds`` counters and ``last_error`` are the hooks)."""
         if self._ann_refresher is None:
             self._ann_refresher = IVFRefresher(self.engine, lock=self._elock,
                                                **kwargs)
@@ -262,6 +276,7 @@ class KnowledgeBankServer:
         hanging."""
         if self._ann_refresher is not None:
             self._ann_refresher.stop()
+            self._ann_closed_counts = self._ann_counts()
             self._ann_refresher = None
         with self._cond:
             self._closed = True

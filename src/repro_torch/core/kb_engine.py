@@ -1,4 +1,4 @@
-"""Pluggable Knowledge-Bank engine: one semantics, two execution backends.
+"""Pluggable Knowledge-Bank engine: one semantics, three execution backends.
 
 The port of ``repro.core.kb_engine`` for fp32 and int8 storage, exact and
 IVF search, on one device:
@@ -19,6 +19,17 @@ IVF search, on one device:
                     plain PyTorch, as they are jnp in the JAX package. On
                     CPU tensors each kernel wrapper runs its plain version,
                     which is how the CPU tests drive this backend.
+- ``ShardedBackend``: the bank as S logical shards (the owner ranges of
+                    ``repro_torch.core.sharded_kb``) on one device, in
+                    place of the JAX package's mesh ``ShardedBackend``
+                    (``kb_engine.py:120-186``), whose shard count is the
+                    mesh's size. The row ops are ``CudaBackend``'s: on one
+                    device each id has one owner, so they come out exactly
+                    as the dense ones. The searches are per shard: exact
+                    top-k over each shard's rows, and IVF through one
+                    sub-index per shard (``ShardedIVFIndex``) whose stage 2
+                    runs every shard in one launch of the sharded kernel;
+                    both merge the shards' lists shard-major.
 
 **State is updated in place.** Every backend op writes into the state's
 tensors and returns the same state; the engine keeps one state and never a
@@ -55,8 +66,14 @@ engine clamps such reads and drops such writes; on the card an index out of
 range is a device-side assert that would poison the process's CUDA context,
 so the port refuses both (ROADMAP, deliberate differences).
 
-Options this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item that holds them: ``resident_rows`` and the sharded backend.
+``resident_rows`` (tiered residency) is not ported and raises
+``NotImplementedError`` naming its ROADMAP item, on every backend.
+
+On the sharded backend the engine keeps one write clock per shard and one
+IVF sub-index per shard; ``rebuild_ann_index(shards=)`` re-clusters only
+the listed shards, and the others keep their arrays and their clocks.
+Sharded int8 storage keeps the fp32 table and quantizes the index
+(``QuantizedShardedIVFIndex``), as the JAX engine does.
 
 int8 storage keeps ``state.table`` as (N, D) int8 codes with the (N,) fp32
 side-cars ``_qscale`` / ``_qoffset`` beside the state, as the JAX engine
@@ -80,7 +97,11 @@ import torch
 
 from repro_torch.convert import kb_state_from_numpy
 from repro_torch.core import knowledge_bank as kbm
-from repro_torch.core.ann_index import QuantizedIVFIndex, build_ivf_index
+from repro_torch.core import sharded_kb as skb
+from repro_torch.core.ann_index import (QuantizedIVFIndex,
+                                        QuantizedShardedIVFIndex,
+                                        ShardedIVFIndex, build_ivf_index,
+                                        build_sharded_ivf_index)
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
 from repro_torch.kernels import nn_search_ivf as ivf
@@ -233,18 +254,50 @@ class CudaBackend:
                                   ids)
 
 
-def make_backend(name: str) -> KBBackend:
-    """Backend factory: ``cuda | dense``. Both satisfy the same contract
-    (tests/test_torch_engine.py holds them against each other and against
-    the JAX package)."""
+class ShardedBackend:
+    """The bank as ``n_shards`` logical shards on one device: the row ops
+    of ``CudaBackend``, per-shard searches with a shard-major merge
+    (``repro_torch.core.sharded_kb``)."""
+
+    name = "sharded"
+
+    def __init__(self, n_shards: int = 1):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.n_shards = n_shards
+        rows = CudaBackend()
+        self.lookup, self.update = rows.lookup, rows.update
+        self.lazy_grad, self.flush = rows.lazy_grad, rows.flush
+
+    def nn_search(self, state, queries, k, *, exclude_ids=None):
+        def search(kk):
+            return skb.sharded_kb_nn_search(state.table, queries, kk,
+                                            self.n_shards)
+        if exclude_ids is None:
+            return search(k)
+        return ops.overfetch_exclude_topk(search, state.table.shape[0], k,
+                                          exclude_ids)
+
+    def ivf_search(self, state, index, queries, k, nprobe):
+        """Through a ``ShardedIVFIndex`` (or its int8 twin) whose shard
+        count is this backend's."""
+        return skb.sharded_kb_nn_search_ivf(state.table, index, queries, k,
+                                            nprobe)
+
+
+def make_backend(name: str, *, n_shards: int = 1) -> KBBackend:
+    """Backend factory: ``cuda | dense | sharded`` (``n_shards`` logical
+    shards). All satisfy the same contract (tests/test_torch_engine.py and
+    tests/test_torch_sharded_ivf.py hold them against each other and
+    against the JAX package)."""
     if name == "cuda":
         return CudaBackend()
     if name == "dense":
         return DenseBackend()
     if name == "sharded":
-        raise NotImplementedError(
-            "the sharded backend is not ported yet (ROADMAP Q1 item 6)")
-    raise ValueError(f"unknown KB backend {name!r} (want cuda | dense)")
+        return ShardedBackend(n_shards)
+    raise ValueError(f"unknown KB backend {name!r} "
+                     "(want cuda | dense | sharded)")
 
 
 class KBOps(NamedTuple):
@@ -328,7 +381,11 @@ class KBEngine:
         # and at apply time, as the JAX engine's default entry_zmax does
         self.lazy_lr, self.zmax, self.lazy_update = lazy_lr, zmax, lazy_update
         self.storage = storage
-        self._quantized = storage == "int8"
+        sharded = isinstance(self.backend, ShardedBackend)
+        # int8 quantizes the live table on the single-index backends; the
+        # sharded backend keeps its fp32 table and quantizes the IVF
+        # snapshot instead (rebuild_ann_index), as the JAX engine does
+        self._quantized = storage == "int8" and not sharded
         self.master_rows = master_rows
         # -- ANN (IVF) serving state; see repro_torch.core.ann_index ------
         self.search_mode = search_mode
@@ -339,9 +396,12 @@ class KBEngine:
                                else ann_stale_rows)
         self.ann_index = None               # published by the refresher
         self.total_write_rows = 0           # monotonic written-row counter
-        # one shard: the JAX engine's per-shard clocks with a single entry
-        self.shard_write_rows = np.zeros((1,), np.int64)
-        self._ann_shard_built_at = np.zeros((1,), np.int64)
+        # one write clock per bank shard drives the per-shard sub-index
+        # rebuilds; the single-index backends have exactly one shard
+        self.ann_shards = self.backend.n_shards if sharded else 1
+        self._owners = skb.OwnerShard(num_entries, self.ann_shards)
+        self.shard_write_rows = np.zeros((self.ann_shards,), np.int64)
+        self._ann_shard_built_at = np.zeros((self.ann_shards,), np.int64)
         self._build_stream = None
         self.search_stats = {"exact": 0, "ivf": 0}
         self.dispatches = 0         # device calls issued (bench metric)
@@ -480,9 +540,11 @@ class KBEngine:
         self._count_writes(ids)
 
     def _count_writes(self, ids: np.ndarray) -> None:
-        """Charge written rows to the ANN staleness clock (one shard)."""
+        """Charge written rows to the global and the per-shard staleness
+        clocks (shard = owner range). The ids were checked, so none needs
+        clipping, as the JAX engine's do."""
         self.total_write_rows += ids.size
-        self.shard_write_rows[0] += ids.size
+        self.shard_write_rows += self._owners.count(ids)
 
     def flush(self) -> None:
         """Expiration path: apply every pending cached gradient now."""
@@ -525,6 +587,7 @@ class KBEngine:
             [queries, np.zeros((_bucket(B) - B, self.dim), np.float32)]))
         idx = self.ann_index
         if (mode == "ivf" and idx is not None
+                and getattr(idx, "n_shards", 1) == self.ann_shards
                 and self.ann_staleness_rows <= self.ann_stale_rows):
             nprobe = min(self.ann_nprobe, idx.nlist)
             if self._quantized:
@@ -575,37 +638,72 @@ class KBEngine:
 
     @property
     def ann_staleness_rows(self) -> float:
-        """Rows written since the current index was built (inf if none)."""
+        """Rows written since the current index was built (inf if none);
+        on the sharded backend the WORST shard's, which the exact fallback
+        gates on."""
         if self.ann_index is None:
             return float("inf")
         return int((self.shard_write_rows - self._ann_shard_built_at).max())
+
+    @property
+    def ann_shard_staleness_rows(self) -> np.ndarray:
+        """Rows written to each shard since its sub-index was built,
+        (ann_shards,) float64, +inf everywhere while no index exists: the
+        refresher's per-shard trigger."""
+        if self.ann_index is None:
+            return np.full((self.ann_shards,), np.inf)
+        return (self.shard_write_rows - self._ann_shard_built_at).astype(
+            np.float64)
 
     def set_ann_index(self, index, *, built_at_shard_writes=None) -> None:
         """Publish a built index. Index first, clock second: a reader that
         pairs the OLD index with the NEW clock would understate staleness;
         this order can only overstate it (a spurious, safe exact
-        fallback). ``built_at_shard_writes``: the write clock when the
-        build took its snapshot; without it, the index counts as fresh
-        now."""
+        fallback). ``built_at_shard_writes``: the per-shard write clock
+        when the build took its snapshot; without it, the index counts as
+        fresh now."""
         if built_at_shard_writes is None:
             built_at_shard_writes = self.shard_write_rows.copy()
         self.ann_index = index
         self._ann_shard_built_at = np.asarray(built_at_shard_writes,
                                               np.int64)
 
-    def rebuild_ann_index(self, *, iters: int = 8, lock=None) -> int:
+    def _build_index(self, snap, iters: int, shards, base):
+        """The new index of ``snap``: one ``IVFIndex`` (or its int8 twin),
+        or on the sharded backend the sub-indexes of ``shards`` rebuilt
+        from ``base`` (every shard without one), quantized for int8
+        storage; ``base`` itself when ``shards`` is empty."""
+        if self.ann_shards == 1:
+            index = build_ivf_index(snap, nlist=self.ann_nlist, iters=iters)
+            return QuantizedIVFIndex(index) if self.storage == "int8" \
+                else index
+        index = build_sharded_ivf_index(snap, self.ann_shards,
+                                        nlist=self.ann_nlist, iters=iters,
+                                        base=base, shards=shards)
+        if index is base or self.storage != "int8":
+            return index
+        return QuantizedShardedIVFIndex(index)
+
+    def rebuild_ann_index(self, *, iters: int = 8, shards=None,
+                          lock=None) -> int:
         """Snapshot -> cluster -> pack -> publish; safe to call from a
         background thread. The snapshot (a copy of the table, or of its
-        dequantization for int8) and the write clock are taken under
-        ``lock``, which the server's dispatcher holds for every op, so no
-        in-place op is halfway through. On the card the snapshot is queued
-        on the serving stream, the build runs on a stream of its own after
-        it, and the index is published only when that stream's work is
-        done. An int8 bank clusters the dequantized snapshot and packs
-        int8 rows (``QuantizedIVFIndex``). Returns 1, the number of
-        (sub-)indexes built: there is one shard."""
+        dequantization for an int8 table), the write clocks and the
+        current index are taken under ``lock``, which the server's
+        dispatcher holds for every op, so no in-place op is halfway
+        through. On the card the snapshot is queued on the serving
+        stream, the build runs on a stream of its own after it, and the
+        index is published only when that stream's work is done.
+
+        ``shards`` (sharded backend): re-cluster only those shards'
+        sub-indexes; the others keep their arrays and their clocks. A
+        capacity overflow repacks every shard and counts as a full
+        rebuild; an empty list builds nothing. The single-index backends
+        ignore ``shards``. Returns the number of sub-indexes re-clustered
+        (the refresher's ``shard_rebuilds``)."""
         with lock if lock is not None else contextlib.nullcontext():
             built_at = self.shard_write_rows.copy()
+            prev = self.ann_index
             if self._quantized:
                 snap = kbm.dequantize_rows(self.state.table, self._qscale,
                                            self._qoffset)
@@ -614,23 +712,33 @@ class KBEngine:
             if self.device.type == "cuda":
                 serving = torch.cuda.current_stream(self.device)
                 ready = serving.record_event()
-        wrap = QuantizedIVFIndex if self._quantized else (lambda ix: ix)
+        base = getattr(prev, "base", prev)
+        if not isinstance(base, ShardedIVFIndex):
+            base = None
         if self.device.type == "cuda":
             if self._build_stream is None:
                 self._build_stream = torch.cuda.Stream(self.device)
             stream = self._build_stream
             stream.wait_event(ready)
             with torch.cuda.stream(stream):
-                index = wrap(build_ivf_index(snap, nlist=self.ann_nlist,
-                                             iters=iters))
+                index = self._build_index(snap, iters, shards, base)
             stream.synchronize()
             for t in index.tensors():
                 t.record_stream(serving)   # freed only after serving's use
         else:
-            index = wrap(build_ivf_index(snap, nlist=self.ann_nlist,
-                                         iters=iters))
-        self.set_ann_index(index, built_at_shard_writes=built_at)
-        return 1
+            index = self._build_index(snap, iters, shards, base)
+        if base is not None and getattr(index, "base", index) is base:
+            return 0                        # empty shard list: no-op
+        if (base is None or shards is None
+                or index.bucket_cap != base.bucket_cap):
+            self.set_ann_index(index, built_at_shard_writes=built_at)
+            return self.ann_shards              # a full (re)build
+        # a partial rebuild: the untouched shards keep their clocks
+        listed = sorted({int(s) for s in shards})
+        clocks = self._ann_shard_built_at.copy()
+        clocks[listed] = built_at[listed]
+        self.set_ann_index(index, built_at_shard_writes=clocks)
+        return len(listed)
 
     def warmup(self, max_batch: int = 256) -> None:
         """Run every op once at the ``max_batch`` bucket on a small scratch
@@ -638,7 +746,8 @@ class KBEngine:
         loaded. The live state is never touched. (The int8 flush and exact
         search are plain PyTorch; the IVF kernels are built at the first
         search through an index.)"""
-        bk, rows = self.backend, min(self.num_entries, 64)
+        bk, S = self.backend, self.ann_shards
+        rows = max(S, min(self.num_entries, 64) // S * S)  # S divides it
         scratch = kbm.kb_create(rows, self.dim, device=self.device)
         b = _bucket(max_batch)
         ids = torch.arange(b, device=self.device) % rows

@@ -17,5 +17,6 @@ extern "C" int ivf_stage2_launch(const float* packed_vecs,
   return ivf_stage2_run<false>(packed_vecs, nullptr, nullptr, packed_ids,
                                bucket_occ, C, cap, queries, probes, B,
                                nprobe, D, k, tile_rows, rows_per_slice,
-                               slices, part_s, part_i, out_s, out_i, stream);
+                               slices, part_s, part_i, out_s, out_i, 1,
+                               stream);
 }

@@ -1,11 +1,13 @@
 // IVF stage 2 on the card: each query's running top-k over the occupied
 // rows of its probed buckets in the packed (C * cap, D) layout, with the
 // packed ids standing in for the row index. Shared by ivf_stage2.cu (fp32
-// snapshot rows) and ivf_stage2_q.cu (int8 snapshot rows).
+// snapshot rows), ivf_stage2_q.cu (int8 snapshot rows) and
+// ivf_stage2_sharded.cu (the per-shard shortlists of a sharded index).
 //
 // Replaces: src/repro/kernels/nn_search_ivf.py:186 ivf_stage2_pallas (body
-// _ivf_kernel :154) and :281 ivf_stage2_quantized_pallas (body
-// _ivf_kernel_q :244).
+// _ivf_kernel :154), :281 ivf_stage2_quantized_pallas (body
+// _ivf_kernel_q :244) and :381 ivf_stage2_sharded_pallas (body
+// _ivf_kernel_sharded :344).
 //
 // What bounds it: bytes. A batch must read each bucket that any of its
 // queries probes once: the bucket's occupied rows (4D bytes a row in fp32,
@@ -39,6 +41,13 @@
 //      the query's slot (query, probe position, slice).
 //   2. merge_topk_lists (common.cuh): one block per query merges its
 //      nprobe * slices lists.
+// Groups (the sharded index): a query's probes may come in `groups` equal
+// runs, one per shard, holding GLOBAL bucket ids (the caller adds each
+// shard's offset). Step 1 is unchanged; step 2 runs one block per (query,
+// group) over the group's nprobe/groups * slices lists, contiguous in the
+// [query][probe position][slice][k] partial layout, so each (query,
+// group) gets its own top-k, as the Pallas kernel restarts its running
+// top-k at each shard's first chunk. One group is the single index.
 // Lists are ordered by (score descending, id ascending) and padded with
 // (-1e30, INT_MAX), exactly the Pallas _merge_topk's order and padding,
 // so a query with fewer than k candidates returns the same padding.
@@ -332,7 +341,8 @@ cudaError_t ivf_launch_partial(dim3 grid, const void* packed,
 }
 
 // Both launches of one stage-2 search. part_s / part_i: (B, nprobe,
-// slices, k) scratch; out_s / out_i: (B, k).
+// slices, k) scratch; out_s / out_i: (B, groups, k); groups divides
+// nprobe.
 template <bool kInt8>
 cudaError_t ivf_stage2_run(const void* packed, const float* packed_scale,
                            const float* packed_offset, const int* packed_ids,
@@ -341,8 +351,10 @@ cudaError_t ivf_stage2_run(const void* packed, const float* packed_scale,
                            int nprobe, int D, int k, int tile_rows,
                            long long rows_per_slice, int slices,
                            float* part_s, int* part_i, float* out_s,
-                           int64_t* out_i, cudaStream_t stream) {
-  if (k < 1 || k > TOPK_KMAX || rows_per_slice % tile_rows)
+                           int64_t* out_i, int groups,
+                           cudaStream_t stream) {
+  if (k < 1 || k > TOPK_KMAX || rows_per_slice % tile_rows || groups < 1 ||
+      nprobe % groups)
     return cudaErrorInvalidValue;
   const dim3 grid(slices, C, (B + IVF_QB - 1) / IVF_QB);
   cudaError_t err;
@@ -370,8 +382,8 @@ cudaError_t ivf_stage2_run(const void* packed, const float* packed_scale,
   }
   if (err != cudaSuccess) return err;
   const size_t smem = (sizeof(float) + sizeof(int)) * IVF_WARPS * k;
-  merge_topk_lists<<<B, IVF_THREADS, smem, stream>>>(
-      part_s, part_i, nprobe * slices, k, out_s, out_i);
+  merge_topk_lists<<<B * groups, IVF_THREADS, smem, stream>>>(
+      part_s, part_i, nprobe / groups * slices, k, out_s, out_i);
   return cudaGetLastError();
 }
 

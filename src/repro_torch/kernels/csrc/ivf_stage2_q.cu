@@ -21,5 +21,5 @@ extern "C" int ivf_stage2_q_launch(const int8_t* packed_codes,
                               packed_ids, bucket_occ, C, cap, queries,
                               probes, B, nprobe, D, k, tile_rows,
                               rows_per_slice, slices, part_s, part_i, out_s,
-                              out_i, stream);
+                              out_i, 1, stream);
 }

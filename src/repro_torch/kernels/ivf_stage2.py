@@ -43,8 +43,13 @@ def tile_rows(dim: int, k: int) -> int:
                           minimum=32)
 
 
-def _stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
-            k: int, align: int):
+def stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
+           k: int, align: int, *, symbol=None, groups: int = 0):
+    """Launch ``symbol`` (default ``{name}_launch``) of library ``name``
+    after checking every input: the single-index entries, or with
+    ``groups`` = S >= 1 the sharded ones, whose probes (B, S * nprobe)
+    hold one run of global bucket ids per shard and whose output is (B,
+    S, k)."""
     require_cuda(packed_ids, "packed_ids", torch.int32, 1)
     require_cuda(bucket_occ, "bucket_occ", torch.int32, 1)
     require_cuda(queries, "queries", torch.float32, 2)
@@ -55,21 +60,24 @@ def _stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
     dev = packed.device
     if (queries.shape != (B, D) or rows != packed_ids.shape[0]
             or C < 1 or rows % C or C > 65535 or not 1 <= nprobe <= C
+            or C % max(groups, 1) or nprobe % max(groups, 1)
             or len({t.device for t in (packed, packed_ids, bucket_occ,
                                        queries, probes, *extra)}) != 1):
         raise ValueError(
             f"{name}: packed {tuple(packed.shape)}, packed_ids "
             f"{tuple(packed_ids.shape)}, {C} buckets, queries "
             f"{tuple(queries.shape)} and probes {tuple(probes.shape)} do not "
-            "fit one index on one device (C <= 65535, nprobe <= C)")
+            "fit one index on one device (C <= 65535 buckets in all, "
+            "nprobe <= C, both divisible by the shards)")
     if not 1 <= k <= KMAX:
         raise ValueError(f"{name} kernel takes 1 <= k <= {KMAX}, got {k}")
     if D % align or packed.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs D % {align} == 0 and 16-byte "
                          f"aligned rows (D={D})")
     cap = rows // C
-    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, k), dtype=torch.int64, device=dev)
+    shape = (B, groups, k) if groups else (B, k)
+    out_s = torch.empty(shape, dtype=torch.float32, device=dev)
+    out_i = torch.empty(shape, dtype=torch.int64, device=dev)
     if B == 0:
         return out_s, out_i
     tile = tile_rows(D, k)
@@ -82,13 +90,15 @@ def _stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
                         dtype=torch.float32, device=dev)
     part_i = torch.full((B, nprobe, slices, k), INT32_MAX,
                         dtype=torch.int32, device=dev)
-    launch(name, f"{name}_launch",
-           (ctypes.c_void_p,) * (1 + len(extra)) + _TAIL_ARGTYPES, dev,
+    grouped = (groups,) if groups else ()
+    launch(name, symbol or f"{name}_launch",
+           (ctypes.c_void_p,) * (1 + len(extra)) + _TAIL_ARGTYPES
+           + (ctypes.c_int,) * len(grouped), dev,
            packed.data_ptr(), *(t.data_ptr() for t in extra),
            packed_ids.data_ptr(), bucket_occ.data_ptr(), C, cap,
            queries.data_ptr(), probes.data_ptr(), B, nprobe, D, k, tile,
            per_slice, slices, part_s.data_ptr(), part_i.data_ptr(),
-           out_s.data_ptr(), out_i.data_ptr())
+           out_s.data_ptr(), out_i.data_ptr(), *grouped)
     return out_s, out_i
 
 
@@ -99,7 +109,7 @@ def ivf_stage2_cuda(packed_vecs, packed_ids, bucket_occ, queries, probes,
     (scores (B, k) f32, ids (B, k) int64), snapshot scores. Takes
     1 <= k <= 128, D % 4 == 0, and raises on anything else."""
     require_cuda(packed_vecs, "packed_vecs", torch.float32, 2)
-    out = _stage2("ivf_stage2", packed_vecs, (), packed_ids, bucket_occ,
+    out = stage2("ivf_stage2", packed_vecs, (), packed_ids, bucket_occ,
                   queries, probes, k, 4)
     ivf_stage2_cuda.launches += 1
     return out
@@ -117,7 +127,7 @@ def ivf_stage2_q_cuda(packed_codes, packed_scale, packed_offset, packed_ids,
         if t.shape[0] != packed_codes.shape[0]:
             raise ValueError(f"{what} {tuple(t.shape)} does not match "
                              f"packed_codes {tuple(packed_codes.shape)}")
-    out = _stage2("ivf_stage2_q", packed_codes,
+    out = stage2("ivf_stage2_q", packed_codes,
                   (packed_scale, packed_offset), packed_ids, bucket_occ,
                   queries, probes, k, 16)
     ivf_stage2_q_cuda.launches += 1

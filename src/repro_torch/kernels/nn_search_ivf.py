@@ -17,6 +17,14 @@ stale: staleness costs recall, never score accuracy.
 two-stage searches of the JAX package's oracles (``ivf_search_jnp``,
 ``ivf_search_quantized_jnp``), term for term: the ``DenseBackend`` IVF
 path.
+
+Sharded indexes (``repro_torch.core.ann_index.ShardedIVFIndex``): stage 1
+probes each shard's own centroids (``sharded_probes``), stage 2 keeps a
+top-k per (query, shard), and the (B, S, k) shortlists meet in a
+shard-major merge and the live re-rank. ``ivf_search_sharded`` runs stage
+2 on the card in one launch for every shard (``csrc/ivf_stage2_sharded.cu``,
+the port of ``ivf_search_sharded_pallas``); ``ivf_search_sharded_ref`` is
+the meshless oracle ``ivf_search_sharded_jnp``, term for term.
 """
 from __future__ import annotations
 
@@ -154,3 +162,100 @@ def ivf_search_quantized_ref(table_codes, qscale, qoffset, centroids,
     s = s * cand_s + torch.sum(qf, -1, keepdim=True) * cand_o
     return _rerank_live_q(table_codes, qscale, qoffset, queries,
                           _shortlist(s, cand_i, k))
+
+
+# ---------------------------------------------------------------------------
+# sharded indexes: per-shard probes and shortlists, shard-major merge
+# ---------------------------------------------------------------------------
+
+def sharded_probes(queries, centroids, n_shards: int, nprobe: int):
+    """Each shard's top-``nprobe`` buckets among its own C centroids, ties
+    to the lowest bucket: (B, D) x (S*C, D) -> (B, S, min(nprobe, C))
+    int32 LOCAL bucket ids."""
+    B = queries.shape[0]
+    C = centroids.shape[0] // n_shards
+    scores = (queries.to(torch.float32) @ centroids.to(torch.float32).T
+              ).reshape(B, n_shards, C)
+    return topk_lowest_id(scores, min(nprobe, C))[1].to(
+        torch.int32).contiguous()
+
+
+def global_probes(probes, n_buckets: int):
+    """(B, S, nprobe) local bucket ids of S shards with ``n_buckets // S``
+    buckets each -> (B, S * nprobe) global ids ``s * nlist + b``,
+    shard-major, as ``ivf_stage2_sharded_pallas`` makes them
+    (``nn_search_ivf.py:409-411``); a local id outside [0, nlist) becomes
+    -1, which names no bucket."""
+    B, S, nprobe = probes.shape
+    nlist = n_buckets // S
+    off = nlist * torch.arange(S, dtype=probes.dtype, device=probes.device)
+    ok = (probes >= 0) & (probes < nlist)
+    return torch.where(ok, probes + off[:, None], -1).reshape(B, S * nprobe)
+
+
+def _merge_shards(ls, li, k: int):
+    """(B, S, kk) per-shard shortlists -> the k best ids of their
+    shard-major concatenation, ties to the earlier position (the JAX
+    all-gather order and ``lax.top_k``)."""
+    B = ls.shape[0]
+    _, sel = topk_lowest_id(ls.reshape(B, -1), k)
+    return torch.gather(li.reshape(B, -1), 1, sel)
+
+
+def ivf_search_sharded(table, centroids, packed_vecs, packed_ids, queries,
+                       k: int, nprobe: int, *, n_shards: int, bucket_occ,
+                       packed_scale=None, packed_offset=None):
+    """``ivf_search_sharded_pallas``: per-shard stage 1, ONE stage-2 call
+    for every shard's shortlist (the kernel on the card, its plain version
+    for CPU tensors), the shard-major merge, and the re-rank against the
+    live fp32 ``table``. With ``packed_scale`` / ``packed_offset``,
+    ``packed_vecs`` holds int8 codes scored ``s (q.c) + o sum(q)``. ->
+    (scores (B, k), ids (B, k)), padding (-inf, -1)."""
+    # imported here: ops imports this module's plain helpers through ref
+    from repro_torch.kernels import ops
+    probes = sharded_probes(queries, centroids, n_shards, nprobe)
+    q = queries.to(torch.float32)
+    if packed_scale is None:
+        ls, li = ops.ivf_stage2_sharded(packed_vecs, packed_ids, bucket_occ,
+                                        q, probes, k)
+    else:
+        ls, li = ops.ivf_stage2_sharded_q(packed_vecs, packed_scale,
+                                          packed_offset, packed_ids,
+                                          bucket_occ, q, probes, k)
+    # IMAX fill ids score NEG and fall to _rerank_live's invalid branch
+    return _rerank_live(table, queries, _merge_shards(ls, li, k))
+
+
+def ivf_search_sharded_ref(table, centroids, packed_vecs, packed_ids,
+                           queries, k: int, nprobe: int, *, n_shards: int,
+                           packed_scale=None, packed_offset=None):
+    """The meshless oracle of the sharded search
+    (``ivf_search_sharded_jnp``): gather each shard's probed buckets,
+    score them (int8 codes by the decomposition when ``packed_scale`` /
+    ``packed_offset`` are given), each shard's top-k by candidate position
+    padded with (NEG, -1), the shard-major merge and the live re-rank."""
+    S = n_shards
+    SC, D = centroids.shape
+    C = SC // S
+    cap = packed_vecs.shape[0] // SC
+    B = queries.shape[0]
+    qf = queries.to(torch.float32)
+    probes = sharded_probes(queries, centroids, S, nprobe).long()
+    nprobe = probes.shape[2]
+    sidx = torch.arange(S, device=queries.device)[None, :, None]
+    cv = packed_vecs.reshape(S, C, cap, D)[sidx, probes]
+    ci = packed_ids.reshape(S, C, cap)[sidx, probes].reshape(B, S, -1).long()
+    s = torch.einsum("bd,bsld->bsl", qf,
+                     cv.reshape(B, S, nprobe * cap, D).to(torch.float32))
+    if packed_scale is not None:
+        cs = packed_scale.reshape(S, C, cap)[sidx, probes].reshape(B, S, -1)
+        co = packed_offset.reshape(S, C, cap)[sidx, probes].reshape(B, S, -1)
+        s = s * cs + torch.sum(qf, -1)[:, None, None] * co
+    s = torch.where(ci >= 0, s, NEG)
+    kk = min(k, nprobe * cap)
+    ls, sel = topk_lowest_id(s, kk)
+    li = torch.gather(ci, 2, sel)
+    if kk < k:                  # tiny sub-index: pad per shard
+        ls = torch.nn.functional.pad(ls, (0, k - kk), value=NEG)
+        li = torch.nn.functional.pad(li, (0, k - kk), value=-1)
+    return _rerank_live(table, queries, _merge_shards(ls, li, k))

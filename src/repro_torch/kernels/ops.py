@@ -20,6 +20,8 @@ from repro_torch.core.knowledge_bank import topk_lowest_id
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cuda, ivf_stage2_q_cuda
+from repro_torch.kernels.ivf_stage2_sharded import (ivf_stage2_sharded_cuda,
+                                                    ivf_stage2_sharded_q_cuda)
 from repro_torch.kernels.kb_fused_lookup import kb_fused_lookup_cuda
 from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
 from repro_torch.kernels.kb_gather import kb_gather_cuda
@@ -37,6 +39,8 @@ LAUNCHERS = {
     "ivf_stage2_q": ivf_stage2_q_cuda,
     "flash_attention": flash_attention_cuda,
     "rwkv_wkv": rwkv_wkv_cuda,
+    "ivf_stage2_sharded": ivf_stage2_sharded_cuda,
+    "ivf_stage2_sharded_q": ivf_stage2_sharded_q_cuda,
 }
 
 
@@ -124,6 +128,31 @@ def ivf_stage2_q(packed_codes, packed_scale, packed_offset, packed_ids,
     return ivf_stage2_q_cuda(packed_codes, packed_scale, packed_offset,
                              packed_ids, bucket_occ, queries,
                              probes.to(torch.int32), k)
+
+
+def ivf_stage2_sharded(packed_vecs, packed_ids, bucket_occ, queries, probes,
+                       k: int):
+    """Sharded IVF stage 2 over fp32 rows: probes (B, S, nprobe) local
+    bucket ids -> per-(query, shard) (snapshot scores, int64 ids), each
+    (B, S, k), padded with (-1e30, 2**31 - 1)."""
+    if _on_cpu(packed_vecs):
+        return ref.ivf_stage2_sharded_ref(packed_vecs, packed_ids,
+                                          bucket_occ, queries, probes, k)
+    return ivf_stage2_sharded_cuda(packed_vecs, packed_ids, bucket_occ,
+                                   queries, probes.to(torch.int32), k)
+
+
+def ivf_stage2_sharded_q(packed_codes, packed_scale, packed_offset,
+                         packed_ids, bucket_occ, queries, probes, k: int):
+    """Sharded IVF stage 2 over int8 rows, scored without dequantizing
+    them."""
+    if _on_cpu(packed_codes):
+        return ref.ivf_stage2_sharded_q_ref(packed_codes, packed_scale,
+                                            packed_offset, packed_ids,
+                                            bucket_occ, queries, probes, k)
+    return ivf_stage2_sharded_q_cuda(packed_codes, packed_scale,
+                                     packed_offset, packed_ids, bucket_occ,
+                                     queries, probes.to(torch.int32), k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -17,7 +17,8 @@ from repro_torch.core.knowledge_bank import (dequantize_rows, pending_delta,
                                              quantize_rows, topk_lowest_id)
 from repro_torch.kernels.flash_attention import KV_TILE
 from repro_torch.kernels.nn_search_ivf import (IMAX, NEG, STAGE2_BLOCK,
-                                               _chunk_rows, ivf_chunk_plan)
+                                               _chunk_rows, global_probes,
+                                               ivf_chunk_plan)
 
 
 def _valid(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -166,6 +167,45 @@ def ivf_stage2_q_ref(packed_codes, packed_scale, packed_offset, packed_ids,
         lambda q, rows: ((packed_codes[rows].to(torch.float32) @ q)
                          * packed_scale[rows]
                          + torch.sum(q) * packed_offset[rows]),
+        packed_ids, bucket_occ, queries, probes, k)
+
+
+def _ivf_stage2_sharded(stage2, packed, packed_ids, bucket_occ, queries,
+                        probes, k: int):
+    """A single-index stage 2 run once per (query, shard) over the
+    globalised probes: each row of the (B*S, nprobe) plan is one shard's
+    probes of one query, so ``ivf_chunk_plan`` compacts each shard's
+    occupied chunks on their own and each (query, shard) keeps its own
+    top-k. -> (scores (B, S, k), ids (B, S, k))."""
+    B, S, nprobe = probes.shape
+    s, i = stage2(*packed, packed_ids, bucket_occ,
+                  queries.repeat_interleave(S, 0),
+                  global_probes(probes, bucket_occ.shape[0]).reshape(
+                      B * S, nprobe), k)
+    return s.reshape(B, S, k), i.reshape(B, S, k)
+
+
+def ivf_stage2_sharded_ref(packed_vecs, packed_ids, bucket_occ, queries,
+                           probes, k: int):
+    """Plain version of ``csrc/ivf_stage2_sharded.cu`` (the Pallas
+    ``ivf_stage2_sharded_pallas``): over a ``ShardedIVFIndex``'s
+    shard-major (S*C*cap, D) rows, probes (B, S, nprobe) LOCAL bucket ids
+    per shard -> per-(query, shard) shortlists (B, S, k) in (score
+    descending, id ascending) order, snapshot scores, global ids, padded
+    with (NEG, IMAX) where a shard's probed buckets hold fewer than k
+    rows."""
+    return _ivf_stage2_sharded(ivf_stage2_ref, (packed_vecs,), packed_ids,
+                               bucket_occ, queries, probes, k)
+
+
+def ivf_stage2_sharded_q_ref(packed_codes, packed_scale, packed_offset,
+                             packed_ids, bucket_occ, queries, probes,
+                             k: int):
+    """``ivf_stage2_sharded_ref`` over a ``QuantizedShardedIVFIndex``'s
+    int8 rows, scored ``scale * (q . c) + sum(q) * offset``: the plain
+    version of the int8 entry of ``csrc/ivf_stage2_sharded.cu``."""
+    return _ivf_stage2_sharded(
+        ivf_stage2_q_ref, (packed_codes, packed_scale, packed_offset),
         packed_ids, bucket_occ, queries, probes, k)
 
 

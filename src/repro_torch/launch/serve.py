@@ -39,6 +39,17 @@ query): the launcher waits for the first build before the clients start.
   PYTHONPATH=src python -m repro_torch.launch.serve --kb \
       --kb-storage int8 --kb-search ivf
 
+``--kb-backend sharded --kb-shards S`` serves the bank as S logical shards
+of one device (``repro_torch.core.kb_engine.ShardedBackend``; the JAX
+launcher's shard count is its mesh's size): with ``--kb-search ivf`` each
+shard has its own sub-index of ``--nlist`` buckets, probed ``--nprobe`` at
+a time, the refresher rebuilds only the shards written past their own
+budget, and the summary ends with one line per shard. ogbn-mag's
+1,939,743 rows divide by 3 (and 9, 13, 39, 59), not by 2 or 4:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --kb \
+      --kb-backend sharded --kb-shards 3 --kb-search ivf
+
 The run is on the CUDA device unless ``--device cpu`` is given. Options of
 the JAX launcher that are not ported yet raise ``NotImplementedError``.
 """
@@ -53,6 +64,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.async_runtime import KnowledgeBankServer
+from repro_torch.core.kb_engine import make_backend
 from repro_torch.env import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
@@ -82,9 +94,13 @@ def _first_index(server, refresher) -> float:
 def serve_kb(args) -> dict:
     """Concurrent-client KB serving on the coalescing server. Returns the
     run's numbers (also printed) and the closed server's engine."""
+    if args.kb_shards != 1 and args.kb_backend != "sharded":
+        raise ValueError("--kb-shards needs --kb-backend sharded")
     rng = np.random.default_rng(args.seed)
     server = KnowledgeBankServer(args.kb_entries, args.kb_dim,
-                                 backend=args.kb_backend,
+                                 backend=make_backend(
+                                     args.kb_backend,
+                                     n_shards=args.kb_shards),
                                  coalesce=not args.no_coalesce,
                                  reorder=args.kb_reorder,
                                  search_mode=args.kb_search,
@@ -149,7 +165,15 @@ def serve_kb(args) -> dict:
           f"/{server.metrics['cache_misses']}, "
           f"tier faults/spills={sst['tier_faults']}/{sst['tier_spills']}",
           flush=True)
-    if index is not None:
+    if index is not None and hasattr(index, "shard_stats"):
+        # headroom -> 0 marks the shard whose next rebuild forces a full
+        # repack at a larger common capacity
+        for st in index.shard_stats():
+            print(f"ivf shard {st['shard']}: cap={st['bucket_cap']} "
+                  f"mean_occ={st['mean_occupancy']:.1f} "
+                  f"max_occ={st['max_occupancy']} skew=x{st['skew']:.2f} "
+                  f"headroom={st['headroom']}", flush=True)
+    elif index is not None:
         st = index.bucket_stats()
         print(f"ivf buckets: cap={st['bucket_cap']} "
               f"mean_occ={st['mean_occupancy']:.1f} "
@@ -160,7 +184,8 @@ def serve_kb(args) -> dict:
             "requests": server.metrics["requests"],
             "coalescing_factor": server.coalescing_factor,
             "search_stats": stats, "index_rebuilds": rebuilds,
-            "first_index_s": build_s, "engine": server.engine}
+            "shard_rebuilds": shard_rebuilds, "first_index_s": build_s,
+            "engine": server.engine}
 
 
 def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -229,10 +254,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="LM mode: prompt tokens per sequence")
     ap.add_argument("--kb", action="store_true",
                     help="serve the knowledge bank instead of the LM")
-    ap.add_argument("--kb-backend", choices=["cuda", "dense"],
+    ap.add_argument("--kb-backend", choices=["cuda", "dense", "sharded"],
                     default="cuda",
                     help="cuda: the kernel backend; dense: the plain "
-                         "reference ops")
+                         "reference ops; sharded: --kb-shards logical "
+                         "shards on the kernel backend")
+    ap.add_argument("--kb-shards", type=int, default=1,
+                    help="bank shards of --kb-backend sharded (must divide "
+                         "--kb-entries)")
     ap.add_argument("--kb-entries", type=int, default=OGBN_MAG_ROWS)
     ap.add_argument("--kb-dim", type=int, default=OGBN_MAG_DIM)
     ap.add_argument("--clients", type=int, default=8)

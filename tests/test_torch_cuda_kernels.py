@@ -1,8 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on a
-card (the int8 lookup, the two IVF stage-2 kernels and flash attention at
-the end). Every test is marked ``cuda`` and skips where no CUDA device is
-present (it decides inside the test, so that every xdist worker collects
-the same tests). The file imports no JAX, so it runs on a machine that
+card (the int8 lookup, the three IVF stage-2 kernels and flash attention
+at the end). Every test is marked ``cuda`` and skips where no CUDA device
+is present (it decides inside the test, so that every xdist worker
+collects the same tests). The file imports no JAX, so it runs on a machine that
 has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -267,6 +267,61 @@ def test_cuda_ivf_stage2_unwritten_slots_merge_as_padding():
                       odd, k)
         assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 32, 128])
+def test_cuda_ivf_stage2_sharded_matches_plain(quantized, k):
+    """The sharded kernel (per-(query, shard) top-k) against its plain
+    version on a 3-shard index, with the stage-2 tolerances above; a
+    query that lists a bucket twice in one shard, or a local id outside
+    [0, nlist), gives the result of its valid, distinct probes alone."""
+    from repro_torch.core import ann_index
+    from repro_torch.kernels.nn_search_ivf import sharded_probes
+    dev = _require_card()
+    table = torch.from_numpy(ann_index.clustered_bank(
+        60_000, 128, 40, seed=4, noise=0.5)).to(dev)
+    idx = ann_index.build_sharded_ivf_index(table, 3, nlist=16, iters=4)
+    if quantized:
+        idx = ann_index.QuantizedShardedIVFIndex(idx)
+        args = (idx.packed_codes, idx.packed_scale, idx.packed_offset)
+        kern = ops.LAUNCHERS["ivf_stage2_sharded_q"]
+        plain = ref.ivf_stage2_sharded_q_ref
+    else:
+        args = (idx.packed_vecs,)
+        kern = ops.LAUNCHERS["ivf_stage2_sharded"]
+        plain = ref.ivf_stage2_sharded_ref
+    q = table[::1500][:37] + 0.01
+    probes = sharded_probes(q, idx.centroids, 3, 4)
+    tail = (idx.packed_ids, idx.bucket_occ, q)
+    gs, gi = kern(*args, *tail, probes, k)
+    ws, wi = plain(*args, *tail, probes, k + 1)
+    assert gs.shape == gi.shape == (37, 3, k)
+    gs, gi, ws, wi = (x.reshape(37 * 3, -1) for x in (gs, gi, ws, wi))
+    assert ((gs - ws[:, :k]).abs() <= 1e-4 + RTOL * ws[:, :k].abs()).all()
+    w = ws.double()
+    near = 1e-4 + 2 * RTOL * torch.maximum(w[:, :-1].abs(), w[:, 1:].abs())
+    gap = w[:, :-1] - w[:, 1:] - near
+    sets = gap[:, k - 1] > 0
+    assert int(sets.sum()) > 0
+    assert torch.equal(torch.sort(gi[sets], 1).values,
+                       torch.sort(wi[sets, :k], 1).values)
+    left = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                      gap[:, :k - 1]], 1)
+    ranks = (left > 0) & (gap[:, :k] > 0)
+    assert torch.equal(gi[ranks], wi[:, :k][ranks])
+    clean = probes[:3, :, :2].contiguous()
+    dup, outside = clean[:, :, 1:], torch.full_like(clean[:, :, 1:], 16)
+    which = (torch.arange(3, device=dev)[:, None]
+             + torch.arange(3, device=dev)[None, :])[:, :, None] % 3
+    extra = torch.where(which == 0, dup,
+                        torch.where(which == 1, outside, -3 + 0 * dup))
+    odd = torch.cat([extra, clean], 2).contiguous()
+    for kk in (8, 32):
+        ws, wi = kern(*args, *tail[:2], q[:3], clean, kk)
+        gs, gi = kern(*args, *tail[:2], q[:3], odd, kk)
+        assert torch.equal(gi, wi) and torch.equal(gs, ws)
 
 
 FLASH_CASES = [  # (B, S, H, KV, d, causal, window, softcap)

@@ -20,7 +20,8 @@ from repro_torch.convert import kb_state_from_numpy, kb_state_to_numpy
 from repro_torch.core import knowledge_bank as tkb
 from repro_torch.core.async_runtime import KnowledgeBankServer
 from repro_torch.core.kb_engine import (CudaBackend, DenseBackend, KBEngine,
-                                        make_backend, make_kb_ops)
+                                        ShardedBackend, make_backend,
+                                        make_kb_ops)
 from repro_torch.kernels import ops
 
 N, D = 200, 16
@@ -196,16 +197,21 @@ def test_kb_ops_facade_binds_the_knobs():
 
 
 def test_unported_options_raise():
-    """What stays unported raises, naming ROADMAP; int8 storage and IVF
-    search are ported (tests/test_torch_quantized.py and
-    tests/test_torch_ann_index.py hold them against the JAX package) and
-    are accepted here."""
+    """What stays unported raises, naming ROADMAP: tiered residency, on
+    every backend. int8 storage, IVF search and the sharded backend are
+    ported (tests/test_torch_quantized.py, tests/test_torch_ann_index.py
+    and tests/test_torch_sharded_ivf.py hold them against the JAX
+    package) and are accepted here."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KBEngine(N, D, resident_rows=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KBEngine(N, D, storage="int8", resident_rows=16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_backend("sharded")
+        KBEngine(N, D, backend=ShardedBackend(4), resident_rows=16,
+                 device="cpu")
+    sharded = make_backend("sharded", n_shards=4)
+    assert isinstance(sharded, ShardedBackend) and sharded.n_shards == 4
+    assert KBEngine(N, D, backend=sharded, device="cpu").ann_shards == 4
     with pytest.raises(ValueError):
         make_backend("pallas")
     with pytest.raises(ValueError):
