@@ -65,14 +65,34 @@ Phases, in order; any failed check raises and the script exits non-zero:
    d_ff 14336, vocab 65536, bf16, random weights from seed 0) at batch 4,
    a 2048-token prompt and 16 decoded tokens, twice: 32 WKV launches per
    prefill and none in decode, identical ids; then one profiled prefill
-   and decode.
+   and decode;
+7. jamba serving: the reduced jamba-1.5-large-398b (one 8-layer group of
+   seven Mamba layers and one attention layer, MoE of 4 experts on the odd
+   positions, d 128, fp32) on the card against the CPU (hidden, every
+   cache entry: the Mamba layers' h and conv_buf, the attention layer's k
+   and v, and four decode steps' logits and ids); then, with rwkv6-7b's
+   weights freed and the peak-memory counter reset, ``serve_lm`` on
+   jamba cut to one card (one group of 8 layers and 8 of its 16 experts,
+   every width as published: d 8192, 64/8 heads of 128, d_ff 24576,
+   d_state 16, expand 2, vocab 65536, top-2, bf16, random weights from
+   seed 0; 25.79 B parameters) at batch 4, a 2048-token prompt and 16
+   decoded tokens, twice: 7 Mamba-scan launches and 1 flash-attention
+   launch per prefill and none in decode, identical ids; then one
+   profiled prefill and decode, the device time split by part (GEMMs,
+   the scan, flash, the MoE dispatch's gathers and sorts, elementwise),
+   and one Mamba layer profiled alone (its GEMMs, scan and elementwise
+   passes).
 
 Phase 2 also holds the flash-attention kernel against its plain version
 at the prefill's shapes (B 4, S 2048, H 32, KV 4, d 128, causal) in bf16
 and fp32, beside ``scaled_dot_product_attention`` as the library
 yardstick, and on smaller window and soft-cap cases, and the WKV kernel
 (y and the final state) at the rwkv6-7b prefill's shapes (B 4, S 2048,
-H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases; phase 3
+H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases, and the
+Mamba scan kernel (y and the final state) at the jamba prefill's shapes
+(B 4, S 2048, di 16384, ds 16; x bf16, delta, B, C and A fp32) and on
+smaller cases (one step, S and di no multiple of the kernel's chunk and
+block, fp32 x); phase 3
 first sends out-of-range ids to a cuda server, which must refuse them,
 leave the bank as it was and serve the next request.
 
@@ -140,6 +160,15 @@ ATOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the model's ranges; its 64-term sums and the state carried over 2048
 # steps run in another order and with fused multiply-adds)
 ATOL_WKV, RTOL_WKV = 5e-5, 1e-5
+# the Mamba scan against its plain version, y and the final state: the WKV
+# bound. Each step's exp, multiply and add are the plain version's in fp32,
+# but with fused multiply-adds and the 16-state sum in another order; the
+# decay (exp of delta A < 1) keeps the state from growing those errors.
+ATOL_SCAN, RTOL_SCAN = 5e-5, 1e-5
+# exps: H100 SXM special-function units, 16 results a clock per SM (the
+# CUDA programming guide's throughput table, compute capability 9.0), at
+# the 1.98 GHz boost clock
+EXP_PER_S = 132 * 16 * 1.98e9
 # the LM's serve run: batch, prompt and decoded tokens
 LM_B, LM_PROMPT, LM_GEN = 4, 2048, 16
 # the reduced LM, card against CPU: hidden states (after the final norm, up
@@ -158,8 +187,9 @@ KERNELS = {
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
     "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:54",
     "ivf_stage2_sharded": "src/repro/kernels/nn_search_ivf.py:381",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:55",
 }
-# the path each kernel's launches are read from (phase 3, 4, 5 or 6)
+# the path each kernel's launches are read from (phase 3, 4, 5, 6 or 7)
 KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "kb_gather": "engine_immediate",
                "lazy_apply": "serve_exact", "nn_search": "serve_exact",
@@ -168,7 +198,13 @@ KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "ivf_stage2_q": "serve_int8_ivf",
                "flash_attention": "serve_lm",
                "rwkv_wkv": "serve_rwkv",
-               "ivf_stage2_sharded": "serve_sharded_ivf"}
+               "ivf_stage2_sharded": "serve_sharded_ivf",
+               "mamba_scan": "serve_jamba"}
+# jamba-1.5-large-398b cut to one card: one 8-layer group (the least depth
+# the model's groups allow) and 8 of its 16 experts, every width as
+# published; 25.79 B parameters, 51.6 GB in bf16 (16 experts: 90.2 GB)
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_CUT = dict(num_layers=8, num_experts=8)
 
 
 def log(msg: str) -> None:
@@ -529,6 +565,78 @@ def phase2_wkv():
     return res
 
 
+SCAN_SMALL = [  # (B, S, di, ds, x dtype)
+    (2, 1, 256, 16, torch.bfloat16),      # one step
+    (2, 333, 256, 16, torch.float32),     # S no multiple of the chunk
+    (3, 100, 200, 16, torch.bfloat16),    # di no multiple of the block
+    (1, 1000, 512, 8, torch.float32),
+]
+
+
+def scan_inputs(B, S, di, ds, dtype, g):
+    """delta = softplus(N(-4.6, 1)) (the model's dt_bias plus a
+    projection), x N(0, 1) in ``dtype``, B and C N(0, 1), A = -(1 .. ds)
+    on every channel (the model's init); all but x fp32."""
+    dev = torch.device("cuda")
+    delta = torch.nn.functional.softplus(
+        -4.6 + torch.randn((B, S, di), generator=g, device=dev))
+    x = torch.randn((B, S, di), generator=g, device=dev).to(dtype)
+    bm, cm = (torch.randn((B, S, ds), generator=g, device=dev)
+              for _ in range(2))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=dev).expand(di, ds).contiguous()
+    return delta, bm, cm, x, A
+
+
+def scan_err(got, want) -> float:
+    """Max abs error of (y, h_fin) against the plain version's; raises
+    where an entry is off by more than ATOL_SCAN + RTOL_SCAN |want|."""
+    for a, b, what in zip(got, want, ("y", "h_fin")):
+        over = (a - b).abs() - RTOL_SCAN * b.abs() > ATOL_SCAN
+        require(not bool(over.any()),
+                f"mamba_scan {what} disagrees at {int(over.sum())} entries")
+    return max(max_err(a, b) for a, b in zip(got, want))
+
+
+def phase2_mamba():
+    """The Mamba scan kernel against its plain version at the jamba
+    prefill's shapes (B 4, S 2048, di 16384, ds 16; x bf16), then on
+    smaller and ragged cases."""
+    kern = ops.LAUNCHERS["mamba_scan"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cfg = get_config(JAMBA)
+    di, ds = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim
+    args = scan_inputs(LM_B, LM_PROMPT, di, ds, torch.bfloat16, g)
+    got, want = kern(*args), ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = scan_err(got, want)
+    # delta, x, B, C and A read once, y and h_fin written once; one exp,
+    # a multiply and two FMAs (5 operations) per (b, t, channel, state)
+    n, steps = args[0].numel(), LM_B * LM_PROMPT * di * ds
+    nbytes = (n * 4 + n * 2 + 2 * args[1].numel() * 4 + args[4].numel() * 4
+              + n * 4 + LM_B * di * ds * 4)
+    b_ms, b_by = bound(nbytes, 5.0 * steps)
+    exp_ms = steps / EXP_PER_S * 1e3
+    res = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args), 20),
+               plain_ms=time_ms(lambda: ref.mamba_scan_ref(*args), 2),
+               library_ms=None,
+               bound=(exp_ms, "operations") if exp_ms > b_ms
+               else (b_ms, b_by))
+    log(f"phase 2: mamba_scan x bf16 (B {LM_B}, S {LM_PROMPT}, di {di}, "
+        f"ds {ds}): {res}; bytes {nbytes}, exps {steps} "
+        f"({exp_ms:.4f} ms), fp32 term {b_ms:.4f} ms ({b_by}); y up to "
+        f"{float(want[0].abs().max())}, h_fin up to "
+        f"{float(want[1].abs().max())}")
+    del args, got, want
+    for B, S, di, ds, dtype in SCAN_SMALL:
+        args = scan_inputs(B, S, di, ds, dtype, g)
+        got, want = kern(*args), ref.mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        log(f"phase 2: mamba_scan x {dtype} B {B} S {S} di {di} ds {ds}: "
+            f"max_abs_err={scan_err(got, want)}")
+    return res
+
+
 def phase2_kernels():
     """Each kernel against its plain version at the serve path's shapes."""
     kernels = ops.LAUNCHERS
@@ -699,6 +807,7 @@ def phase2_kernels():
     torch.cuda.empty_cache()
     results["flash_attention"] = phase2_flash()
     results["rwkv_wkv"] = phase2_wkv()
+    results["mamba_scan"] = phase2_mamba()
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
@@ -1372,12 +1481,18 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def reduced_parity(arch: str, kernel: str, rtol: float):
-    """The reduced ``arch`` (2 layers, d 128, fp32) on the card against
-    the CPU, on one set of parameters and prompts: the prefill's hidden
-    states and cache (its ``kernel`` on the card, the plain version on the
-    CPU), then four decode steps fed the CPU's greedy ids, their logits
-    and ids. Each value within ATOL_LM plus ``rtol`` of its CPU value."""
+def _phase(arch: str) -> str:
+    return {"yi-6b": "phase 5", "rwkv6-7b": "phase 6"}.get(arch, "phase 7")
+
+
+def reduced_parity(arch: str, kernels: dict, rtol: float):
+    """The reduced ``arch`` (fp32, d 128) on the card against the CPU, on
+    one set of parameters and prompts: the prefill's hidden states and
+    every cache entry (the path's kernels on the card, their plain
+    versions on the CPU), then four decode steps fed the CPU's greedy ids,
+    their logits and ids. Each value within ATOL_LM plus ``rtol`` of its
+    CPU value; ``kernels`` gives each kernel's launches in the card's
+    prefill."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0))
@@ -1396,12 +1511,13 @@ def reduced_parity(arch: str, kernel: str, rtol: float):
     with torch.inference_mode():
         ops.reset_launch_counts()
         cache_d, h_d = model.prefill(p_dev, toks.cuda(), cache_len=C)
-        launches = ops.launch_counts()[kernel]
+        launches = ops.launch_counts()
         cache_c, h_c = model.prefill(p_cpu, toks, cache_len=C)
         errs = {"hidden": err(h_d, h_c, "hidden")}
-        for n, leaf in cache_c["groups"]["pos0"].items():
-            errs[f"cache {n}"] = err(cache_d["groups"]["pos0"][n], leaf,
-                                     f"cache {n}")
+        for pk, ent in cache_c["groups"].items():
+            for n, leaf in ent.items():
+                e = err(cache_d["groups"][pk][n], leaf, f"cache {pk} {n}")
+                errs[f"cache {n}"] = max(errs.get(f"cache {n}", 0.0), e)
         last, errs["logits"], decided = toks[:, -1:], 0.0, 0
         for _ in range(4):
             l_d = model.decode_step(p_dev, cache_d, last.cuda())[0][:, -1]
@@ -1414,22 +1530,20 @@ def reduced_parity(arch: str, kernel: str, rtol: float):
                     f"reduced {arch}: card and CPU ids differ")
             decided += int(ok.sum())
             last = l_c.argmax(-1, keepdim=True).to(torch.int32)
-    require(launches == cfg.num_layers,
-            f"reduced {arch} prefill launched {kernel} {launches} times")
-    phase = "phase 5" if arch == "yi-6b" else "phase 6"
-    log(f"{phase}: reduced {arch} ({cfg.num_layers} layers, d "
+    got = {k: launches[k] for k in kernels}
+    require(got == kernels,
+            f"reduced {arch} prefill launched {got}, not {kernels}")
+    log(f"{_phase(arch)}: reduced {arch} ({cfg.num_layers} layers, d "
         f"{cfg.d_model}, fp32), prompt 2 x {LM_PROMPT}, 4 decode steps: "
         f"card vs CPU max abs err {errs}; ids equal on the {decided} "
-        f"decided steps; {launches} {kernel} launches on the card")
+        f"decided steps; launches in the card's prefill {got}")
 
 
-def lm_run(label: str, arch: str = "yi-6b",
-           kernel: str = "flash_attention"):
-    """``serve_lm`` at the full width of ``arch``, with every kernel
-    counter set to 0 just before it and read just after; ``kernel`` must
-    have been launched once per layer in the prefill and never in the
-    decode."""
-    cfg = get_config(arch)
+def lm_run(label: str, cfg, kernels: dict):
+    """``serve_lm`` at the full width of ``cfg``, with every kernel
+    counter set to 0 just before it and read just after; each kernel of
+    ``kernels`` must have been launched that many times in the prefill
+    and never in the decode."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1444,25 +1558,70 @@ def lm_run(label: str, arch: str = "yi-6b",
             and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
             and bool(torch.isfinite(res["last_logits"]).all()),
             f"{label}: ids out of range or logits not finite")
-    require(res["prefill_launches"][kernel] == cfg.num_layers
-            and res["decode_launches"][kernel] == 0,
-            f"{label}: {kernel} launches {res['prefill_launches']} in the "
-            f"prefill, {res['decode_launches']} in the decode")
-    phase = "phase 5" if arch == "yi-6b" else "phase 6"
-    log(f"{phase}: {label}: prefill({LM_B}x{LM_PROMPT}) "
+    for kernel, n in kernels.items():
+        require(res["prefill_launches"][kernel] == n
+                and res["decode_launches"][kernel] == 0,
+                f"{label}: {kernel} launches {res['prefill_launches']} in "
+                f"the prefill, {res['decode_launches']} in the decode")
+    log(f"{_phase(cfg.name)}: {label}: prefill({LM_B}x{LM_PROMPT}) "
         f"{res['prefill_ms']} ms, decode {res['decode_ms_per_token']} "
         f"ms/token, peak device memory {peak} bytes, {wall:.1f} s with "
         f"init; launches {counts}")
     return res, counts
 
 
-def profile_lm(arch: str = "yi-6b"):
-    """One prefill and four decode steps of the full-width ``arch`` under
-    ``torch.profiler``: wall time, device time by kernel, busy share."""
+# kernel names in a profile, by the part of the model they serve
+PROFILE_PARTS = (("GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                 ("mamba_scan", ("scan_kernel",)),
+                 ("flash_attention", ("flash",)),
+                 ("rwkv_wkv", ("wkv_kernel",)),
+                 ("gathers, sorts, scatters", ("index", "gather", "sort",
+                                               "scatter", "bincount",
+                                               "radix", "cub")))
+
+
+def device_parts(prof):
+    """From a finished ``torch.profiler`` run: the device time in ms, its
+    split by part of the model (PROFILE_PARTS) and its largest kernels.
+    Device-side events only: a CPU op's device time repeats that of the
+    kernels it launched."""
     from torch.autograd import DeviceType
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    parts = {}
+    for e in ev:
+        key = e.key.lower()
+        part = next((n for n, pats in PROFILE_PARTS
+                     if any(p in key for p in pats)), "elementwise and other")
+        parts[part] = parts.get(part, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    return (sum(e.self_device_time_total for e in ev) / 1e3,
+            "; ".join(f"{n} {v:.4g} ms" for n, v in
+                      sorted(parts.items(), key=lambda kv: -kv[1])),
+            "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.4g} ms"
+                      for e in top))
+
+
+def profiled(fn):
+    """Run ``fn`` once under ``torch.profiler``; (wall ms, profile)."""
     from torch.profiler import ProfilerActivity, profile
-    phase = "phase 5" if arch == "yi-6b" else "phase 6"
-    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, prof
+
+
+def profile_lm(cfg):
+    """One prefill and four decode steps of the full-width ``cfg`` under
+    ``torch.profiler``: wall time, device time by part of the model and
+    by kernel, busy share."""
+    phase = _phase(cfg.name)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1481,61 +1640,99 @@ def profile_lm(arch: str = "yi-6b"):
 
     with torch.inference_mode():
         for label, fn in (("prefill", prefill), ("decode 4 steps", decode)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            # device-side events only: a CPU op's device time repeats
-            # that of the kernels it launched
-            ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-            top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-            log(f"{phase}: profiled {arch} {label} ({LM_B}x{LM_PROMPT}): "
+            wall_ms, prof = profiled(fn)
+            dev_ms, parts, top = device_parts(prof)
+            log(f"{phase}: profiled {cfg.name} {label} ({LM_B}x{LM_PROMPT}): "
                 f"wall {wall_ms} ms, device {dev_ms} ms "
                 f"({100 * dev_ms / wall_ms:.1f}% busy under the profiler); "
-                "top: " + "; ".join(
-                    f"{e.key[:60]} x{e.count} "
-                    f"{e.self_device_time_total / 1e3:.4g} ms" for e in top))
+                f"by part: {parts}; top: {top}")
+
+
+def profile_mamba_layer(cfg):
+    """One full-width Mamba mixer (``ssm.mamba_apply_state``) on a
+    prefill's input (B 4, S 2048, N(0, 1) in bf16) under the profiler,
+    after a warm-up call: the split of the layer's device time between
+    its GEMMs, the scan and its elementwise passes."""
+    from repro_torch.models import ssm
+    params = ssm.mamba_init(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((LM_B, LM_PROMPT, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        ssm.mamba_apply_state(params, x, cfg)
+        wall_ms, prof = profiled(lambda: ssm.mamba_apply_state(params, x,
+                                                               cfg))
+    dev_ms, parts, top = device_parts(prof)
+    log(f"phase 7: profiled one {cfg.name} Mamba layer ({LM_B}x{LM_PROMPT}):"
+        f" wall {wall_ms} ms, device {dev_ms} ms; by part: {parts}; top: "
+        f"{top}")
+
+
+def free_weights(phase: str, before: str) -> None:
+    """Drop the last model's weights and reset the peak-memory counter;
+    raise if more than 1 GiB is still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    require(held < 2 ** 30, f"{held} bytes still allocated before the "
+            f"{before} runs: the last model's weights were not freed")
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{phase}: {held} bytes allocated before the full-width runs")
 
 
 def phase5_lm():
-    reduced_parity("yi-6b", "flash_attention", rtol=0.0)
-    res1, counts = lm_run("yi-6b full width run 1")
-    res2, _ = lm_run("yi-6b full width run 2")
+    cfg = get_config("yi-6b")
+    flash = {"flash_attention": cfg.num_layers}
+    reduced_parity("yi-6b", {"flash_attention": 2}, rtol=0.0)
+    res1, counts = lm_run("yi-6b full width run 1", cfg, flash)
+    res2, _ = lm_run("yi-6b full width run 2", cfg, flash)
     require(np.array_equal(res1["generated"], res2["generated"]),
             "the two full-width runs generated different ids")
     log("phase 5: the two full-width runs generated the same ids")
     del res1, res2
-    profile_lm()
+    profile_lm(cfg)
     return counts
 
 
 def phase6_rwkv():
     # the state S is a sum over the 2048 steps: RTOL_WKV of its value too
-    reduced_parity("rwkv6-7b", "rwkv_wkv", rtol=RTOL_WKV)
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    require(held < 2 ** 30, f"{held} bytes still allocated before the "
-            "rwkv6-7b runs: yi-6b's weights were not freed")
-    torch.cuda.reset_peak_memory_stats()
-    log(f"phase 6: {held} bytes allocated before the full-width runs")
-    res1, counts = lm_run("rwkv6-7b full width run 1", "rwkv6-7b",
-                          "rwkv_wkv")
-    res2, counts2 = lm_run("rwkv6-7b full width run 2", "rwkv6-7b",
-                           "rwkv_wkv")
-    require(counts["flash_attention"] == counts2["flash_attention"] == 0,
-            "the rwkv6-7b runs launched flash attention")
+    reduced_parity("rwkv6-7b", {"rwkv_wkv": 2, "flash_attention": 0},
+                   rtol=RTOL_WKV)
+    free_weights("phase 6", "rwkv6-7b")
+    cfg = get_config("rwkv6-7b")
+    wkv = {"rwkv_wkv": cfg.num_layers, "flash_attention": 0}
+    res1, counts = lm_run("rwkv6-7b full width run 1", cfg, wkv)
+    res2, _ = lm_run("rwkv6-7b full width run 2", cfg, wkv)
     require(np.array_equal(res1["generated"], res2["generated"]),
             "the two full-width rwkv6-7b runs generated different ids")
     log("phase 6: the two full-width runs generated the same ids")
     del res1, res2
-    profile_lm("rwkv6-7b")
+    profile_lm(cfg)
+    return counts
+
+
+def phase7_jamba():
+    """jamba's hybrid group: the reduced model (8 layers, d 128, 4
+    experts, fp32) card against CPU; then, rwkv6-7b's weights freed, the
+    cut config (JAMBA_CUT) at full width twice and profiled."""
+    # the states h are sums over the 2048 steps: RTOL_SCAN of their value
+    per_prefill = {"mamba_scan": 7, "flash_attention": 1, "rwkv_wkv": 0}
+    reduced_parity(JAMBA, per_prefill, rtol=RTOL_SCAN)
+    free_weights("phase 7", JAMBA)
+    cfg = get_config(JAMBA).replace(**JAMBA_CUT)
+    log(f"phase 7: {JAMBA} cut to {JAMBA_CUT}: {cfg.param_count()} "
+        f"parameters, {cfg.active_param_count()} active a token")
+    res1, counts = lm_run(f"{JAMBA} full width run 1", cfg, per_prefill)
+    res2, _ = lm_run(f"{JAMBA} full width run 2", cfg, per_prefill)
+    require(np.array_equal(res1["generated"], res2["generated"]),
+            f"the two full-width {JAMBA} runs generated different ids")
+    log("phase 7: the two full-width runs generated the same ids")
+    del res1, res2
+    profile_lm(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_mamba_layer(cfg)
     return counts
 
 
@@ -1561,6 +1758,9 @@ def main() -> int:
     t = time.perf_counter()
     paths["serve_rwkv"] = phase6_rwkv()
     log(f"phase 6: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths["serve_jamba"] = phase7_jamba()
+    log(f"phase 7: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]

@@ -60,10 +60,12 @@ def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
 
 LM_KEY_SEP = "::"
 # the fp32 leaves of an LM, as ``repro.models`` makes them: the norm
-# scales, and RWKV6's per-head bonus ``u``, decay base ``dec_0`` and
-# group-norm scale ``ln_x`` (repro/models/ssm.py:203-206); every other
-# leaf, RWKV6's ``mu`` included, is cfg.dtype
-LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "u", "dec_0", "ln_x")
+# scales, RWKV6's per-head bonus ``u``, decay base ``dec_0`` and
+# group-norm scale ``ln_x`` (repro/models/ssm.py:203-206), and Mamba's
+# ``a_log`` and ``d_skip`` (repro/models/ssm.py:75-76); every other leaf,
+# RWKV6's ``mu`` and Mamba's ``dt_bias`` included, is cfg.dtype
+LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "u", "dec_0", "ln_x",
+                  "a_log", "d_skip")
 
 
 def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg,

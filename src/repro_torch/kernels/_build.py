@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("kb_fused_lookup", "kb_gather", "lazy_apply", "nn_search",
            "kb_fused_lookup_q", "ivf_stage2", "ivf_stage2_q",
-           "flash_attention", "rwkv_wkv", "ivf_stage2_sharded")
+           "flash_attention", "rwkv_wkv", "ivf_stage2_sharded",
+           "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \

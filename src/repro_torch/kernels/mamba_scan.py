@@ -1,0 +1,70 @@
+"""The Mamba selective scan on the card (``csrc/mamba_scan.cu``).
+
+The Hopper kernel in place of ``repro/kernels/mamba_scan.py:55``
+(``mamba_scan_pallas``), which every prefill Mamba layer of the jamba LM
+reaches through ``repro_torch.models.ssm.mamba_apply_state``: one thread
+per (batch, channel) walks time with the channel's ds states in
+registers, and writes the state after the last step beside y, for the
+decode cache. The source's header says how.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import launch, require_cuda
+
+STATE_DIMS = (4, 8, 16, 32)
+X_DTYPES = (torch.float32, torch.bfloat16)
+
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+
+
+def mamba_scan_cuda(delta, bm, cm, x, A):
+    """delta (B, S, di), bm/cm (B, S, ds) and A (di, ds) fp32; x
+    (B, S, di) fp32 or bf16; all contiguous on one CUDA device, ds in
+    (4, 8, 16, 32) -> (y (B, S, di), h_fin (B, di, ds)), both fp32."""
+    if x.dtype not in X_DTYPES:
+        raise ValueError(f"the Mamba scan kernel takes fp32 or bf16 x, got "
+                         f"{x.dtype}")
+    B, S, di = delta.shape
+    ds = A.shape[-1]
+    if ds not in STATE_DIMS:
+        raise ValueError(f"state dim {ds} not in {STATE_DIMS}")
+    if x.shape != delta.shape:
+        raise ValueError(f"x {tuple(x.shape)} must have delta's shape "
+                         f"{tuple(delta.shape)}")
+    for name, t in (("bm", bm), ("cm", cm)):
+        if t.shape != (B, S, ds):
+            raise ValueError(f"{name} {tuple(t.shape)} must be (B, S, ds) = "
+                             f"({B}, {S}, {ds})")
+    if A.shape != (di, ds):
+        raise ValueError(f"A {tuple(A.shape)} must be (di, ds) = ({di}, "
+                         f"{ds})")
+    for name, t, dtype, ndim in (("delta", delta, torch.float32, 3),
+                                 ("bm", bm, torch.float32, 3),
+                                 ("cm", cm, torch.float32, 3),
+                                 ("x", x, x.dtype, 3),
+                                 ("A", A, torch.float32, 2)):
+        require_cuda(t, name, dtype, ndim)
+    for name, t in (("bm", bm), ("cm", cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the kernel copies 16 bytes at a time)")
+    if len({delta.device, bm.device, cm.device, x.device, A.device}) != 1:
+        raise ValueError("delta, bm, cm, x and A lie on different devices")
+    y = torch.empty((B, S, di), dtype=torch.float32, device=delta.device)
+    if B * S * di == 0:            # no step: the state stays at 0
+        return y, torch.zeros((B, di, ds), device=delta.device)
+    h_fin = torch.empty((B, di, ds), dtype=torch.float32,
+                        device=delta.device)
+    launch("mamba_scan", "mamba_scan_launch", _ARGTYPES, delta.device,
+           delta.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
+           A.data_ptr(), y.data_ptr(), h_fin.data_ptr(), B, S, di, ds,
+           int(x.dtype == torch.bfloat16))
+    mamba_scan_cuda.launches += 1
+    return y, h_fin
+
+
+mamba_scan_cuda.launches = 0

@@ -26,6 +26,7 @@ from repro_torch.kernels.kb_fused_lookup import kb_fused_lookup_cuda
 from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
 from repro_torch.kernels.kb_gather import kb_gather_cuda
 from repro_torch.kernels.lazy_apply import lazy_apply_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.nn_search import nn_search_cuda
 from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cuda
 
@@ -41,6 +42,7 @@ LAUNCHERS = {
     "rwkv_wkv": rwkv_wkv_cuda,
     "ivf_stage2_sharded": ivf_stage2_sharded_cuda,
     "ivf_stage2_sharded_q": ivf_stage2_sharded_q_cuda,
+    "mamba_scan": mamba_scan_cuda,
 }
 
 
@@ -173,6 +175,15 @@ def rwkv_wkv(r, k, v, w, u):
     if _on_cpu(r):
         return ref.rwkv_wkv_ref(r, k, v, w, u)
     return rwkv_wkv_cuda(r, k, v, w, u)
+
+
+def mamba_scan(delta, bm, cm, x, A):
+    """The Mamba selective scan from a zero state: delta, x (B, S, di),
+    bm, cm (B, S, ds), A (di, ds) -> (y (B, S, di) before the D skip and
+    the gate, state after the last step (B, di, ds)), both fp32."""
+    if _on_cpu(delta):
+        return ref.mamba_scan_ref(delta, bm, cm, x, A)
+    return mamba_scan_cuda(delta, bm, cm, x, A)
 
 
 def overfetch_exclude_topk(search, n_rows: int, k: int, exclude_ids):

@@ -274,3 +274,22 @@ def rwkv_wkv_ref(r, k, v, w, u):
         y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t], state + u * kv)
         state = state * w[:, t, :, :, None] + kv
     return y, state
+
+
+def mamba_scan_ref(delta, bm, cm, x, A):
+    """The Mamba selective scan (``repro/kernels/ref.py:63``), one time
+    step at a time in fp32: delta, x (B, S, di) and bm, cm (B, S, ds) in
+    any float dtype, A (di, ds). With h_0 = 0, each step takes
+    h <- exp(delta_t A) * h + (delta_t x_t) B_t and y_t = h . C_t (the
+    output before the D skip and the gate). Returns (y (B, S, di), h_fin
+    (B, di, ds)), both fp32; h_fin is the state after the last step."""
+    B, S, di = delta.shape
+    delta, bm, cm, x, A = (t.float() for t in (delta, bm, cm, x, A))
+    h = torch.zeros((B, di, A.shape[-1]), device=delta.device)
+    y = torch.empty((B, S, di), device=delta.device)
+    for t in range(S):
+        d_t = delta[:, t]
+        a_t = torch.exp(d_t[..., None] * A[None])
+        h = a_t * h + (d_t * x[:, t])[..., None] * bm[:, t, None, :]
+        y[:, t] = torch.einsum("bds,bs->bd", h, cm[:, t])
+    return y, h

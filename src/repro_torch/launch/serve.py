@@ -5,6 +5,8 @@ client mode of ``repro.launch.serve --kb``.
       --batch 2 --prompt-len 8 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --batch 2 --prompt-len 16 --gen 4
 
 LM mode (no ``--kb``) does what the JAX launcher's does: the reduced
 config of ``--arch``, random weights from ``--seed`` (here a
@@ -14,11 +16,16 @@ config of ``--arch``, random weights from ``--seed`` (here a
 the prompt's last token first (so, as in the JAX launcher, that token is
 seen twice: at its position and at position ``prompt_len``). It prints
 the JAX launcher's two lines. The archs it builds are
-``repro_torch.models.PORTED_ARCHS`` (yi-6b, whose prefill attention runs
-on the flash-attention kernel, and rwkv6-7b, whose prefill WKV recurrence
-runs on the WKV kernel); any other ``--arch`` raises
-``NotImplementedError`` naming ROADMAP. ``serve_lm`` takes any config of
-those archs, the unreduced one included, and optional parameters.
+``repro_torch.models.PORTED_ARCHS``: yi-6b, whose prefill attention runs
+on the flash-attention kernel; rwkv6-7b, whose prefill WKV recurrence
+runs on the WKV kernel; and jamba-1.5-large-398b, whose prefill Mamba
+layers run their selective scan on the Mamba scan kernel and whose
+attention layer runs on flash (its MoE feed-forwards are plain
+products). Any other ``--arch`` raises ``NotImplementedError`` naming
+ROADMAP. ``serve_lm`` takes any config of those archs, the unreduced
+one or a cut of it included (jamba's published config does not fit one
+card; ``get_config("jamba-1.5-large-398b").replace(num_layers=8,
+num_experts=8)`` does), and optional parameters.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --kb
 

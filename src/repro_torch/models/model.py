@@ -1,6 +1,7 @@
-"""The language model of the llama family (attention + SwiGLU layers) and
-of rwkv6 (RWKV6 + SwiGLU layers); the port of ``repro/models/model.py``'s
-``LM`` for those specs.
+"""The language model of the llama family (attention + SwiGLU layers), of
+rwkv6 (RWKV6 + SwiGLU layers) and of jamba (8-layer groups of Mamba and
+attention mixers, MoE and SwiGLU feed-forwards); the port of
+``repro/models/model.py``'s ``LM`` for those specs.
 
 Parameters keep the JAX package's pytree as nested dicts, with each layer
 parameter stacked over the ``G`` scan groups, so that a JAX checkpoint
@@ -11,15 +12,18 @@ group ``g`` of each stacked tensor (a view, not a copy).
 The decode cache is a dict as in JAX, with an entry per mixer position:
 an attention layer's ``groups/pos{p}/k|v`` of shape (G, B, C, KV, hd), an
 RWKV6 layer's ``groups/pos{p}/S`` (G, B, Hn, hd, hd) fp32 and ``x_prev``
-(G, B, D); ``pos`` (B, C) the absolute position held by each ring slot
-(-1 empty), present only when some layer attends; and ``t`` the next
-token's position, a Python int. Decode writes slot ``t % C`` and the RWKV6
-states in place and returns the same dict.
+(G, B, D), a Mamba layer's ``groups/pos{p}/h`` (G, B, di, ds) fp32 and
+``conv_buf`` (G, B, w - 1, di); ``pos`` (B, C) the absolute position held
+by each ring slot (-1 empty), present only when some layer attends; and
+``t`` the next token's position, a Python int. Decode writes slot
+``t % C`` and the recurrent states in place and returns the same dict.
 
-Mamba, MoE, cross-attention and the vision and audio front-ends raise
-``NotImplementedError`` naming the ROADMAP item that holds them, and
-``build_model`` builds only the archs whose parity with the JAX package
-the port's tests hold (``PORTED_ARCHS``).
+A MoE feed-forward's parameters sit under ``groups/pos{p}/moe``, a dense
+one's under ``ffn``, as in JAX. ``hidden`` drops the MoE router's aux
+loss, which only training reads. Cross-attention and the vision and audio
+front-ends raise ``NotImplementedError`` naming the ROADMAP item that
+holds them, and ``build_model`` builds only the archs whose parity with
+the JAX package the port's tests hold (``PORTED_ARCHS``).
 """
 from __future__ import annotations
 
@@ -32,9 +36,17 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 
-PORTED_ARCHS = ("yi-6b", "rwkv6-7b")
-MIXERS = ("attn", "rwkv6")
+PORTED_ARCHS = ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b")
+MIXERS = ("attn", "rwkv6", "mamba")
 _NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
+# each recurrent mixer's (prefill, decode) step
+_RECURRENT = {"rwkv6": (ssm.rwkv6_apply_state, ssm.rwkv6_decode),
+              "mamba": (ssm.mamba_apply_state, ssm.mamba_decode)}
+
+
+def _ffn_key(kind: str) -> str:
+    """Where a position's feed-forward sits in the group's parameters."""
+    return "moe" if kind == "moe" else "ffn"
 
 
 def _layer(tree, g: int):
@@ -64,12 +76,9 @@ class LM:
         for p in range(gs):
             if mixers[p] not in MIXERS:
                 raise NotImplementedError(
-                    f"the {mixers[p]} mixer {_NOT_PORTED}; its kernel is "
-                    "ROADMAP Q2")
-            if cfg.is_moe and (p % cfg.moe_every == cfg.moe_every - 1):
-                raise NotImplementedError(f"the MoE feed-forward "
-                                          f"{_NOT_PORTED}")
-            spec.append((mixers[p], "swiglu"))
+                    f"the {mixers[p]} mixer {_NOT_PORTED}")
+            moe = cfg.is_moe and p % cfg.moe_every == cfg.moe_every - 1
+            spec.append((mixers[p], "moe" if moe else "swiglu"))
         return spec
 
     @property
@@ -100,13 +109,14 @@ class LM:
         if not cfg.tie_embeddings:
             params["out_embed"] = embed()
         groups: Dict = {}
-        init = {"attn": T.attn_init, "rwkv6": ssm.rwkv6_init}
+        init = {"attn": T.attn_init, "rwkv6": ssm.rwkv6_init,
+                "mamba": ssm.mamba_init}
         for p, (mixer, ffnk) in enumerate(self.spec):
             groups[f"pos{p}"] = {
                 "ln1": torch.zeros((G, D), device=dev),
                 "ln2": torch.zeros((G, D), device=dev),
                 mixer: init[mixer](gen, cfg, batch_dims=(G,)),
-                "ffn": T.ffn_init(gen, cfg, ffnk, batch_dims=(G,))}
+                _ffn_key(ffnk): T.ffn_init(gen, cfg, ffnk, batch_dims=(G,))}
         params["groups"] = groups
         return params
 
@@ -120,9 +130,12 @@ class LM:
         """tokens: (B, S) integer ids. Returns (h (B, S, D) after the final
         norm, cache_ys): with ``collect_cache``, cache_ys holds each
         position's cache entries stacked over the groups, an attention
-        layer's keys and values ``{"k", "v": (G, B, S, KV, hd)}`` and an
+        layer's keys and values ``{"k", "v": (G, B, S, KV, hd)}``, an
         RWKV6 layer's final state ``{"S": (G, B, Hn, hd, hd), "x_prev":
-        (G, B, D)}``, under ``"pos{p}"``; else None."""
+        (G, B, D)}`` and a Mamba layer's ``{"h": (G, B, di, ds),
+        "conv_buf": (G, B, w - 1, di)}``, under ``"pos{p}"``; else None.
+        The JAX function also returns the MoE aux loss summed over the
+        layers; only training reads it, and it is dropped here."""
         cfg = self.cfg
         h = params["embed"]["tok"][tokens.long()]
         positions = torch.arange(h.shape[1], device=h.device)
@@ -138,14 +151,14 @@ class LM:
                                              window=cfg.window, impl=impl)
                     ent = {"k": k, "v": v}
                 else:
-                    a, ent = ssm.rwkv6_apply_state(lp["rwkv6"], hn, cfg)
+                    a, ent = _RECURRENT[mixer][0](lp[mixer], hn, cfg)
                 if collect_cache:
                     for n, x in ent.items():
                         ys.setdefault(f"pos{p}", {}).setdefault(
                             n, []).append(x)
                 h = h + a
                 hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-                h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
+                h = h + T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)[0]
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         if not collect_cache:
             return h, None
@@ -162,11 +175,17 @@ class LM:
         G = self.num_groups
         KV, hd = cfg.num_kv_heads, cfg.head_dim_
         Hn, rhd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        di, ds = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim
         kv = ((G, B, C, KV, hd), self.dtype)
         groups = {}
         for p, (mixer, _) in enumerate(self.spec):
             if mixer == "attn":
                 groups[f"pos{p}"] = {"k": kv, "v": kv}
+            elif mixer == "mamba":
+                groups[f"pos{p}"] = {
+                    "h": ((G, B, di, ds), torch.float32),
+                    "conv_buf": ((G, B, cfg.ssm_conv_width - 1, di),
+                                 self.dtype)}
             else:
                 groups[f"pos{p}"] = {
                     "S": ((G, B, Hn, rhd, rhd), torch.float32),
@@ -190,7 +209,7 @@ class LM:
     def decode_step(self, params, cache, token):
         """token: (B, 1) ids. Returns (logits (B, 1, V), cache), the cache
         updated in place: slot t % C of every attention layer and of
-        ``pos``, every RWKV6 layer's state, then t + 1."""
+        ``pos``, every RWKV6 and Mamba layer's state, then t + 1."""
         cfg = self.cfg
         t = cache["t"]
         h = params["embed"]["tok"][token.long()]             # (B, 1, D)
@@ -210,14 +229,14 @@ class LM:
                                             cc["v"][g], kv_pos, t, cfg,
                                             window=window)
                 else:
-                    a, st = ssm.rwkv6_decode(
-                        lp["rwkv6"], hn, {"S": cc["S"][g],
-                                          "x_prev": cc["x_prev"][g]}, cfg)
-                    cc["S"][g] = st["S"]
-                    cc["x_prev"][g] = st["x_prev"]
+                    a, st = _RECURRENT[mixer][1](
+                        lp[mixer], hn, {n: c[g] for n, c in cc.items()},
+                        cfg)
+                    for n, x in st.items():
+                        cc[n][g] = x
                 h = h + a
                 hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-                h = h + T.ffn_apply(lp["ffn"], hn2, cfg, ffnk)
+                h = h + T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)[0]
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits = h @ self.out_embed(params).T
         cache["t"] = t + 1
@@ -245,9 +264,9 @@ class LM:
             if "k" in ent:
                 tgt["k"][:, :, :S] = ent["k"]
                 tgt["v"][:, :, :S] = ent["v"]
-            else:
-                tgt["S"].copy_(ent["S"])
-                tgt["x_prev"].copy_(ent["x_prev"])
+            else:                  # a recurrent state: RWKV6's or Mamba's
+                for n, x in ent.items():
+                    tgt[n].copy_(x)
         if "pos" in cache:
             pos = torch.arange(C, dtype=torch.int32, device=h.device)
             cache["pos"][:] = torch.where(pos < S, pos, -1)

@@ -4,8 +4,9 @@
 Parameters are plain dicts of tensors under the JAX package's names
 (wq/wk/wv/wo, wi/wg/wo), stacked over ``batch_dims`` as there. The initialisers
 fill tensors on the generator's device. Decode writes the new token's key
-and value into the caller's cache in place. The MoE and GELU feed-forwards
-and cross-attention (whisper) are not ported yet (ROADMAP Q1 item 7).
+and value into the caller's cache in place. The feed-forward is SwiGLU or
+MoE (``repro_torch.models.moe``); the GELU feed-forward and
+cross-attention (whisper) are not ported yet (ROADMAP Q1 item 7).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 _NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
 
@@ -96,17 +98,28 @@ def attn_decode(params, x1, kc, vc, kv_pos, t: int, cfg: ModelConfig, *,
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
              batch_dims=()):
+    """SwiGLU: wi, wg (D, F), wo (F, D). MoE: the router wr (D, E) and the
+    experts' wi, wg (E, D, F) and wo (E, F, D), stacked after
+    ``batch_dims`` as in JAX."""
+    D, F = cfg.d_model, cfg.d_ff
+    if kind == "moe":
+        E = cfg.num_experts
+        return {"wr": _dense(gen, cfg, D, E, batch_dims),
+                "wi": _dense(gen, cfg, D, F, (*batch_dims, E)),
+                "wg": _dense(gen, cfg, D, F, (*batch_dims, E)),
+                "wo": _dense(gen, cfg, F, D, (*batch_dims, E))}
     if kind != "swiglu":
         raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
-    D, F = cfg.d_model, cfg.d_ff
     return {"wi": _dense(gen, cfg, D, F, batch_dims),
             "wg": _dense(gen, cfg, D, F, batch_dims),
             "wo": _dense(gen, cfg, F, D, batch_dims)}
 
 
 def ffn_apply(params, x, cfg: ModelConfig, kind: str):
-    """The feed-forward block; the JAX function's aux loss is MoE's, and
-    is 0 for SwiGLU, so only y is returned."""
+    """The feed-forward block. Returns (y, aux loss), as in JAX: MoE's
+    router loss, 0.0 for SwiGLU."""
+    if kind == "moe":
+        return moe_mod.moe_apply(x, params, cfg=cfg)
     if kind != "swiglu":
         raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
-    return L.swiglu(x, params["wi"], params["wg"], params["wo"])
+    return L.swiglu(x, params["wi"], params["wg"], params["wo"]), 0.0

@@ -19,7 +19,8 @@ bf16 atol 2e-2 (tests/test_kernels.py's bounds; a bf16 output may round
 one ulp the other way). The WKV recurrence's y and final state: atol 5e-5
 (tests/test_kernels.py's bound) plus rtol 1e-5, since at the model's
 ranges y reaches tens and its 64-term sums, and the state carried over
-2048 steps, run in another order and with fused multiply-adds.
+2048 steps, run in another order and with fused multiply-adds. The Mamba
+scan's y and final state: the same bound (see its test).
 """
 import numpy as np
 import pytest
@@ -428,3 +429,65 @@ def test_cuda_rwkv_wkv_refuses_what_it_cannot_take():
                      w, u)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         ops.rwkv_wkv(r.half(), k.half(), v.half(), w, u)
+
+
+MAMBA_CASES = [  # (B, S, di, ds, x dtype): the jamba prefill's, then smaller
+    (4, 2048, 16384, 16, torch.bfloat16),
+    (2, 333, 256, 16, torch.float32),    # S no multiple of the chunk
+    (3, 100, 200, 8, torch.bfloat16),    # di no multiple of the block
+    (2, 1, 128, 32, torch.float32),      # one step
+    (1, 64, 40, 4, torch.float32),
+]
+
+
+def mamba_inputs(B, S, di, ds, dtype, dev, seed=0):
+    """delta = softplus(N(-4.6, 1)) (the model's dt_bias plus a
+    projection), x N(0, 1) in ``dtype``, B and C N(0, 1), A = -(1 .. ds)
+    on every channel (the model's init), all but x fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    delta = torch.nn.functional.softplus(
+        -4.6 + torch.randn((B, S, di), generator=g, device=dev))
+    x = torch.randn((B, S, di), generator=g, device=dev).to(dtype)
+    bm, cm = (torch.randn((B, S, ds), generator=g, device=dev)
+              for _ in range(2))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=dev).expand(di, ds).contiguous()
+    return delta, bm, cm, x, A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MAMBA_CASES)
+def test_cuda_mamba_scan_matches_plain(case):
+    """y and the final state within 5e-5 plus 1e-5 of the value (WKV's
+    bound): each step's exp, multiply and add run as the plain version's
+    in fp32, but with fused multiply-adds and the 16-state sum in another
+    order; the decay keeps the state from growing those errors."""
+    dev = _require_card()
+    *shape, dtype = case
+    args = mamba_inputs(*shape, dtype, dev, seed=sum(shape))
+    kern = ops.LAUNCHERS["mamba_scan"]
+    before = kern.launches
+    y, h_fin = kern(*args)
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    B, S, di, ds = shape
+    assert y.dtype == h_fin.dtype == torch.float32
+    assert y.shape == (B, S, di) and h_fin.shape == (B, di, ds)
+    for got, want in ((y, want_y), (h_fin, want_h)):
+        assert bool(((got - want).abs() <= 5e-5 + 1e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_refuses_what_it_cannot_take():
+    dev = _require_card()
+    delta, bm, cm, x, A = mamba_inputs(1, 8, 64, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="state dim"):
+        ops.mamba_scan(*mamba_inputs(1, 8, 64, 12, torch.float32, dev))
+    with pytest.raises(ValueError, match="float32"):
+        ops.mamba_scan(delta.bfloat16(), bm, cm, x, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_scan(delta, bm.transpose(1, 2).contiguous().transpose(
+            1, 2), cm, x, A)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.mamba_scan(delta, bm, cm, x.half(), A)

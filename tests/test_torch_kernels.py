@@ -292,6 +292,61 @@ def test_rwkv_wkv_kernel_refuses_other_dtypes_and_shapes():
     assert ops.launch_counts()["rwkv_wkv"] == 0
 
 
+def _scan_tensors(B, S, di, ds, x_dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(B + S + di + ds)
+    delta = torch.from_numpy(rng.uniform(0.001, 1.0, (B, S, di)).astype(
+        np.float32))
+    bm, cm = (torch.from_numpy(0.5 * rng.standard_normal(
+        (B, S, ds)).astype(np.float32)) for _ in range(2))
+    x = torch.from_numpy(0.5 * rng.standard_normal((B, S, di)).astype(
+        np.float32)).to(x_dtype)
+    A = -torch.from_numpy(np.exp(0.3 * rng.standard_normal(
+        (di, ds))).astype(np.float32))
+    return [t.to(device) for t in (delta, bm, cm, x, A)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_wrapper_takes_the_plain_version_only_on_the_cpu(
+        x_dtype):
+    """CPU tensors run the plain version (every ds, none of them
+    launched); a tensor on any other device goes to the kernel's launcher,
+    which refuses it before it builds anything."""
+    ops.reset_launch_counts()
+    for ds in (3, 16, 64):
+        args = _scan_tensors(2, 7, 5, ds, x_dtype)
+        y, h_fin = ops.mamba_scan(*args)
+        want_y, want_h = ref.mamba_scan_ref(*args)
+        assert torch.equal(y, want_y) and torch.equal(h_fin, want_h)
+        assert y.shape == (2, 7, 5) and h_fin.shape == (2, 5, ds)
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    meta = _scan_tensors(2, 7, 5, 16, x_dtype, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mamba_scan(*meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.LAUNCHERS["mamba_scan"](*meta)
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+
+
+@pytest.mark.parametrize("ds", [2, 12, 64])
+def test_mamba_scan_kernel_refuses_state_dims_it_cannot_take(ds):
+    meta = _scan_tensors(1, 4, 8, ds, device="meta")
+    with pytest.raises(ValueError, match="state dim"):
+        ops.mamba_scan(*meta)
+
+
+def test_mamba_scan_kernel_refuses_other_dtypes_and_shapes():
+    delta, bm, cm, x, A = _scan_tensors(1, 4, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.mamba_scan(delta, bm, cm, x.half(), A)
+    with pytest.raises(ValueError, match="delta's shape"):
+        ops.mamba_scan(delta, bm, cm, x[:, :3], A)
+    with pytest.raises(ValueError, match=r"\(B, S, ds\)"):
+        ops.mamba_scan(delta, bm[:, :3], cm, x, A)
+    with pytest.raises(ValueError, match=r"\(di, ds\)"):
+        ops.mamba_scan(delta, bm, cm, x, A[:3])
+    assert ops.launch_counts()["mamba_scan"] == 0
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     """A missing compiler is an error, never a quiet switch to the plain
     version."""
@@ -301,7 +356,7 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(["kb_gather"])
     with pytest.raises(ValueError, match="unknown kernel source"):
-        _build.build(["mamba_scan"])
+        _build.build(["no_such_kernel"])
 
 
 def test_build_dir_follows_the_sources(tmp_path, monkeypatch):

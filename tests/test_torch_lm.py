@@ -63,16 +63,18 @@ def test_configs_are_the_jax_packages():
 
 
 def test_unported_archs_and_parts_refuse_naming_roadmap():
-    assert PORTED_ARCHS == ("yi-6b", "rwkv6-7b")
+    assert PORTED_ARCHS == ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b")
     for arch in ARCH_IDS:
         if arch not in PORTED_ARCHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 build_model(get_config(arch).reduced())
     from repro_torch.models.model import LM
     base = get_config("yi-6b").reduced()
-    for cfg in (base.replace(ssm_type="mamba"),
-                base.replace(num_experts=4, experts_per_token=2),
-                base.replace(frontend="vision", num_frontend_tokens=4),
+    # Mamba mixers and MoE feed-forwards are ported (jamba's parts)
+    assert LM(base.replace(ssm_type="mamba")).spec == [("mamba", "swiglu")]
+    assert LM(base.replace(num_experts=4, experts_per_token=2)).spec == [
+        ("attn", "moe")]
+    for cfg in (base.replace(frontend="vision", num_frontend_tokens=4),
                 base.replace(cross_attention=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(cfg)
