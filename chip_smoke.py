@@ -83,10 +83,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and one Mamba layer profiled alone (its GEMMs, scan and elementwise
    passes).
 
-Phase 2 also holds the flash-attention kernel against its plain version
-at the prefill's shapes (B 4, S 2048, H 32, KV 4, d 128, causal) in bf16
-and fp32, beside ``scaled_dot_product_attention`` as the library
-yardstick, and on smaller window and soft-cap cases, and the WKV kernel
+Phase 2 also holds nn_search beyond the serve shape (a repeated run
+bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
+times over whose equal scores must go to the lowest id), and the
+flash-attention kernel against its plain version at the prefill's shapes
+(B 4, S 2048, H 32, KV 4, d 128, causal) in bf16 and fp32, beside
+``scaled_dot_product_attention`` as the library yardstick, with the bf16
+kernel's stage profile (the cycles its consumer warpgroups spend waiting
+for K and V, for their turn, issuing products, waiting for them, in the
+softmax and in the output) and whether it reaches SDPA's time in this
+run, and on seven smaller cases (window, soft cap, d 32 and 64, not
+causal, S no multiple of 128, H/KV 8), and the WKV kernel
 (y and the final state) at the rwkv6-7b prefill's shapes (B 4, S 2048,
 H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases, and the
 Mamba scan kernel (y and the final state) at the jamba prefill's shapes
@@ -121,6 +128,8 @@ from repro_torch.core.async_runtime import KnowledgeBankServer  # noqa: E402
 from repro_torch.core.kb_engine import (  # noqa: E402
     DenseBackend, KBEngine, KBIdError, ShardedBackend, make_kb_ops)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_stage_cycles)
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
 from repro_torch.launch import serve  # noqa: E402
@@ -435,6 +444,9 @@ FLASH_SMALL = [  # (B, S, H, KV, d, causal, window, softcap)
     (2, 512, 8, 2, 64, True, 0, 30.0),
     (1, 300, 4, 1, 32, True, 100, 20.0),
     (2, 200, 4, 4, 128, False, 0, 0.0),
+    (2, 333, 32, 4, 128, True, 0, 0.0),      # S no multiple of 128, H/KV 8
+    (2, 300, 8, 8, 64, False, 0, 0.0),       # not causal at d 64
+    (1, 257, 16, 2, 32, False, 64, 0.0),     # d 32, window, H/KV 8
 ]
 
 
@@ -480,6 +492,18 @@ def phase2_flash():
             bound=flash_bound(q, k, True, peak))
         log(f"phase 2: flash_attention {dtype} (B {LM_B}, S {LM_PROMPT}, "
             f"H {H}, KV {KV}, d {d}, causal): {out[dtype]}")
+        if dtype == torch.bfloat16:
+            cycles = flash_stage_cycles(q, k, v, causal=True)
+            spent = sum(v_ for s_, v_ in cycles.items()
+                        if not s_.startswith("producer"))
+            log("phase 2: flash_attention bf16 reaches SDPA's time: "
+                f"{out[dtype]['ms'] <= out[dtype]['library_ms']}; consumer "
+                "cycles by stage (thread 0 of each warpgroup, summed): "
+                + ", ".join(f"{s_} {v_} ({100 * v_ / spent:.1f}%)"
+                            for s_, v_ in cycles.items()
+                            if not s_.startswith("producer"))
+                + f"; producer blocked on free stages "
+                f"{cycles['producer_blocked']} of {cycles['producer']}")
         del q, k, v, o_k, o_p
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, H, KV, d, causal, window, softcap in FLASH_SMALL:
@@ -637,6 +661,39 @@ def phase2_mamba():
     return res
 
 
+def phase2_nn_cases(table, queries):
+    """nn_search beyond the serve shape: k = 128 over the whole bank, a
+    bank of 100,003 rows (no multiple of any tile), and a bank of 4,096
+    rows planted three times over, where a row and its copies score alike
+    bit for bit and must come out lowest id first (a zero query ties every
+    row and gets ids 0..k-1)."""
+    kern = ops.LAUNCHERS["nn_search"]
+    for label, bank, k in (("k = 128", table, 128),
+                           ("N = 100,003", table[:100_003], K)):
+        s_k, i_k = kern(queries, bank, k)
+        s_p, i_p = ref.nn_search_ref(queries, bank, k + 1)
+        err = max_err(s_k, s_p[:, :k])
+        require(err <= ATOL_SCORES, f"nn_search {label}: scores {err}")
+        sets, ranks = check_topk(s_k, i_k, s_p, i_p, k, f"nn_search {label}")
+        log(f"phase 2: nn_search {label}: max_abs_err={err}, sets equal on "
+            f"{sets} of {BATCH} queries, {ranks} decided ranks equal")
+    base = table[:4096]
+    bank = torch.cat([base, base, base])
+    q = torch.cat([queries[:3], torch.zeros_like(queries[:1])])
+    s_k, i_k = kern(q, bank, 9)
+    s_p, _ = ref.nn_search_ref(q, bank, 9)
+    err = max_err(s_k, s_p)
+    same = s_k[:, 1:] == s_k[:, :-1]
+    trio = i_k[:3].view(3, 3, 3) % 4096
+    require(err <= ATOL_SCORES
+            and torch.equal(i_k[3], torch.arange(9, device=bank.device))
+            and bool((i_k[:, 1:] > i_k[:, :-1])[same].all())
+            and torch.equal(trio, trio[:, :, :1].expand(3, 3, 3)),
+            f"nn_search planted ties: err {err}, ids {i_k.tolist()}")
+    log(f"phase 2: nn_search planted ties (3 x 4096 rows, k = 9): "
+        f"max_abs_err={err}, equal scores lowest id first")
+
+
 def phase2_kernels():
     """Each kernel against its plain version at the serve path's shapes."""
     kernels = ops.LAUNCHERS
@@ -792,6 +849,15 @@ def phase2_kernels():
             "nn_search ids disagree on decided queries")
     log(f"phase 2: nn_search ids checked exactly on {int(decided.sum())} of "
         f"{BATCH} queries (k-th and (k+1)-th plain scores > {ID_GAP} apart)")
+    s_2, i_2 = kernels["nn_search"](queries, table, K)
+    require(torch.equal(s_2, s_k) and torch.equal(i_2, i_k),
+            "nn_search: a repeated run is not bit-identical")
+    # not the same function (no top-k), so not its library_ms: cuBLAS's
+    # fp32 product of the scores alone, the FMA work's yardstick
+    log(f"phase 2: nn_search's scores alone by torch.matmul (fp32, "
+        f"{BATCH} x {N_ROWS} x {DIM}): "
+        f"{time_ms(lambda: torch.matmul(queries, table.T), 20)} ms")
+    phase2_nn_cases(table, queries)
     nbytes = (N_ROWS + BATCH) * D4 + BATCH * K * 12
     results["nn_search"] = dict(
         max_abs_err=err,

@@ -28,7 +28,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 # dynamic shared memory one block may opt into on an H100 (232,448 bytes)
 SMEM_BYTES = 227 * 1024
-DEFAULT_BLOCK_ROWS = 128            # bank-tile rows of the nn_search kernel
+DEFAULT_BLOCK_ROWS = 128            # fit_block_rows' default tile rows
 DEFAULT_ROWS_PER_BLOCK = 8          # one warp per row: 8 warps, 256 threads
 
 

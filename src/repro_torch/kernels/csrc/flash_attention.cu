@@ -15,43 +15,63 @@
 // KV 4, d 128, causal) the causal pairs need 4 B H d S^2/2 ~ 137 GFLOP
 // against ~151 MB of q, k, v and o: 0.139 ms at the 989 TFLOP/s bf16
 // tensor-core peak (2.05 ms at the 67 TFLOP/s fp32 peak for fp32 inputs),
-// 0.045 ms of bytes.
+// 0.045 ms of bytes. Only wgmma reaches the bf16 peak on Hopper, and only
+// if the tiles' loads overlap the products.
 //
-// Both paths run one block per (head, batch, 64-query tile), heaviest
-// causal tiles launched first, and loop over the KV tiles that the causal
-// diagonal and the window leave (the Pallas kernel's block-triangular
-// skip). Keys past S (the ragged edge) score -1e30 and read zero rows.
+// Both paths skip the KV tiles above the causal diagonal or before the
+// window (the Pallas kernel's block-triangular skip) and take the
+// heaviest causal query tiles first. Keys past S score -1e30.
 //
-// bf16 (the serve path; flash_bf16): the two products on the tensor cores
-// with mma.sync m16n8k16 (bf16 in, fp32 sums). Four warps, 16 query rows
-// each; Q, K and V tiles of 64 rows staged in shared memory by cp.async
-// (V's copy in flight while Q.K^T runs), rows padded by 16 bytes so that
-// ldmatrix reads no bank twice. The scores stay in the mma accumulators;
-// a row's max and sum are reduced over the 4 lanes that hold it, and P
-// stays in registers as the A operand of P.V (the accumulator layout of
-// one product is the operand layout of the next). Products of bf16 values
-// are exact in fp32, so the scale 1/sqrt(d) is applied to the fp32 score
-// rather than to q first: the two orders differ by fp32 rounding only. P
-// rounded once to bf16 would move an output by up to a few bf16 ulps of
-// it, so P.V runs twice, on bf16 hi and lo parts of P (lo = P - hi,
-// rounded): P keeps ~16 bits, and the output agrees with the fp32 plain
-// version but for its final rounding to bf16. wgmma, TMA and a pipelined
-// ring of tiles are for a later PR.
+// bf16 (the serve path; flash_bf16), warp-specialised and persistent: one
+// block of three warpgroups per SM walks the (head, batch, 128-query tile)
+// items, heaviest first. Warpgroup 2 is the producer: one thread issues
+// TMA loads (cp.async.bulk.tensor, 3-d tensor maps over (d * heads, S, B),
+// so rows past S of one batch read as zeros and never as the next
+// batch's; GQA's KV head by the column coordinate kvh * d) of each item's
+// Q tile into one of two buffers and of its K and V tiles of 128 keys into
+// a ring of STAGES stages, with full and empty mbarriers whose phases run
+// on across items, so one item's loads overlap the end of the last; it
+// gives its registers to the consumers (setmaxnreg). Warpgroups 0 and 1
+// each own 64 query rows: S = Q.K^T by wgmma m64n128k16 with both
+// operands in shared memory (K-major, 128-byte swizzle; 64-byte at d 32,
+// whose rows are 64 bytes), then the online softmax in fp32 registers,
+// then O += P.V by wgmma with P in registers as the A operand (the
+// accumulator layout of S is the register layout of A) and V from shared
+// memory MN-major (the transpose bit). Each step issues S_i and
+// P_{i-1}.V_{i-1} together and runs tile i's softmax while P.V runs; the
+// two warpgroups take turns at issuing (named barriers), so one's softmax
+// overlaps the other's products. The softmax works in log2 units: ex2 on
+// scores pre-scaled by 1/sqrt(d) * log2(e), folded into one FMA on the
+// tiles that need no mask; only the tiles that cross the causal diagonal,
+// the window's edge or the ragged end at S test each score (a masked
+// score, -1e30, gives p = 1 while the row's max is still -1e30, and the
+// first live score wipes it with corr = 0, as in the plain version). The
+// soft cap is exact: tanh of the scaled score. Row max and sum reduce over
+// the 4 lanes that hold a row; one reciprocal of l per row at the end. P
+// rounded once to bf16 would move an output by up to a bf16 ulp of it
+// (0.0156 measured against the 0.02 bound), so P.V runs on bf16 hi and lo
+// parts of P (lo = P - hi, rounded: P keeps ~16 bits), two wgmmas back to
+// back on one accumulator and one V descriptor: the tensor work is 1.5x
+// the bound's, and the output agrees with the fp32 plain version but for
+// its final rounding to bf16. What sets the pace on the H100 (the stage
+// profile, flash_stage_cycles): the consumers' softmax and P conversion,
+// about half their cycles, then their issue of products, which waits for
+// the other warpgroup's products to leave the tensor pipe.
 //
 // fp32 (flash_fp32): fp32 FMAs on the CUDA cores, q cast and scaled before
-// the product as in JAX. 256 threads as a 16 x 16 grid: thread (ty, tx)
-// owns query rows 4ty..4ty+3, scores them against keys tx and tx + 16 of a
-// 32-key tile over float4 reads, keeps m and l in registers (reduced over
-// the 16 lanes that share a row), writes p to shared memory and
-// accumulates output dims tx, tx + 16, ... of its rows.
+// the product as in JAX. One block per (head, batch, 64-query tile), 256
+// threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4ty..4ty+3,
+// scores them against keys tx and tx + 16 of a 32-key tile over float4
+// reads, keeps m and l in registers (reduced over the 16 lanes that share
+// a row), writes p to shared memory and accumulates output dims tx,
+// tx + 16, ... of its rows.
 #include "common.cuh"
 
+#include <cuda.h>          // CUtensorMap (the encoder is found at run time)
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block (both paths)
 constexpr float NEG = -1e30f;
 
 // the first KV tile start (a multiple of bk) that the window leaves to
@@ -71,48 +91,210 @@ __device__ __forceinline__ bool live(int qp, int kp, int S, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16: TMA, mbarriers and wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BK = 64;      // keys per KV tile
-constexpr int MMA_NT = 128;     // 4 warps x 16 query rows
+constexpr int TQ = 128;          // query rows per block: 2 warpgroups x 64
+constexpr int TK = 128;          // keys per KV tile
+constexpr int STAGES = 2;        // K and V stages in the ring
+constexpr int BF16_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr float LOG2E = 1.4426950408889634f;
+// slots of the optional stage profile (summed cycles, flash_stage_cycles
+// in flash_attention.py): a consumer warpgroup's waits for K and V, for
+// its turn, its issue of products, its waits for them, its softmax, its
+// output; the producer's waits for free stages and its whole run
+enum {
+  PROF_DATA, PROF_TURN, PROF_ISSUE_QK, PROF_ISSUE_PV, PROF_PRODUCTS,
+  PROF_SOFTMAX, PROF_EPILOGUE, PROF_STAGES,
+  PROF_PRODUCER_BLOCKED = PROF_STAGES, PROF_PRODUCER, PROF_SLOTS
+};
 
+// bytes of one swizzled row of a tile (a row of d bf16 is split into
+// column blocks of this width: TMA's 128-byte swizzle spans 64 bf16)
 template <int HD>
-__host__ __device__ constexpr int mma_stride() { return HD + 8; }  // bf16s
-
+__host__ __device__ constexpr int swz_bytes() { return HD >= 64 ? 128 : 64; }
 template <int HD>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (BQ + 2 * MMA_BK) * mma_stride<HD>();
+__host__ __device__ constexpr int swz_elems() { return swz_bytes<HD>() / 2; }
+template <int HD>
+__host__ __device__ constexpr int col_blocks() { return HD / swz_elems<HD>(); }
+// the wgmma descriptors' layout type of that swizzle (1: 128 B, 2: 64 B)
+template <int HD>
+__host__ __device__ constexpr uint64_t swz_layout() {
+  return swz_bytes<HD>() == 128 ? 1 : 2;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+template <int HD>
+__host__ __device__ constexpr int q_bytes() { return TQ * HD * 2; }
+template <int HD>
+__host__ __device__ constexpr int kv_bytes() { return TK * HD * 2; }
+template <int HD>
+constexpr size_t bf16_smem_bytes() {
+  return 1024 + 2 * q_bytes<HD>() + STAGES * 2 * kv_bytes<HD>();  // + align
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// c += a . b for one m16n8k16 tile: bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+}
+
+// one box of a 3-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle's layout type
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of the registers of an
+// asynchronous product across its issue or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_F8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F16(i) WG_F8(i), WG_F8(i + 8)
+#define WG_F32(i) WG_F16(i), WG_F16(i + 16)
+
+// d = A . B (acc 0) or d += A . B (acc 1), m64n128k16: A and B bf16 in
+// shared memory, both K-major (descriptors da, db)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32(0), WG_F32(32)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A . B, m64n32k16: A bf16 in registers, B bf16 in shared memory
+// stored MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n64k16: A bf16 in registers, B bf16 in shared memory
+// stored MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n128k16: A bf16 in registers, B bf16 in shared memory
+// stored MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F32(0), WG_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// 2^x by the special-function unit (2 ulp; 2^-huge is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (x, y) as two packed bf16 pairs: hi rounds them, lo rounds what hi
@@ -126,178 +308,359 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Rows [r0, r0 + ROWS) of one head into a bf16 tile of row stride
-// mma_stride<HD>(), 16 bytes a copy with cp.async; rows >= S are zeros.
-template <int HD, int ROWS>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int r0, int S) {
-  constexpr int PER_ROW = HD / 8;
-  for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += MMA_NT) {
-    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
-    __nv_bfloat16* d = dst + r * mma_stride<HD>() + c;
-    if (r0 + r < S)
-      __pipeline_memcpy_async(
-          d, src + static_cast<int64_t>(r0 + r) * row_stride + c, 16);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+// One consumer warpgroup's softmax step on its 64 x TK scores, in place
+// (this thread's rows qp0 and qp0 + 8, wgmma accumulator layout: s[4i + e]
+// is column 8i + 2 (lane % 4) + (e & 1) of row qp0 + 8 (e >> 1)): p = exp2
+// of the scaled score less the new row max; l and m updated, and each
+// row's rescale of the output accumulator returned in corr. `c` scales a
+// score into log2 units; MASK tiles test each score.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[TK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float c,
+                                             int qp0, int k0, int S,
+                                             int causal, int window) {
+  const int tig = threadIdx.x & 3;
+  if constexpr (MASK) {
+#pragma unroll
+    for (int j = 0; j < TK / 2; ++j) {
+      const int kp = k0 + 8 * (j >> 2) + 2 * tig + (j & 1);
+      const int qp = qp0 + 8 * ((j >> 1) & 1);
+      s[j] = live(qp, kp, S, causal, window) ? s[j] * c : NEG;
+    }
+    c = 1.f;
+  }
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < TK / 2; ++j)
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * c);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    mc[r] = -m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < TK / 2; ++j) {
+    s[j] = ex2(fmaf(s[j], c, mc[(j >> 1) & 1]));
+    sum[(j >> 1) & 1] += s[j];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(FULL_MASK, sum[r], 1);
+    sum[r] += __shfl_xor_sync(FULL_MASK, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(MMA_NT)
-flash_bf16(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           int S, int H, int KV, int causal, int window, float softcap,
-           float scale) {
-  constexpr int LD = mma_stride<HD>();
-  constexpr int NKT = MMA_BK / 8;            // 8-key score tiles per warp
-  constexpr int NDT = HD / 8;                // 8-dim output tiles per warp
-  extern __shared__ __align__(16) __nv_bfloat16 smem_h[];
-  __nv_bfloat16* Qs = smem_h;                // BQ x LD
-  __nv_bfloat16* Ks = Qs + BQ * LD;          // MMA_BK x LD
-  __nv_bfloat16* Vs = Ks + MMA_BK * LD;      // MMA_BK x LD
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest first
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;   // mma fragment row and column
-  const int64_t qrow = static_cast<int64_t>(H) * HD;
-  const int64_t krow = static_cast<int64_t>(KV) * HD;
-  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-
-  copy_tile<HD, BQ>(Qs, q + (static_cast<int64_t>(b) * S * H + h) * HD, qrow,
-                    q0, S);
-  __pipeline_commit();
-
-  // rows 16 warp + g and 16 warp + g + 8 of the tile: m, l, and the output
-  // accumulators (fragment layout: [dim tile][row half * 2 + column])
-  const int qp0 = q0 + 16 * warp + g, qp1 = qp0 + 8;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float acc[NDT][4];
+// p as P.V's A operand, in bf16 hi and lo parts: P's 16-key slice kk is
+// score tiles 2kk and 2kk + 1
+__device__ __forceinline__ void to_operand(const float (&p)[TK / 2],
+                                           uint32_t (&phi)[TK / 16][4],
+                                           uint32_t (&plo)[TK / 16][4]) {
 #pragma unroll
-  for (int j = 0; j < NDT; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
-      acc[j][3] = 0.f;
-
-  // ldmatrix row addresses of this lane: A (Q rows), B of Q.K^T (K rows,
-  // two 8-key tiles per x4), B of P.V (V rows, transposed)
-  const int a_row = 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 8;
-  const int k_row = (lane & 7) + (lane >> 4) * 8;
-  const int k_col = ((lane >> 3) & 1) * 8;
-  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int v_col = (lane >> 4) * 8;
-
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  for (int k0 = first_kv_tile(q0, window, MMA_BK); k0 < k_end;
-       k0 += MMA_BK) {
-    __syncthreads();          // the last tile's K and V reads are done
-    copy_tile<HD, MMA_BK>(Ks, kb, krow, k0, S);
-    __pipeline_commit();
-    copy_tile<HD, MMA_BK>(Vs, vb, krow, k0, S);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);                // Q (first tile) and K
-    __syncthreads();
-
-    float s[NKT][4];
+  for (int kk = 0; kk < TK / 16; ++kk)
 #pragma unroll
-    for (int t = 0; t < NKT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, Qs + a_row * LD + kk + a_col);
-#pragma unroll
-      for (int t = 0; t < NKT; t += 2) {
-        uint32_t bk[4];
-        ldsm_x4(bk, Ks + (8 * t + k_row) * LD + kk + k_col);
-        mma_bf16(s[t], a, bk[0], bk[1]);
-        mma_bf16(s[t + 1], a, bk[2], bk[3]);
-      }
+    for (int r = 0; r < 4; ++r)
+      split_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1], phi[kk][r],
+                 plo[kk][r]);
+}
+
+// The two consumer warpgroups take turns at issuing their products, so
+// that one's softmax runs while the other's products run: warpgroup wg
+// waits on named barrier 1 + wg, which the other arrives at when it has
+// issued its own.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - wg) : "memory");
+}
+
+// One work item: the 128-query tile of one (head, batch); items are
+// numbered heaviest causal tile first, heads fastest (the heads that share
+// a KV head run side by side)
+struct Item {
+  int h, b, q0, kvh, k_begin, tiles;
+};
+
+__device__ __forceinline__ Item item_at(int w, int S, int H, int KV, int B,
+                                        int causal, int window) {
+  Item it;
+  const int q_tiles = (S + TQ - 1) / TQ;
+  it.h = w % H;
+  it.b = (w / H) % B;
+  it.q0 = (q_tiles - 1 - w / (H * B)) * TQ;
+  it.kvh = it.h / (H / KV);
+  it.k_begin = first_kv_tile(it.q0, window, TK);
+  const int k_end = causal ? min(S, it.q0 + TQ) : S;
+  it.tiles = (k_end - it.k_begin + TK - 1) / TK;
+  return it;
+}
+
+// Persistent: block i takes items i, i + gridDim.x, ...; the ring and the
+// barriers' phases run on across items, and Q is double-buffered, so an
+// item's loads overlap the end of the one before.
+template <int HD, bool PROFILE>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_bf16(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v,
+           __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
+           int causal, int window, float softcap, float scale,
+           unsigned long long* __restrict__ prof) {
+  constexpr int SWB = swz_bytes<HD>(), SWE = swz_elems<HD>();
+  constexpr int NCB = col_blocks<HD>();
+  constexpr uint64_t LAYOUT = swz_layout<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t q_full[2], q_empty[2], k_full[STAGES], v_full[STAGES],
+      k_empty[STAGES], v_empty[STAGES];
+  // tiles start on 1024-byte boundaries, the 128-byte swizzle's period
+  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
+                                    1023);
+  // Q buffer qb: NCB blocks of TQ rows x SWB bytes; then the K, V stages
+  auto Qs = [&](int qb) { return smem + qb * q_bytes<HD>(); };
+  auto Ks = [&](int st) {
+    return smem + 2 * q_bytes<HD>() + st * 2 * kv_bytes<HD>();
+  };
+  auto Vs = [&](int st) { return Ks(st) + kv_bytes<HD>(); };
+  const int items = H * B * ((S + TQ - 1) / TQ);
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(&q_full[qb], 1);
+      mbar_init(&q_empty[qb], 8);      // one arrival per consumer warp
     }
-
-    // scale, cap and mask; row max over the quad that holds the row
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int t = 0; t < NKT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const int kp = k0 + 8 * t + 2 * tig + (e & 1);
-        x = live(e < 2 ? qp0 : qp1, kp, S, causal, window) ? x : NEG;
-        s[t][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL_MASK, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&v_full[st], 1);
+      mbar_init(&k_empty[st], 8);
+      mbar_init(&v_empty[st], 8);
     }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int t = 0; t < NKT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = expf(s[t][e] - m[e >> 1]);
-        sum[e >> 1] += s[t][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(FULL_MASK, sum[r], 1);
-      sum[r] += __shfl_xor_sync(FULL_MASK, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NDT; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    __pipeline_wait_prior(0);                // V
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-      // P's 16-key slice kk as the A operand (score tiles 2kk and 2kk + 1),
-      // split into bf16 terms hi + lo: two products keep ~16 bits of P
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float* pr = &s[2 * kk + (r >> 1)][2 * (r & 1)];
-        split_bf16(pr[0], pr[1], hi[r], lo[r]);
-      }
-#pragma unroll
-      for (int j = 0; j < NDT; j += 2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, Vs + (16 * kk + v_row) * LD + 8 * j + v_col);
-        mma_bf16(acc[j], hi, bv[0], bv[1]);
-        mma_bf16(acc[j], lo, bv[0], bv[1]);
-        mma_bf16(acc[j + 1], hi, bv[2], bv[3]);
-        mma_bf16(acc[j + 1], lo, bv[2], bv[3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full --------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const long long t_start = PROFILE ? clock64() : 0;
+      long long t_blocked = 0;
+      int T = 0;                       // K and V tiles loaded so far
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const Item it = item_at(w, S, H, KV, B, causal, window);
+        const int qb = n & 1;
+        long long t0 = PROFILE ? clock64() : 0;
+        mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
+        if (PROFILE) t_blocked += clock64() - t0;
+        mbar_expect_tx(&q_full[qb], q_bytes<HD>());
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = r ? qp1 : qp0;
-    if (qp >= S) continue;
-    __nv_bfloat16* orow = o + (static_cast<int64_t>(b) * S + qp) * qrow +
-                          h * HD + 2 * tig;
+        for (int cb = 0; cb < NCB; ++cb)
+          tma_load_3d(Qs(qb) + cb * TQ * SWB, &tm_q, &q_full[qb],
+                      it.h * HD + cb * SWE, it.q0, it.b);
+        for (int i = 0; i < it.tiles; ++i, ++T) {
+          const int st = T % STAGES, k0 = it.k_begin + i * TK;
+          const int free_par = ((T / STAGES) & 1) ^ 1;
+          t0 = PROFILE ? clock64() : 0;
+          mbar_wait(&k_empty[st], free_par);
+          mbar_expect_tx(&k_full[st], kv_bytes<HD>());
 #pragma unroll
-    for (int j = 0; j < NDT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(__fdiv_rn(acc[j][2 * r], den[r]),
-                                __fdiv_rn(acc[j][2 * r + 1], den[r]));
+          for (int cb = 0; cb < NCB; ++cb)
+            tma_load_3d(Ks(st) + cb * TK * SWB, &tm_k, &k_full[st],
+                        it.kvh * HD + cb * SWE, k0, it.b);
+          mbar_wait(&v_empty[st], free_par);
+          if (PROFILE) t_blocked += clock64() - t0;
+          mbar_expect_tx(&v_full[st], kv_bytes<HD>());
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb)
+            tma_load_3d(Vs(st) + cb * TK * SWB, &tm_v, &v_full[st],
+                        it.kvh * HD + cb * SWE, k0, it.b);
+        }
+      }
+      if (PROFILE) {
+        atomicAdd(&prof[PROF_PRODUCER_BLOCKED],
+                  static_cast<unsigned long long>(t_blocked));
+        atomicAdd(&prof[PROF_PRODUCER],
+                  static_cast<unsigned long long>(clock64() - t_start));
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ----
+    // Each step issues S_i = Q.K_i^T and O += P_{i-1}.V_{i-1} together,
+    // then runs tile i's softmax while the P.V product is in flight.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const float c = softcap > 0.f ? 1.f : scale * LOG2E;
+    const float cap_in = scale / softcap, cap_out = softcap * LOG2E;
+    float m[2], l[2], corr[2], acc[HD / 2], s[TK / 2];
+    uint32_t phi[TK / 16][4], plo[TK / 16][4];
+    // with a profile buffer, thread 0 of each consumer warpgroup charges
+    // the cycles since its last mark to a stage
+    const bool timed = PROFILE && (threadIdx.x & 127) == 0;
+    long long stage_cycles[PROF_STAGES] = {}, t_last = timed ? clock64() : 0;
+    auto mark = [&](int stage) {
+      if (PROFILE && timed) {
+        const long long now = clock64();
+        stage_cycles[stage] += now - t_last;
+        t_last = now;
+      }
+    };
+    auto full_par = [](int t) { return (t / STAGES) & 1; };
+    // V (B of P.V): MN-major, column blocks of SWE dims TK * SWB apart,
+    // 8-key groups 8 SWB apart; a 16-key step moves 16 rows. P's hi and
+    // lo parts go back to back into one accumulator.
+    auto issue_pv = [&](int t) {
+      const uint32_t v_addr = smem_u32(Vs(t % STAGES));
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        const uint64_t dv = gmma_desc(v_addr + kk * 16 * SWB, TK * SWB,
+                                      8 * SWB, LAYOUT);
+        wgmma_pv<HD>(acc, phi[kk], dv);
+        wgmma_pv<HD>(acc, plo[kk], dv);
+      }
+      wgmma_commit();
+    };
+
+    if (wg == 1) turn_pass(wg);       // warpgroup 0 takes the first turn
+    int T = 0;                        // K and V tiles consumed so far
+    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+      const Item it = item_at(w, S, H, KV, B, causal, window);
+      const bool last_item = w + static_cast<int>(gridDim.x) >= items;
+      const int row0 = it.q0 + 64 * wg;               // the warpgroup's
+      const int qp0 = row0 + 16 * warp + (lane >> 2); // first row; this
+                                                      // thread's: qp0, +8
+      m[0] = m[1] = NEG;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+
+      // Q (A of Q.K^T): K-major rows of SWB bytes, 8-row groups 8 SWB
+      // apart; a 16-wide k step moves 32 bytes along the swizzled row
+      const int qb = n & 1;
+      const uint32_t q_addr = smem_u32(Qs(qb)) + 64 * wg * SWB;
+      auto issue_qk = [&](int t) {
+        const uint32_t k_addr = smem_u32(Ks(t % STAGES));
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t off = (kk * 16 / SWE) * TQ * SWB +
+                               (kk * 16 % SWE) * 2;
+          const uint32_t koff = (kk * 16 / SWE) * TK * SWB +
+                                (kk * 16 % SWE) * 2;
+          wgmma_ss_n128(s, gmma_desc(q_addr + off, 16, 8 * SWB, LAYOUT),
+                        gmma_desc(k_addr + koff, 16, 8 * SWB, LAYOUT),
+                        kk > 0);
+        }
+        wgmma_commit();
+      };
+      auto softmax = [&](int i) {
+        const int k0 = it.k_begin + i * TK;
+        if (softcap > 0.f) {
+#pragma unroll
+          for (int j = 0; j < TK / 2; ++j)
+            s[j] = tanhf(s[j] * cap_in) * cap_out;
+        }
+        if ((causal && k0 + TK - 1 > row0) ||
+            (window > 0 && row0 + 63 - k0 >= window) || k0 + TK > S)
+          softmax_tile<true>(s, m, l, corr, c, qp0, k0, S, causal, window);
+        else
+          softmax_tile<false>(s, m, l, corr, c, qp0, k0, S, causal, window);
+      };
+
+      mbar_wait(&q_full[qb], (n >> 1) & 1);
+      mbar_wait(&k_full[T % STAGES], full_par(T));
+      mark(PROF_DATA);
+      turn_wait(wg);
+      mark(PROF_TURN);
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk(T);
+      turn_pass(wg);
+      mark(PROF_ISSUE_QK);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mark(PROF_PRODUCTS);
+      if (lane == 0) mbar_arrive(&k_empty[T % STAGES]);
+      softmax(0);
+      to_operand(s, phi, plo);
+      mark(PROF_SOFTMAX);
+      for (int i = 1; i < it.tiles; ++i) {
+        const int t = T + i;
+        mbar_wait(&k_full[t % STAGES], full_par(t));
+        mbar_wait(&v_full[(t - 1) % STAGES], full_par(t - 1));
+        mark(PROF_DATA);
+        turn_wait(wg);
+        mark(PROF_TURN);
+        fence_regs(s);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_qk(t);
+        mark(PROF_ISSUE_QK);
+        issue_pv(t - 1);
+        turn_pass(wg);
+        mark(PROF_ISSUE_PV);
+        wgmma_wait<1>();              // S_i is in; P_{i-1}.V still runs
+        fence_regs(s);
+        mark(PROF_PRODUCTS);
+        if (lane == 0) mbar_arrive(&k_empty[t % STAGES]);
+        softmax(i);
+        mark(PROF_SOFTMAX);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mark(PROF_PRODUCTS);
+        if (lane == 0) mbar_arrive(&v_empty[(t - 1) % STAGES]);
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+        to_operand(s, phi, plo);
+        mark(PROF_SOFTMAX);
+      }
+      T += it.tiles;
+      mbar_wait(&v_full[(T - 1) % STAGES], full_par(T - 1));
+      mark(PROF_DATA);
+      turn_wait(wg);
+      mark(PROF_TURN);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv(T - 1);
+      // warpgroup 1 passes the turn on to warpgroup 0's next item; after
+      // the block's last item nobody waits for it
+      if (wg == 0 || !last_item) turn_pass(wg);
+      mark(PROF_ISSUE_PV);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mark(PROF_PRODUCTS);
+      if (lane == 0) {
+        mbar_arrive(&v_empty[(T - 1) % STAGES]);
+        mbar_arrive(&q_empty[qb]);
+      }
+
+      const int64_t qrow = static_cast<int64_t>(H) * HD;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = qp0 + 8 * r;
+        if (qp >= S) continue;
+        const float inv = __frcp_rn(fmaxf(l[r], 1e-30f));
+        __nv_bfloat16* orow = o + (static_cast<int64_t>(it.b) * S + qp) *
+                                      qrow + it.h * HD + 2 * (lane & 3);
+#pragma unroll
+        for (int i = 0; i < HD / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * r] * inv,
+                                    acc[4 * i + 2 * r + 1] * inv);
+      }
+      mark(PROF_EPILOGUE);
+    }
+    if (PROFILE && timed)
+#pragma unroll
+      for (int st = 0; st < PROF_STAGES; ++st)
+        atomicAdd(&prof[st],
+                  static_cast<unsigned long long>(stage_cycles[st]));
   }
 }
 
@@ -305,6 +668,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 // fp32: FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
 
+constexpr int BQ = 64;          // query rows per block
 constexpr int F32_BK = 32;      // keys per KV tile
 constexpr int F32_NT = 256;     // threads per block: a 16 x 16 grid
 constexpr int PS = F32_BK + 4;  // row stride of the probability tile
@@ -488,29 +852,88 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
+// libcuda); null where it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (d * heads, S, B) bf16 map of a (B, S, heads, d) tensor, boxes of
+// `rows` rows x one swizzle width of columns; rows past S read as zeros.
+template <int HD>
+cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S,
+                     int heads, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD;
+  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {row * 2, row * 2 * S};   // bytes
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(swz_elems<HD>()),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swz_bytes<HD>() == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int HD>
 int launch_hd(int bf16, const void* q, const void* k, const void* v,
               void* o, int B, int S, int H, int KV, int causal, int window,
-              float softcap, float scale, cudaStream_t stream) {
-  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+              float softcap, float scale, void* prof, cudaStream_t stream) {
   cudaError_t err;
   if (bf16) {
-    using T = __nv_bfloat16;
-    const size_t smem = mma_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(flash_bf16<HD>,
+    CUtensorMap mq, mk, mv;
+    if ((err = make_map<HD>(&mq, q, B, S, H, TQ)) != cudaSuccess ||
+        (err = make_map<HD>(&mk, k, B, S, KV, TK)) != cudaSuccess ||
+        (err = make_map<HD>(&mv, v, B, S, KV, TK)) != cudaSuccess)
+      return err;
+    const size_t smem = bf16_smem_bytes<HD>();
+    auto kernel = prof ? flash_bf16<HD, true> : flash_bf16<HD, false>;
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    flash_bf16<HD><<<grid, MMA_NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal,
-        window, softcap, scale);
+    int device = 0, sms = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess)
+      return err;
+    const int items = H * B * ((S + TQ - 1) / TQ);   // one block an SM
+    kernel<<<min(items, sms), BF16_THREADS, smem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, causal,
+        window, softcap, scale, static_cast<unsigned long long*>(prof));
   } else {
     const size_t smem = f32_smem_bytes<HD>();
     err = cudaFuncSetAttribute(flash_fp32<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
+    const dim3 grid(H, B, (S + BQ - 1) / BQ);
     flash_fp32<HD><<<grid, F32_NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, KV,
@@ -523,22 +946,25 @@ int launch_hd(int bf16, const void* q, const void* k, const void* v,
 
 REPRO_ERROR_STRING(flash_attention)
 
+// prof: null, or PROF_SLOTS zeroed uint64 on the card that the bf16
+// kernel adds its stage cycles to
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, int d, int bf16,
                                       int causal, int window, float softcap,
-                                      float scale, cudaStream_t stream) {
+                                      float scale, void* prof,
+                                      cudaStream_t stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   switch (d) {
     case 32:
       return launch_hd<32>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                           softcap, scale, stream);
+                           softcap, scale, prof, stream);
     case 64:
       return launch_hd<64>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                           softcap, scale, stream);
+                           softcap, scale, prof, stream);
     case 128:
       return launch_hd<128>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                            softcap, scale, stream);
+                            softcap, scale, prof, stream);
     default:
       return cudaErrorInvalidValue;
   }

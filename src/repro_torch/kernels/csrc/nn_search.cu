@@ -8,163 +8,329 @@
 // What bounds it: bytes, barely. At B = 32 queries over 1,939,743 rows of
 // width 128 the search must read the 993 MB bank once (0.30 ms at 3.35 TB/s)
 // and do 2*B*N*D = 15.9 GFLOP (0.24 ms at 67 TFLOP/s of fp32 FMA). Both are
-// near, so the product must run close to the fp32 rate while the bank
-// streams: no TF32, no bf16, no library GEMM (TF32 would move scores by
-// ~1e-3 and flip the ids of near ties).
+// near, so the bank's stream and the FMAs must overlap, and the FMAs must
+// not wait on shared memory: no TF32, no bf16, no library GEMM (TF32 would
+// move scores by ~1e-3 and flip the ids of near ties). Shared memory
+// delivers 128 bytes a clock to an SM's lanes, broadcast or not, against
+// 128 FMAs a clock: a float read from it must feed 4 FMAs.
 //
 // Design, two launches:
-//   1. nn_partial_topk: grid (slices, query tiles of 32). A block keeps its
-//      32 queries in shared memory and walks its slice of the bank in tiles
-//      of TR rows, copied with cp.async (16 bytes a copy, all in flight at
-//      once). Each thread scores 4 queries x TR/32 rows with float4 reads
-//      along D (row stride D + 4 keeps the reads of a quarter-warp on 32
-//      different banks) and fp32 FMAs in D order. Each warp then offers the
-//      tile's scores of its queries to a running top-k list per query in
-//      shared memory: a ballot finds the candidates that beat the list's
-//      last entry (rare once the list is warm), and these go in one at a
-//      time, lowest id first. A block writes its k best per query.
+//   1. nn_partial_topk: grid (slices, query tiles of 32), 8 warps. Lane
+//      (qg, rg) of a warp scores queries 8qg .. 8qg + 7 against 8 rows of
+//      the warp's 64 (rows rg, rg + 8, ...): 64 sums in registers, and for
+//      each d 8 query and 8 row floats read for 64 FMAs. The block walks
+//      its slice of the bank in tiles of TR rows (512 at D 128), each cut
+//      into chunks of 16 dims; one thread keeps a ring of NS stages (up to
+//      4) full with TMA loads of (TR rows x 16 dims) boxes of a 2-d tensor
+//      map over the bank (64-byte swizzle, so the 8 rows a quarter-warp
+//      reads sit in 8 distinct bank groups; rows and dims past the bank
+//      read as zeros), NS - 1 chunks ahead of the compute. The queries sit
+//      in shared memory transposed, [d][32], so a lane's 8 queries at one
+//      d are two float4 loads. Each (query, row) sum runs in D order, so a
+//      pair's score does not depend on N or on the slice plan. After a
+//      tile's last chunk the scores meet a filter in registers: a score
+//      goes on only if it is at least its query's current k-th (a
+//      register, refreshed after each insert round), into a per-query
+//      candidate buffer of 64 in shared memory; once the lists are warm
+//      almost none pass, and a tile with none skips the inserts. The
+//      owner warp of each query offers its candidates to the query's
+//      running top-k list (list_offer, common.cuh); candidates that found
+//      a full buffer try again in another round, against the new k-th. A
+//      block writes its k best per query.
 //   2. merge_topk_lists (common.cuh): one block per query merges the
 //      slices' lists, each warp into a list of its own, then warp 0 merges
 //      the eight.
 // Lists are ordered by (score descending, id ascending), a strict total
-// order on distinct ids, so the result does not depend on the order of
-// the merge, and equal scores go to the lowest id as in _merge_topk. A
-// list starts filled with (-1e30, INT_MAX), the Pallas kernel's padding.
-#include <cuda_pipeline.h>
-
+// order on distinct ids, so the result does not depend on the order in
+// which candidates arrive or on the merge's, and equal scores go to the
+// lowest id as in _merge_topk. A list starts filled with (-1e30,
+// INT_MAX), the Pallas kernel's padding.
+//
+// What sets the pace on the H100: the FMA loop, at about a third of the
+// fp32 peak at the serve shapes; loading the next step ahead of the
+// FMAs, no block barrier between chunks, and the other loop order each
+// left the time where it was. Scores from the tensor cores (3xTF32,
+// m16n8k8) took 0.78x the time but moved them by up to 8.4e-5, past the
+// ids the plain version decides; tf32 scores as a filter, with exact FMA
+// rescoring of what passes, kept the ids but took 1.7x the time. Neither
+// is used (PERF.md §6).
 #include "common.cuh"
+
+#include <cuda.h>          // CUtensorMap (the encoder is found at run time)
 
 namespace {
 
 constexpr int QB = 32;         // queries per block of pass 1
 constexpr int THREADS = 256;   // 8 warps
 constexpr int WARPS = THREADS / 32;
+constexpr int QL = 8;          // queries per lane
+constexpr int DC = 16;         // dims per chunk: 64-byte rows in a stage
+constexpr int CAND = 64;       // candidate slots per query and round
+constexpr int BOX_ROWS = 256;  // TMA's largest box side
+constexpr int MAX_STAGES = 4;
 constexpr int KMAX = TOPK_KMAX;
 constexpr float NEG = TOPK_NEG;
 
-__host__ __device__ constexpr int row_stride(int D) { return D + 4; }
-
-size_t partial_smem_bytes(int D, int k, int tile_rows) {
-  const size_t dp = row_stride(D);
-  return sizeof(float) * (QB * dp + tile_rows * dp + QB * tile_rows) +
-         (sizeof(float) + sizeof(int)) * QB * k;
+// bytes of dynamic shared memory: the ring, the transposed queries, the
+// candidate buffers and counts, the lists, and room to align the ring (the
+// wrapper's tile_plan mirrors this)
+size_t partial_smem_bytes(int D, int k, int tile_rows, int stages) {
+  return 1024 + static_cast<size_t>(stages) * tile_rows * DC * 4 +
+         static_cast<size_t>(D) * QB * 4 + 8 * QB * CAND + 4 * QB +
+         8 * QB * k;
 }
 
-template <int TR>
-__global__ void __launch_bounds__(THREADS)
-    nn_partial_topk(const float* __restrict__ queries,
-                    const float* __restrict__ bank, int B, int64_t N, int D,
-                    int k, int64_t rows_per_slice, float* __restrict__ part_s,
-                    int* __restrict__ part_i) {
-  constexpr int RB = TR / 32;
-  extern __shared__ __align__(16) float smem[];
-  const int DP = row_stride(D);
-  float* qs = smem;                 // [QB][DP]
-  float* bs = qs + QB * DP;         // [TR][DP]
-  float* sc = bs + TR * DP;         // [QB][TR]
-  float* ls = sc + QB * TR;         // [QB][k]
-  int* li = reinterpret_cast<int*>(ls + QB * k);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+}
+
+// one box of a 2-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+template <int RPL>
+__global__ void __launch_bounds__(THREADS, 1)
+    nn_partial_topk(const __grid_constant__ CUtensorMap tm_bank,
+                    const float* __restrict__ queries, int B, int64_t N,
+                    int D, int k, int stages, int64_t rows_per_slice,
+                    float* __restrict__ part_s, int* __restrict__ part_i) {
+  constexpr int TR = 64 * RPL;                 // rows per tile
+  constexpr int STAGE = TR * DC * 4;           // bytes per stage
+  constexpr int BOX = TR < BOX_ROWS ? TR : BOX_ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[MAX_STAGES];
+  // the ring starts on a 1024-byte boundary, a multiple of the swizzle's
+  // 512-byte period
+  uint8_t* const ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
+                                    1023);
+  float* const qt = reinterpret_cast<float*>(ring + stages * STAGE);  // [D][QB]
+  float* const cs = qt + static_cast<size_t>(D) * QB;       // [QB][CAND]
+  int* const ci = reinterpret_cast<int*>(cs + QB * CAND);   // [QB][CAND]
+  int* const cnt = ci + QB * CAND;                          // [QB]
+  float* const ls = reinterpret_cast<float*>(cnt + QB);     // [QB][k]
+  int* const li = reinterpret_cast<int*>(ls + QB * k);      // [QB][k]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qg = lane >> 3, rg = lane & 7;
   const int q0 = blockIdx.y * QB;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_slice;
   const int64_t r1 = r0 + rows_per_slice < N ? r0 + rows_per_slice : N;
+  const int chunks = (D + DC - 1) / DC;
+  const int tiles = static_cast<int>((r1 - r0 + TR - 1) / TR);
+  const int loads = tiles * chunks;
+  auto issue = [&](int L) {   // chunk L % chunks of tile L / chunks
+    const int st = L % stages;
+    uint64_t* bar = &full[st];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(STAGE) : "memory");
+    const int64_t row = r0 + static_cast<int64_t>(L / chunks) * TR;
+#pragma unroll
+    for (int bx = 0; bx < TR / BOX; ++bx)
+      tma_load_2d(ring + st * STAGE + bx * BOX * DC * 4, &tm_bank, bar,
+                  (L % chunks) * DC, static_cast<int>(row) + bx * BOX);
+  };
 
-  for (int q = warp; q < QB; q += WARPS)
-    for (int d = lane; d < D; d += 32)
-      qs[q * DP + d] = q0 + q < B
-                           ? queries[static_cast<int64_t>(q0 + q) * D + d]
-                           : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int L = 0; L < stages && L < loads; ++L) issue(L);
+  }
+  for (int e = tid; e < QB * D; e += THREADS) {
+    const int q = e % QB, d = e / QB;
+    qt[e] = q0 + q < B ? queries[static_cast<int64_t>(q0 + q) * D + d] : 0.f;
+  }
   for (int e = tid; e < QB * k; e += THREADS) {
     ls[e] = NEG;
     li[e] = INT_MAX;
   }
+  if (tid < QB) cnt[tid] = 0;
+  float thr[QL];                // each of this lane's queries' k-th so far
+#pragma unroll
+  for (int a = 0; a < QL; ++a) thr[a] = NEG;
   __syncthreads();
 
-  const int D4 = D / 4;
-  for (int64_t t0 = r0; t0 < r1; t0 += TR) {
-    const int rows = r1 - t0 < TR ? static_cast<int>(r1 - t0) : TR;
-    for (int e = tid; e < TR * D4; e += THREADS) {
-      const int r = e / D4, c = e - r * D4;
-      float* dst = bs + r * DP + 4 * c;
-      if (r < rows)
-        __pipeline_memcpy_async(dst, bank + (t0 + r) * D + 4 * c, 16);
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
+  // this lane's rows of a tile: warp * 8 RPL + rg + 8j; in a stage a row
+  // is 64 bytes, its 16-byte chunk c stored at chunk c ^ ((row >> 1) & 3)
+  const int swz = (rg >> 1) & 3;
+  const int row_base = warp * 8 * RPL + rg;
+  float acc[QL][RPL];
+#pragma unroll
+  for (int a = 0; a < QL; ++a)
+#pragma unroll
+    for (int j = 0; j < RPL; ++j) acc[a][j] = 0.f;
 
-    // thread (warp, lane) scores queries warp + 8a and rows lane + 32b
-    float acc[4][RB];
+  for (int L = 0; L < loads; ++L) {
+    const int st = L % stages, ch = L % chunks;
+    mbar_wait(&full[st], (L / stages) & 1);
+    const uint8_t* stage = ring + st * STAGE;
+    const int d0 = ch * DC;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int c = 0; c < DC / 4; ++c) {
+      if (d0 + 4 * c < D) {
+        float4 x[RPL];
 #pragma unroll
-      for (int b = 0; b < RB; ++b) acc[a][b] = 0.f;
-    const float4* q4[4];
-    const float4* b4[RB];
+        for (int j = 0; j < RPL; ++j)
+          x[j] = *reinterpret_cast<const float4*>(
+              stage + (row_base + 8 * j) * 64 + ((c ^ swz) << 4));
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      q4[a] = reinterpret_cast<const float4*>(qs + (warp + 8 * a) * DP);
+        for (int e = 0; e < 4; ++e) {
+          const float* qd = qt + (d0 + 4 * c + e) * QB + QL * qg;
+          const float4 qa = *reinterpret_cast<const float4*>(qd);
+          const float4 qb = *reinterpret_cast<const float4*>(qd + 4);
+          const float q[QL] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-    for (int b = 0; b < RB; ++b)
-      b4[b] = reinterpret_cast<const float4*>(bs + (lane + 32 * b) * DP);
-    for (int c = 0; c < D4; ++c) {
-      float4 qv[4], bv[RB];
+          for (int j = 0; j < RPL; ++j) {
+            const float v = e == 0 ? x[j].x : e == 1 ? x[j].y
+                          : e == 2 ? x[j].z : x[j].w;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qv[a] = q4[a][c];
-#pragma unroll
-      for (int b = 0; b < RB; ++b) bv[b] = b4[b][c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < RB; ++b) {
-          float v = acc[a][b];
-          v = fmaf(qv[a].x, bv[b].x, v);
-          v = fmaf(qv[a].y, bv[b].y, v);
-          v = fmaf(qv[a].z, bv[b].z, v);
-          v = fmaf(qv[a].w, bv[b].w, v);
-          acc[a][b] = v;
+            for (int a = 0; a < QL; ++a) acc[a][j] = fmaf(q[a], v, acc[a][j]);
+          }
         }
+      }
+    }
+    __syncthreads();            // every warp is done with stage st
+    if (tid == 0 && L + stages < loads) issue(L + stages);
+    if (ch != chunks - 1) continue;
+
+    // the tile is scored: its candidates go to the lists, in rounds while
+    // a query's buffer overflows
+    const int64_t t0 = r0 + static_cast<int64_t>(L / chunks) * TR;
+    const int rows = r1 - t0 < TR ? static_cast<int>(r1 - t0) : TR;
+    uint64_t sent = 0;          // bit a * RPL + j: acc[a][j] is in a buffer
+    for (;;) {
+      bool now = false, over = false;
+#pragma unroll
+      for (int a = 0; a < QL; ++a)
+#pragma unroll
+        for (int j = 0; j < RPL; ++j) {
+          const int q = QL * qg + a, row = row_base + 8 * j;
+          const uint64_t bit = 1ull << (a * RPL + j);
+          if (!(sent & bit) && q0 + q < B && row < rows &&
+              acc[a][j] >= thr[a]) {
+            const int pos = atomicAdd(&cnt[q], 1);
+            if (pos < CAND) {
+              cs[q * CAND + pos] = acc[a][j];
+              ci[q * CAND + pos] = static_cast<int>(t0 + row);
+              sent |= bit;
+              now = true;
+            } else {
+              over = true;
+            }
+          }
+        }
+      if (!__syncthreads_or(now)) break;
+      for (int qq = warp; qq < QB; qq += WARPS) {
+        const int n = cnt[qq] < CAND ? cnt[qq] : CAND;
+        for (int c0 = 0; c0 < n; c0 += 32) {
+          const int c = c0 + lane;
+          const bool ok = c < n;
+          list_offer(ls + qq * k, li + qq * k, k,
+                     ok ? cs[qq * CAND + c] : NEG,
+                     ok ? ci[qq * CAND + c] : INT_MAX, ok, lane);
+        }
+        __syncwarp();
+        if (lane == 0) cnt[qq] = 0;
+      }
+      const int again = __syncthreads_or(over);
+#pragma unroll
+      for (int a = 0; a < QL; ++a) thr[a] = ls[(QL * qg + a) * k + k - 1];
+      if (!again) break;
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < QL; ++a)
 #pragma unroll
-      for (int b = 0; b < RB; ++b)
-        sc[(warp + 8 * a) * TR + lane + 32 * b] = acc[a][b];
-    __syncthreads();
-
-    // The next tile's copies overwrite bs only after the barrier above,
-    // and its scores overwrite sc only after the barrier that follows
-    // them, which every warp reaches once its offers below are done.
-    for (int q = warp; q < QB && q0 + q < B; q += WARPS)
-      for (int c0 = 0; c0 < TR; c0 += 32) {
-        const int c = c0 + lane;
-        list_offer(ls + q * k, li + q * k, k, sc[q * TR + c],
-                   static_cast<int>(t0 + c), c < rows, lane);
-      }
+      for (int j = 0; j < RPL; ++j) acc[a][j] = 0.f;
   }
 
   const int64_t slices = gridDim.x;
-  for (int q = warp; q < QB && q0 + q < B; q += WARPS)
+  for (int qq = warp; qq < QB && q0 + qq < B; qq += WARPS)
     for (int j = lane; j < k; j += 32) {
-      const int64_t o = ((q0 + q) * slices + blockIdx.x) * k + j;
-      part_s[o] = ls[q * k + j];
-      part_i[o] = li[q * k + j];
+      const int64_t o = ((q0 + qq) * slices + blockIdx.x) * k + j;
+      part_s[o] = ls[qq * k + j];
+      part_i[o] = li[qq * k + j];
     }
 }
 
-template <int TR>
-cudaError_t plan_partial(long long N, int D, int k, int* slices,
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
+// libcuda); null where it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, N) fp32 bank as a tensor map of (box rows x 16 dims) boxes with
+// the 64-byte swizzle; rows and dims past the bank read as zeros.
+cudaError_t bank_map(CUtensorMap* map, const float* bank, long long N, int D,
+                     int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
+  const cuuint32_t box[2] = {DC, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(bank),
+      dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int RPL>
+cudaError_t plan_partial(long long N, int D, int k, int stages, int* slices,
                          long long* rows_per_slice) {
-  const size_t smem = partial_smem_bytes(D, k, TR);
+  constexpr int TR = 64 * RPL;
+  const size_t smem = partial_smem_bytes(D, k, TR, stages);
   cudaError_t err = cudaFuncSetAttribute(
-      nn_partial_topk<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      nn_partial_topk<RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0, device = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, nn_partial_topk<TR>, THREADS, smem);
+      &per_sm, nn_partial_topk<RPL>, THREADS, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   err = cudaGetDevice(&device);
@@ -181,19 +347,23 @@ cudaError_t plan_partial(long long N, int D, int k, int* slices,
   return cudaSuccess;
 }
 
-template <int TR>
+template <int RPL>
 cudaError_t launch_partial(const float* queries, const float* bank, int B,
-                           long long N, int D, int k,
+                           long long N, int D, int k, int stages,
                            long long rows_per_slice, int slices,
                            float* part_s, int* part_i, cudaStream_t stream) {
-  const size_t smem = partial_smem_bytes(D, k, TR);
-  cudaError_t err = cudaFuncSetAttribute(
-      nn_partial_topk<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int TR = 64 * RPL;
+  CUtensorMap map;
+  cudaError_t err = bank_map(&map, bank, N, D, TR < BOX_ROWS ? TR : BOX_ROWS);
+  if (err != cudaSuccess) return err;
+  const size_t smem = partial_smem_bytes(D, k, TR, stages);
+  err = cudaFuncSetAttribute(
+      nn_partial_topk<RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(slices, (B + QB - 1) / QB);
-  nn_partial_topk<TR><<<grid, THREADS, smem, stream>>>(
-      queries, bank, B, N, D, k, rows_per_slice, part_s, part_i);
+  nn_partial_topk<RPL><<<grid, THREADS, smem, stream>>>(
+      map, queries, B, N, D, k, stages, rows_per_slice, part_s, part_i);
   return cudaGetLastError();
 }
 
@@ -204,35 +374,43 @@ REPRO_ERROR_STRING(nn_search)
 // How pass 1 cuts the bank: the number of slices (blocks per query tile)
 // and the rows of each; the caller sizes the partial lists from them.
 extern "C" int nn_search_plan(long long N, int D, int k, int tile_rows,
-                              int* slices, long long* rows_per_slice) {
+                              int stages, int* slices,
+                              long long* rows_per_slice) {
+  if (stages < 2 || stages > MAX_STAGES) return cudaErrorInvalidValue;
   switch (tile_rows) {
-    case 32: return plan_partial<32>(N, D, k, slices, rows_per_slice);
-    case 64: return plan_partial<64>(N, D, k, slices, rows_per_slice);
-    case 128: return plan_partial<128>(N, D, k, slices, rows_per_slice);
+    case 64: return plan_partial<1>(N, D, k, stages, slices, rows_per_slice);
+    case 128: return plan_partial<2>(N, D, k, stages, slices, rows_per_slice);
+    case 256: return plan_partial<4>(N, D, k, stages, slices, rows_per_slice);
+    case 512: return plan_partial<8>(N, D, k, stages, slices, rows_per_slice);
     default: return cudaErrorInvalidValue;
   }
 }
 
 extern "C" int nn_search_launch(const float* queries, const float* bank,
                                 int B, long long N, int D, int k,
-                                int tile_rows, long long rows_per_slice,
-                                int slices, float* part_s, int* part_i,
-                                float* out_s, int64_t* out_i,
-                                cudaStream_t stream) {
-  if (k < 1 || k > KMAX) return cudaErrorInvalidValue;
+                                int tile_rows, int stages,
+                                long long rows_per_slice, int slices,
+                                float* part_s, int* part_i, float* out_s,
+                                int64_t* out_i, cudaStream_t stream) {
+  if (k < 1 || k > KMAX || D % 4 || stages < 2 || stages > MAX_STAGES)
+    return cudaErrorInvalidValue;
   cudaError_t err;
   switch (tile_rows) {
-    case 32:
-      err = launch_partial<32>(queries, bank, B, N, D, k, rows_per_slice,
-                               slices, part_s, part_i, stream);
-      break;
     case 64:
-      err = launch_partial<64>(queries, bank, B, N, D, k, rows_per_slice,
-                               slices, part_s, part_i, stream);
+      err = launch_partial<1>(queries, bank, B, N, D, k, stages,
+                              rows_per_slice, slices, part_s, part_i, stream);
       break;
     case 128:
-      err = launch_partial<128>(queries, bank, B, N, D, k, rows_per_slice,
-                                slices, part_s, part_i, stream);
+      err = launch_partial<2>(queries, bank, B, N, D, k, stages,
+                              rows_per_slice, slices, part_s, part_i, stream);
+      break;
+    case 256:
+      err = launch_partial<4>(queries, bank, B, N, D, k, stages,
+                              rows_per_slice, slices, part_s, part_i, stream);
+      break;
+    case 512:
+      err = launch_partial<8>(queries, bank, B, N, D, k, stages,
+                              rows_per_slice, slices, part_s, part_i, stream);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -1,9 +1,15 @@
 """Exact top-k MIPS on the card (``csrc/nn_search.cu``).
 
 The Hopper kernel in place of ``repro/kernels/nn_search.py:99``
-(``nn_search_pallas``): an fp32 FMA product tiled through shared memory,
-a running top-k per query and block, then a merge of the blocks' lists;
-ties go to the lowest id. The source's header says how.
+(``nn_search_pallas``): fp32 FMAs, a running top-k per query and block,
+then a merge of the blocks' lists; ties go to the lowest id. Reading the
+bank bounds it (bytes), with the FMAs close behind, so each block streams
+its slice of the bank by TMA through a ring of shared-memory stages (tiles
+of up to 512 rows, 16 dims a stage) while its warps score the stage that
+has arrived, each lane 8 queries against 8 rows in registers, so that a
+float read from shared memory feeds 4 FMAs. Scores meet their query's
+k-th in registers; only those that may beat it reach the lists. The
+source's header says how.
 """
 from __future__ import annotations
 
@@ -12,39 +18,55 @@ import functools
 
 import torch
 
-from repro_torch.env import DEFAULT_BLOCK_ROWS, fit_block_rows
+from repro_torch.env import SMEM_BYTES
 from repro_torch.kernels._build import (kernel_function, launch,
                                         require_cuda)
 
 QB = 32         # queries per block of the first pass (nn_search.cu)
 KMAX = 128      # largest k the kernel supports
+TILE_ROWS = (512, 256, 128, 64)   # bank rows per tile: 8 warps x 8 row
+#                                   groups of lanes x 8, 4, 2 or 1 rows
+DC = 16         # dims of a tile per stage (nn_search.cu DC)
+CAND = 64       # candidate slots per query (nn_search.cu CAND)
+MAX_STAGES = 4  # stages in the ring (nn_search.cu MAX_STAGES)
+# dynamic shared memory a block may ask for, less room for the static
+# barriers
+SMEM_BUDGET = SMEM_BYTES - 1024
 
 _PLAN_ARGTYPES = (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_longlong))
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 4
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int) + \
+    (ctypes.c_void_p,) * 4
 
 
-def tile_rows(dim: int, k: int) -> int:
-    """Bank rows per shared-memory tile: the queries, the tile (both at
-    row stride dim + 4), the tile's scores and the per-query lists must
-    fit one block's shared memory, and a tile spans whole warps."""
-    stride = dim + 4
-    return fit_block_rows(stride + QB, want=DEFAULT_BLOCK_ROWS,
-                          fixed_bytes=4 * QB * stride + 8 * QB * k,
-                          minimum=32)
+def tile_plan(dim: int, k: int) -> tuple:
+    """(bank rows per tile, stages in the ring): the most rows, then the
+    most stages (2 to 4), whose ring, transposed queries, candidate
+    buffers and counts and lists fit one block's shared memory
+    (nn_search.cu partial_smem_bytes). Raises for a dim too wide for two
+    stages of the smallest tile."""
+    fixed = 1024 + 4 * QB * dim + 8 * QB * CAND + 4 * QB + 8 * QB * k
+    for rows in TILE_ROWS:
+        stages = min(MAX_STAGES, (SMEM_BUDGET - fixed) // (4 * DC * rows))
+        if stages >= 2:
+            return rows, stages
+    raise ValueError(f"nn_search kernel: queries of width {dim} and two "
+                     f"stages of {TILE_ROWS[-1]} rows do not fit "
+                     f"{SMEM_BUDGET} bytes of shared memory")
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(n_rows: int, dim: int, k: int, tile: int, device_index: int):
+def _plan(n_rows: int, dim: int, k: int, tile: int, stages: int,
+          device_index: int):
     """(slices, rows per slice): one wave of first-pass blocks per query
     tile, as many as the occupancy calculator fits on this card."""
     fn = kernel_function("nn_search", "nn_search_plan", _PLAN_ARGTYPES)
     slices, rows = ctypes.c_int(), ctypes.c_longlong()
     with torch.cuda.device(device_index):
-        code = fn(n_rows, dim, k, tile, ctypes.byref(slices),
+        code = fn(n_rows, dim, k, tile, stages, ctypes.byref(slices),
                   ctypes.byref(rows))
     if code != 0:
         raise RuntimeError(f"nn_search_plan failed with CUDA error {code}")
@@ -75,12 +97,12 @@ def nn_search_cuda(queries, bank, k: int):
     out_i = torch.empty((B, k), dtype=torch.int64, device=dev)
     if B == 0:
         return out_s, out_i
-    tile = tile_rows(D, k)
-    slices, rows_per_slice = _plan(N, D, k, tile, dev.index)
+    tile, stages = tile_plan(D, k)
+    slices, rows_per_slice = _plan(N, D, k, tile, stages, dev.index)
     part_s = torch.empty((B, slices, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, slices, k), dtype=torch.int32, device=dev)
     launch("nn_search", "nn_search_launch", _ARGTYPES, dev,
-           queries.data_ptr(), bank.data_ptr(), B, N, D, k, tile,
+           queries.data_ptr(), bank.data_ptr(), B, N, D, k, tile, stages,
            rows_per_slice, slices, part_s.data_ptr(), part_i.data_ptr(),
            out_s.data_ptr(), out_i.data_ptr())
     nn_search_cuda.launches += 1

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import require_tma_strides
 from repro_torch.kernels.nn_search import KMAX
 
 RTOL = 8 * 2.0 ** -23     # 8 fp32 ulps of a score
@@ -96,11 +97,17 @@ def test_cuda_lazy_apply_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [
+    (50_021, 128),      # no multiple of any tile
+    (700, 128),         # less than one tile of 512 rows
+    (4_099, 36),        # a last chunk of 4 of 16 dims
+    (3_001, 8),         # rows narrower than one 16-dim chunk
+])
 @pytest.mark.parametrize("k", [1, 8, 64, KMAX])
-def test_cuda_nn_search_matches_plain(k):
+def test_cuda_nn_search_matches_plain(k, n, d):
     dev = _require_card()
-    table = _card_bank(dev)[0]
-    q = torch.randn((37, 128), device=dev,
+    table = _card_bank(dev, n, d)[0]
+    q = torch.randn((37, d), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(k))
     gs, gi = ops.LAUNCHERS["nn_search"](q, table, k)
     ws, wi = ref.nn_search_ref(q, table, k + 1)
@@ -111,15 +118,16 @@ def test_cuda_nn_search_matches_plain(k):
 
 
 @pytest.mark.cuda
-def test_cuda_nn_search_ties_go_to_the_lowest_id():
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_nn_search_ties_go_to_the_lowest_id(d):
     """Every bank row three times over: a row and its copies score alike
     bit for bit, and come out lowest id first; a zero query ties every
     row and gets ids 0..k-1."""
     dev = _require_card()
-    base = torch.randn((1000, 64), device=dev)
+    base = torch.randn((1000, d), device=dev)
     bank = torch.cat([base, base, base])
-    q = torch.cat([torch.randn((3, 64), device=dev),
-                   torch.zeros((1, 64), device=dev)])
+    q = torch.cat([torch.randn((3, d), device=dev),
+                   torch.zeros((1, d), device=dev)])
     gs, gi = ops.LAUNCHERS["nn_search"](q, bank, 9)
     ws, _ = ref.nn_search_ref(q, bank, 9)
     assert (gs - ws).abs().max().item() <= 1e-4
@@ -334,6 +342,9 @@ FLASH_CASES = [  # (B, S, H, KV, d, causal, window, softcap)
     (2, 200, 4, 2, 128, True, 0, 0.0),       # GQA, a ragged edge
     (1, 300, 8, 1, 32, False, 50, 0.0),      # MQA, window, not causal
     (1, 2048, 8, 2, 128, True, 0, 0.0),
+    (2, 333, 16, 2, 128, True, 0, 0.0),      # S no multiple of 128, H/KV 8
+    (2, 300, 4, 4, 64, False, 0, 0.0),       # not causal at d 64, ragged
+    (1, 257, 16, 2, 32, False, 64, 0.0),     # d 32, window, H/KV 8
 ]
 
 
@@ -373,6 +384,11 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take():
         ops.flash_attention(q.transpose(1, 2), kv, kv)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         ops.flash_attention(q.half(), kv.half(), kv.half())
+    # the bf16 kernel's tensor maps take byte strides below 2**40: a
+    # (B, S, 64, 128) bf16 tensor with S = 2**26 has a batch stride of 2**40
+    require_tma_strides("q", 2 ** 26 - 1, 64, 128)
+    with pytest.raises(ValueError, match="TMA"):
+        require_tma_strides("q", 2 ** 26, 64, 128)
 
 
 WKV_CASES = [  # (B, S, H, d): the rwkv6-7b prefill's, then smaller ones

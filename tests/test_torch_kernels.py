@@ -21,7 +21,7 @@ from repro.kernels.nn_search import nn_search_pallas
 from repro.kernels.nn_search import overfetch_exclude_topk as jax_overfetch
 from repro_torch import env
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.nn_search import KMAX, tile_rows
+from repro_torch.kernels.nn_search import KMAX, tile_plan
 
 LAZY_LR, ZMAX = 0.2, 2.0
 
@@ -383,10 +383,13 @@ def test_block_sizes_fit_shared_memory():
     assert env.fused_lookup_block(32, 128) == 8
     assert env.fused_lookup_block(3, 128) == 2
     assert env.fused_lookup_block(1024, 16384) == 2
-    assert tile_rows(128, 8) == 128
-    assert tile_rows(512, KMAX) == 32
+    # nn_search: (bank rows per tile, stages in its ring)
+    assert tile_plan(128, 8) == (512, 4)
+    assert tile_plan(128, KMAX) == (512, 4)
+    assert tile_plan(512, KMAX) == (512, 3)
+    assert tile_plan(1024, 8) == (512, 2)
     with pytest.raises(ValueError):
-        tile_rows(2048, 8)
+        tile_plan(2048, 8)
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
