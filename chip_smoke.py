@@ -19,10 +19,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    int8 rows), and a 3-shard index of 64 buckets per shard over the fp32
    bank for the sharded stage-2 kernel (8 probes per shard; k = 8 over
    fp32 rows and the sharded int8 shortlist's kq = 32 over its int8
-   twin). Error, kernel time, plain time, the least time the card
-   could take (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
-   from this run's data) and, where one PyTorch call computes the same
-   function, that call's time;
+   twin), each stage-2 entry also repeated (bit-identical), timed at the
+   other entry's k and profiled once (its items, the partial pass's and
+   the merge's windows, where its warps' cycles go). Error, kernel time,
+   plain time, the least time the card could take (bytes over 3.35 TB/s
+   or fp32 operations over 67 TFLOP/s, from this run's data) and, where
+   one PyTorch call computes the same function, that call's time;
 3. engine parity: the cuda backend against the dense reference on one op
    stream (duplicate ids, update, lazy_grad, lookup, flush, nn_search with
    and without exclusion), for lazy_update True and False and for int8
@@ -130,6 +132,7 @@ from repro_torch.core.kb_engine import (  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_stage_cycles)
+from repro_torch.kernels.ivf_stage2 import ivf_stage2_cycles  # noqa: E402
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
 from repro_torch.launch import serve  # noqa: E402
@@ -326,6 +329,58 @@ def check_topk(s_k, i_k, s_p, i_p, k: int, label: str):
     return int(sets.sum()), int(ranks.sum())
 
 
+def require_repeatable(name: str, fn, args, s, i) -> None:
+    """A second call of ``fn`` on the same inputs returns the same bits
+    (the lists' order is total, so the order in which candidates arrive
+    cannot show)."""
+    s2, i2 = fn(*args)
+    require(torch.equal(s2, s) and torch.equal(i2, i),
+            f"{name}: a repeated call differs")
+
+
+def log_stage2_profile(name: str, args, k: int) -> None:
+    """One profiled launch of a stage-2 entry (not counted as a launch):
+    the plan's items, the partial pass's and the merge's windows, and the
+    share of the partial pass's warp cycles in each stage."""
+    cyc = ivf_stage2_cycles(name, *args, k=k)
+    timed = ("setup", "data", "fma", "score", "filter", "offer", "sync",
+             "write")
+    total = sum(cyc[x] for x in timed)
+    shares = ", ".join(f"{x} {cyc[x] / total:.3f}" for x in timed)
+    log(f"phase 2: {name} profile: {cyc['blocks']} items, partial pass "
+        f"{cyc['partial_ns']} ns, merge {cyc['merge_ns']} ns; "
+        f"{cyc['candidates']} candidates in {cyc['rounds']} rounds; warp "
+        f"cycles by stage: {shares}")
+
+
+def check_padded(name: str, kern, plain, rest, queries, k: int) -> None:
+    """A stage-2 entry on the batches the serve sends: the engine pads a
+    batch with zero queries up to a power of two of at least 8, here B 8
+    with 4 real queries and B 16 with 12. Scores within ATOL_SCORES, the
+    real rows' top-k held as phase 2's, the zero rows' lists (every row
+    ties at 0) equal to the plain version's bit for bit; each timed.
+    ``rest(q)``: the launcher's arguments but k for queries ``q``."""
+    for real, B in ((4, 8), (12, 16)):
+        q = torch.cat([queries[:real],
+                       torch.zeros((B - real, DIM), device=queries.device)])
+        args = rest(q)
+        s_k, i_k = kern(*args, k)
+        s_p, i_p = plain(*args, k + 1)
+        s_k, i_k, s_p, i_p = (x.reshape(B, -1, x.shape[-1])
+                              for x in (s_k, i_k, s_p, i_p))
+        err = max_err(s_k, s_p[..., :k])
+        require(err <= ATOL_SCORES, f"{name} B {B}: scores disagree: {err}")
+        require(torch.equal(s_k[real:], s_p[real:, :, :k])
+                and torch.equal(i_k[real:], i_p[real:, :, :k]),
+                f"{name} B {B}: the zero queries' lists differ")
+        flat = (x[:real].reshape(-1, x.shape[-1])
+                for x in (s_k, i_k, s_p, i_p))
+        check_topk(*flat, k, f"{name} B {B}")
+        log(f"phase 2: {name} padded batch B {B} ({B - real} zero queries): "
+            f"{time_ms(lambda: kern(*args, k), 20)} ms; max_abs_err={err}; "
+            f"the zero queries' lists equal the plain version's exactly")
+
+
 def ivf_bound(index, probes, k: int, row_bytes: int):
     """Each bucket that the batch probes read once (its occupied rows at
     ``row_bytes`` each, ids included), the queries, probes and occupancy
@@ -372,10 +427,12 @@ def phase2_ivf(table, codes, qscale, qoffset, ids):
         err = max_err(s_k, s_p[:, :k])
         require(err <= ATOL_SCORES, f"{name} scores disagree: {err}")
         n_sets, n_ranks = check_topk(s_k, i_k, s_p, i_p, k, name)
+        require_repeatable(name, kernels[name], (*args, *tail, k), s_k, i_k)
         log(f"phase 2: {name} ({BATCH} queries, k = {k}): top-k sets equal "
             f"on the {n_sets} queries whose k-th and (k+1)-th plain scores "
             f"are > {ID_GAP} apart; ids equal on the {n_ranks} ranks whose "
-            f"scores are > {ID_GAP} from both neighbours")
+            f"scores are > {ID_GAP} from both neighbours; a repeated call "
+            f"bit-identical")
         results[name] = dict(
             max_abs_err=err,
             ms=time_ms(lambda: kernels[name](*args, *tail, k), 20),
@@ -386,6 +443,11 @@ def phase2_ivf(table, codes, qscale, qoffset, ids):
         other = KQ if k == K else K
         log(f"phase 2: {name} at k = {other}: "
             f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
+        log_stage2_profile(name, (*args, *tail), k)
+        check_padded(name, kernels[name], plain,
+                     lambda q: (*args, idx.packed_ids, idx.bucket_occ, q,
+                                ivf_probes(q, idx.centroids, NPROBE)),
+                     queries, k)
     del index, index_q
     results.update(phase2_ivf_sharded(table, queries))
     return results
@@ -423,11 +485,14 @@ def phase2_ivf_sharded(table, queries):
         err = max_err(s_k, s_p[:, :k])
         require(err <= ATOL_SCORES, f"{name} scores disagree: {err}")
         n_sets, n_ranks = check_topk(s_k, i_k, s_p, i_p, k, name)
+        require_repeatable(name, kernels[name], (*args, *tail, k),
+                           s_k.reshape(BATCH, SHARDS, k),
+                           i_k.reshape(BATCH, SHARDS, k))
         log(f"phase 2: {name} ({BATCH} queries x {SHARDS} shards, k = {k}): "
             f"top-k sets equal on the {n_sets} (query, shard) lists whose "
             f"k-th and (k+1)-th plain scores are > {ID_GAP} apart; ids "
             f"equal on the {n_ranks} ranks whose scores are > {ID_GAP} from "
-            f"both neighbours")
+            f"both neighbours; a repeated call bit-identical")
         # the bound over the globalised probes, B * S lists of k written
         gprobes = global_probes(probes, idx.bucket_occ.shape[0])
         results[name] = dict(
@@ -436,6 +501,15 @@ def phase2_ivf_sharded(table, queries):
             plain_ms=time_ms(lambda: plain(*args, *tail, k), 3),
             library_ms=None,
             bound=ivf_bound(idx, gprobes, k * SHARDS, row_bytes))
+        other = KQ if k == K else K
+        log(f"phase 2: {name} at k = {other}: "
+            f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
+        log_stage2_profile(name, (*args, *tail), k)
+        check_padded(name, kernels[name], plain,
+                     lambda q: (*args, idx.packed_ids, idx.bucket_occ, q,
+                                sharded_probes(q, idx.centroids, SHARDS,
+                                               NPROBE)),
+                     queries, k)
     return results
 
 

@@ -30,7 +30,11 @@
 //      pair's score does not depend on N or on the slice plan. After a
 //      tile's last chunk the scores meet a filter in registers: a score
 //      goes on only if it is at least its query's current k-th (a
-//      register, refreshed after each insert round), into a per-query
+//      register, refreshed after each insert round) and, if equal, its id
+//      is below the k-th's (read from the list), so that (score, id)
+//      beats the k-th in the lists' order (a zero query, as a padded
+//      batch holds, ties every row at 0 and lets through only ids below
+//      its k-th's), into a per-query
 //      candidate buffer of 64 in shared memory; once the lists are warm
 //      almost none pass, and a tile with none skips the inserts. The
 //      owner warp of each query offers its candidates to the query's
@@ -53,10 +57,11 @@
 // m16n8k8) took 0.78x the time but moved them by up to 8.4e-5, past the
 // ids the plain version decides; tf32 scores as a filter, with exact FMA
 // rescoring of what passes, kept the ids but took 1.7x the time. Neither
-// is used (PERF.md §6).
+// is used (PERF.md §6). The tie rule above took 2% more time on 32 real
+// queries and halved that of a padded batch (B 8 or 16, 4 zero queries),
+// which a score-only filter let through on every row.
 #include "common.cuh"
-
-#include <cuda.h>          // CUtensorMap (the encoder is found at run time)
+#include "tma.cuh"
 
 namespace {
 
@@ -78,38 +83,6 @@ size_t partial_smem_bytes(int D, int k, int tile_rows, int stages) {
   return 1024 + static_cast<size_t>(stages) * tile_rows * DC * 4 +
          static_cast<size_t>(D) * QB * 4 + 8 * QB * CAND + 4 * QB +
          8 * QB * k;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-}
-
-// one box of a 2-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 template <int RPL>
@@ -144,8 +117,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto issue = [&](int L) {   // chunk L % chunks of tile L / chunks
     const int st = L % stages;
     uint64_t* bar = &full[st];
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(STAGE) : "memory");
+    mbar_expect_tx(bar, STAGE);
     const int64_t row = r0 + static_cast<int64_t>(L / chunks) * TR;
 #pragma unroll
     for (int bx = 0; bx < TR / BOX; ++bx)
@@ -155,7 +127,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (tid == 0) {
     for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
     for (int L = 0; L < stages && L < loads; ++L) issue(L);
   }
   for (int e = tid; e < QB * D; e += THREADS) {
@@ -230,6 +202,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           const uint64_t bit = 1ull << (a * RPL + j);
           if (!(sent & bit) && q0 + q < B && row < rows &&
               acc[a][j] >= thr[a]) {
+            // a tie with the k-th goes on only with a lower id: thr[a] is
+            // the list's last score until the next round's inserts
+            if (acc[a][j] == thr[a] &&
+                static_cast<int>(t0 + row) >= li[(QL * qg + a) * k + k - 1])
+              continue;
             const int pos = atomicAdd(&cnt[q], 1);
             if (pos < CAND) {
               cs[q * CAND + pos] = acc[a][j];
@@ -274,49 +251,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
-// libcuda); null where it is missing
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The (D, N) fp32 bank as a tensor map of (box rows x 16 dims) boxes with
 // the 64-byte swizzle; rows and dims past the bank read as zeros.
 cudaError_t bank_map(CUtensorMap* map, const float* bank, long long N, int D,
                      int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(N)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
-  const cuuint32_t box[2] = {DC, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(bank),
-      dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return matrix_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, bank, N, D, 4, DC,
+                    box_rows, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <int RPL>

@@ -5,9 +5,14 @@ The Hopper kernel in place of ``repro/kernels/nn_search_ivf.py:381``
 rows, each query's top-k within each shard, from that shard's own probed
 buckets, (B, S, k) in the Pallas kernel's (score descending, id
 ascending) order with (-1e30, 2**31 - 1) padding. The probes are made
-global here (shard s's bucket b is s * nlist + b), and the kernels of
-``csrc/ivf_stage2.cuh`` run with one group of probes per shard; the int8
-entry does the same over a ``QuantizedShardedIVFIndex``'s codes.
+global here (shard s's bucket b is s * nlist + b), and the pass of
+``csrc/ivf_stage2.cuh`` runs with one group of probes per shard: bound by
+the bytes of the probed buckets in fp32, by its work per byte in int8,
+it streams each probed bucket once per tile of 32 queries through a TMA
+ring, scores 4 queries a warp in registers and filters each (score, id)
+against its (query, shard)'s k-th, in the lists' order, before the lists;
+the merge keeps one top-k per (query, shard). The int8 entry does the same over a ``QuantizedShardedIVFIndex``'s
+codes.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ def ivf_stage2_sharded_cuda(packed_vecs, packed_ids, bucket_occ, queries,
     ids, bucket_occ (S*C,) int32, queries (B, D) f32, probes (B, S,
     nprobe) int32 LOCAL bucket ids -> (scores (B, S, k) f32, ids (B, S,
     k) int64), snapshot scores. Takes 1 <= k <= 128, D % 4 == 0,
-    S*C <= 65535, and raises on anything else."""
+    S*C <= 65535, cap % 4 == 0, and raises on anything else."""
     require_cuda(packed_vecs, "packed_vecs", torch.float32, 2)
     flat, S = _global_probes(probes, bucket_occ)
     out = stage2("ivf_stage2_sharded", packed_vecs, (), packed_ids,

@@ -189,30 +189,90 @@ def _card_index(dev, quantized, n=60_000, d=128, nlist=16):
     return table, idx, q
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("k", [1, 8, 32, 128])
-def test_cuda_ivf_stage2_matches_plain(quantized, k):
-    """Snapshot scores within atol 1e-4 plus 8 ulps of the score; the
-    top-k ids the same set where the k-th and (k+1)-th plain scores are
-    apart by more than 1e-4 plus twice that, and the same id at each rank
-    whose plain score is that far from both neighbours'."""
-    from repro_torch.kernels.nn_search_ivf import ivf_probes
-    dev = _require_card()
-    _, idx, q = _card_index(dev, quantized)
-    probes = ivf_probes(q, idx.centroids, 4)
-    if quantized:
-        args = (idx.packed_codes, idx.packed_scale, idx.packed_offset)
-        kern, plain = ops.LAUNCHERS["ivf_stage2_q"], ref.ivf_stage2_q_ref
-    else:
-        args = (idx.packed_vecs,)
-        kern, plain = ops.LAUNCHERS["ivf_stage2"], ref.ivf_stage2_ref
-    gs, gi = kern(*args, idx.packed_ids, idx.bucket_occ, q, probes, k)
-    ws, wi = plain(*args, idx.packed_ids, idx.bucket_occ, q, probes, k + 1)
+# (quantized, case) of the stage-2 tests: "nearest" probes each query's
+# nearest buckets (37 queries: two query tiles); "all32" adds one bucket to
+# every query's probes (32 queries of a tile in one bucket); "one" probes a
+# bucket from one query alone; "ragged" empties the most probed bucket
+# and cuts the fullest other one to a tile and one row (or one row fewer
+# than it holds), probed by every other query; "codes" plants int8 rows
+# whose codes reach -128 and 127, the ends of the kernel's code
+# conversion, and rounds the queries to integers, so that every q . c is
+# exact in any order and the conversion is held bit for bit; "zeros" makes
+# the last 4 queries zero, as the engine pads a batch, so every row they
+# probe ties at 0 and their lists must be the lowest ids, exactly.
+STAGE2_CASES = ([(False, c) for c in ("nearest", "all32", "one", "ragged",
+                                      "zeros")]
+                + [(True, c) for c in ("nearest", "all32", "one", "ragged",
+                                       "codes", "zeros")])
+
+
+def _stage2_queries(case, q):
+    """The queries of one stage-2 case: rounded to integers for "codes",
+    the last 4 zeroed for "zeros"."""
+    if case == "codes":
+        return torch.round(q)
+    if case == "zeros":
+        return torch.cat([q[:-4], torch.zeros_like(q[-4:])])
+    return q
+
+
+def _stage2_case(case, q, probes, packed_ids, bucket_occ, args):
+    """(probes, packed_ids, bucket_occ, row args) of one stage-2 case. The
+    probes' first shard (the last axis of ``probes[:, 0]`` where they
+    are per shard) names buckets 0 .. nb - 1 of the packed layout; the
+    inputs are copied where a case changes them."""
+    from repro_torch.kernels.ivf_stage2 import tile_rows
+    probes = probes.clone()
+    view = probes if probes.dim() == 2 else probes[:, 0]
+    B, nprobe = view.shape
+    nb = bucket_occ.shape[0] // (1 if probes.dim() == 2 else probes.shape[1])
+    cap = packed_ids.shape[0] // bucket_occ.shape[0]
+
+    def add(bucket, rows):              # bucket into these queries' probes
+        for b in rows:
+            if not bool((view[b] == bucket).any()):
+                view[b, -1] = bucket
+
+    if case == "all32":
+        add(int(view[0, 0]), range(B))
+    elif case == "one":
+        rng = np.random.default_rng(5)
+        for b in range(B):
+            view[b] = torch.from_numpy(rng.choice(
+                np.arange(1, nb), nprobe, replace=False).astype(np.int32))
+        view[0, 0] = 0
+    elif case == "ragged":
+        packed_ids, bucket_occ = packed_ids.clone(), bucket_occ.clone()
+        common = torch.bincount(view.reshape(-1).long(), minlength=nb)
+        empty = int(torch.argmax(common))
+        fullest = bucket_occ[:nb].clone()
+        fullest[empty] = -1
+        cut = int(torch.argmax(fullest))
+        add(cut, range(0, B, 2))
+        keep = min(tile_rows(len(args) == 3) + 1, int(bucket_occ[cut]) - 1)
+        packed_ids[empty * cap:(empty + 1) * cap] = -1
+        packed_ids[cut * cap + keep:(cut + 1) * cap] = -1
+        bucket_occ[empty], bucket_occ[cut] = 0, keep
+    elif case == "codes":
+        codes = args[0].clone()
+        x = int(view[0, 0])
+        add(x, range(4))
+        row = x * cap
+        for j in range(4):              # rows near the top of queries 0-3
+            codes[row + j] = torch.where(q[j] > 0, 127, -128).to(torch.int8)
+        codes[row + 4], codes[row + 5] = -128, 127
+        codes[row + 6, ::2], codes[row + 6, 1::2] = -128, 127
+        args = (codes, *args[1:])
+    return probes.contiguous(), packed_ids, bucket_occ, args
+
+
+def _check_stage2(gs, gi, ws, wi, k):
+    """Scores within atol 1e-4 plus 8 ulps of the score; the top-k ids the
+    same set where the k-th and (k+1)-th plain scores are apart by more
+    than 1e-4 plus twice that, and the same id at each rank whose plain
+    score is that far from both neighbours' (nearer scores may swap: their
+    sums are rounded in another order)."""
     assert ((gs - ws[:, :k]).abs() <= 1e-4 + RTOL * ws[:, :k].abs()).all()
-    # the set where the k-th and (k+1)-th plain scores are apart, each
-    # rank where its plain score is apart from both neighbours' (nearer
-    # scores may swap: their sums are rounded in another order)
     w = ws.double()
     near = 1e-4 + 2 * RTOL * torch.maximum(w[:, :-1].abs(), w[:, 1:].abs())
     gap = w[:, :-1] - w[:, 1:] - near       # > 0: apart
@@ -225,6 +285,36 @@ def test_cuda_ivf_stage2_matches_plain(quantized, k):
     ranks = (left > 0) & (gap[:, :k] > 0)
     assert int(ranks.sum()) > 0
     assert torch.equal(gi[ranks], wi[:, :k][ranks])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,case", STAGE2_CASES)
+@pytest.mark.parametrize("k", [1, 8, 32, 128])
+def test_cuda_ivf_stage2_matches_plain(quantized, case, k):
+    """The kernel against its plain version in each case of STAGE2_CASES,
+    with _check_stage2's tolerances; a second identical call is
+    bit-identical."""
+    from repro_torch.kernels.nn_search_ivf import ivf_probes
+    dev = _require_card()
+    _, idx, q = _card_index(dev, quantized)
+    q = _stage2_queries(case, q)
+    if quantized:
+        args = (idx.packed_codes, idx.packed_scale, idx.packed_offset)
+        kern, plain = ops.LAUNCHERS["ivf_stage2_q"], ref.ivf_stage2_q_ref
+    else:
+        args = (idx.packed_vecs,)
+        kern, plain = ops.LAUNCHERS["ivf_stage2"], ref.ivf_stage2_ref
+    probes, ids, occ, args = _stage2_case(
+        case, q, ivf_probes(q, idx.centroids, 4), idx.packed_ids,
+        idx.bucket_occ, args)
+    gs, gi = kern(*args, ids, occ, q, probes, k)
+    ws, wi = plain(*args, ids, occ, q, probes, k + 1)
+    _check_stage2(gs, gi, ws, wi, k)
+    if case == "zeros":
+        assert torch.equal(gs[-4:], ws[-4:, :k])
+        assert torch.equal(gi[-4:], wi[-4:, :k])
+    again = kern(*args, ids, occ, q, probes, k)
+    assert torch.equal(again[0], gs) and torch.equal(again[1], gi)
 
 
 @pytest.mark.cuda
@@ -279,13 +369,39 @@ def test_cuda_ivf_stage2_unwritten_slots_merge_as_padding():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_ivf_stage2_refuses_what_it_cannot_take():
+    """k outside [1, 128], D % 4, a bucket capacity that is no multiple of
+    4, packed ids off a 16-byte boundary and queries too wide for shared
+    memory are refused before any launch."""
+    dev = _require_card()
+    kern = ops.LAUNCHERS["ivf_stage2"]
+
+    def call(C=4, cap=8, D=64, k=8, ids_offset=0):
+        vecs = torch.zeros((C * cap, D), device=dev)
+        ids = torch.zeros(C * cap + ids_offset, dtype=torch.int32,
+                          device=dev)[ids_offset:]
+        occ = torch.full((C,), cap, dtype=torch.int32, device=dev)
+        q = torch.zeros((2, D), device=dev)
+        probes = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        return kern(vecs, ids, occ, q, probes, k)
+
+    call()
+    for bad in (dict(k=0), dict(k=129), dict(D=66), dict(cap=6),
+                dict(ids_offset=1), dict(D=2048, k=128)):
+        with pytest.raises(ValueError):
+            call(**bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized,case", STAGE2_CASES)
 @pytest.mark.parametrize("k", [1, 8, 32, 128])
-def test_cuda_ivf_stage2_sharded_matches_plain(quantized, k):
+def test_cuda_ivf_stage2_sharded_matches_plain(quantized, case, k):
     """The sharded kernel (per-(query, shard) top-k) against its plain
-    version on a 3-shard index, with the stage-2 tolerances above; a
-    query that lists a bucket twice in one shard, or a local id outside
-    [0, nlist), gives the result of its valid, distinct probes alone."""
+    version on a 3-shard index in each case of STAGE2_CASES (applied to
+    shard 0's buckets), with the stage-2 tolerances above; a second
+    identical call is bit-identical; a query that lists a bucket twice in
+    one shard, or a local id outside [0, nlist), gives the result of its
+    valid, distinct probes alone."""
     from repro_torch.core import ann_index
     from repro_torch.kernels.nn_search_ivf import sharded_probes
     dev = _require_card()
@@ -301,25 +417,20 @@ def test_cuda_ivf_stage2_sharded_matches_plain(quantized, k):
         args = (idx.packed_vecs,)
         kern = ops.LAUNCHERS["ivf_stage2_sharded"]
         plain = ref.ivf_stage2_sharded_ref
-    q = table[::1500][:37] + 0.01
-    probes = sharded_probes(q, idx.centroids, 3, 4)
-    tail = (idx.packed_ids, idx.bucket_occ, q)
+    q = _stage2_queries(case, table[::1500][:37] + 0.01)
+    probes, ids, occ, args = _stage2_case(
+        case, q, sharded_probes(q, idx.centroids, 3, 4), idx.packed_ids,
+        idx.bucket_occ, args)
+    tail = (ids, occ, q)
     gs, gi = kern(*args, *tail, probes, k)
     ws, wi = plain(*args, *tail, probes, k + 1)
     assert gs.shape == gi.shape == (37, 3, k)
-    gs, gi, ws, wi = (x.reshape(37 * 3, -1) for x in (gs, gi, ws, wi))
-    assert ((gs - ws[:, :k]).abs() <= 1e-4 + RTOL * ws[:, :k].abs()).all()
-    w = ws.double()
-    near = 1e-4 + 2 * RTOL * torch.maximum(w[:, :-1].abs(), w[:, 1:].abs())
-    gap = w[:, :-1] - w[:, 1:] - near
-    sets = gap[:, k - 1] > 0
-    assert int(sets.sum()) > 0
-    assert torch.equal(torch.sort(gi[sets], 1).values,
-                       torch.sort(wi[sets, :k], 1).values)
-    left = torch.cat([torch.full_like(gap[:, :1], float("inf")),
-                      gap[:, :k - 1]], 1)
-    ranks = (left > 0) & (gap[:, :k] > 0)
-    assert torch.equal(gi[ranks], wi[:, :k][ranks])
+    again = kern(*args, *tail, probes, k)
+    assert torch.equal(again[0], gs) and torch.equal(again[1], gi)
+    _check_stage2(*(x.reshape(37 * 3, -1) for x in (gs, gi, ws, wi)), k)
+    if case == "zeros":
+        assert torch.equal(gs[-4:], ws[-4:, :, :k])
+        assert torch.equal(gi[-4:], wi[-4:, :, :k])
     clean = probes[:3, :, :2].contiguous()
     dup, outside = clean[:, :, 1:], torch.full_like(clean[:, :, 1:], 16)
     which = (torch.arange(3, device=dev)[:, None]

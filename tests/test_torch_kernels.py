@@ -392,6 +392,40 @@ def test_block_sizes_fit_shared_memory():
         tile_plan(2048, 8)
 
 
+def test_ivf_stage2_shared_memory():
+    """The stage-2 partial pass's shared memory (ivf_stage2.cuh mirrors
+    it): two blocks an SM at the serve shapes, the largest k in one; and
+    the plan's scratch, 16-byte aligned items after the pairs' counts."""
+    from repro_torch.kernels import ivf_stage2 as s2
+    assert s2.tile_rows(True) == 1024 and s2.tile_rows(False) == 512
+    half = (env.SMEM_BYTES + 1024) // 2 - 1024 - 512
+    assert s2.smem_bytes(128, 8, 2, False) == 95_488 <= half
+    assert s2.smem_bytes(128, 32, 2, True) == 111_872 <= half
+    assert s2.smem_bytes(128, 128, 4, True) <= s2.SMEM_BUDGET
+    # a side buffer for each tile whose ids may be in flight: at D 16 a
+    # tile is one stage, so two stages hold two tiles' ids (and int8
+    # scales and offsets)
+    assert s2.smem_bytes(16, 8, 2, True) - s2.smem_bytes(16, 8, 2, False) \
+        == 2 * 1024 * 12 - 2 * 512 * 4
+    assert s2.scratch_ints(64, 264, 32) == 132 + 4 * 328 + 2 * 32
+    assert s2.scratch_ints(3, 10, 0) % 4 == 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(k=0), "k <= 128"), (dict(k=129), "k <= 128"),
+    (dict(dim=66), "D % 4"), (dict(pointers=[16, 8]), "aligned"),
+    (dict(rows=4 * 6), "multiple of 4"), (dict(rows=2**31), "2\\*\\*31"),
+    (dict(dim=2048, k=128), "shared memory")])
+def test_ivf_stage2_refusals(bad, match):
+    """What every stage-2 entry refuses beyond device, type and shape."""
+    from repro_torch.kernels.ivf_stage2 import check_stage2
+    args = dict(name="ivf_stage2", rows=4 * 8, dim=64, C=4, k=8, align=4,
+                int8=False, pointers=[0, 256])
+    check_stage2(**args)
+    with pytest.raises(ValueError, match=match):
+        check_stage2(**{**args, **bad})
+
+
 def test_resolve_device_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

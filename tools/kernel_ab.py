@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
-"""Time a kernel of the port against the same kernel of another checkout,
+"""Time kernels of the port against the same kernels of another checkout,
 on one card, in turns.
 
-    python tools/kernel_ab.py --other DIR [--kernel flash_bf16|nn_search]
+    python tools/kernel_ab.py --other DIR [--kernel NAME[,NAME...]]
                               [--rounds 1]
 
-DIR is another checkout of the repo (for example the parent commit,
-unpacked by ``git archive`` into an ignored directory). Each round runs
-one process per checkout in the order other, this, this, other; each
-process imports its own checkout's ``repro_torch``, builds that
-checkout's kernel sources into its own ``build/``, makes the inputs from
-one seed on the card, checks the kernel against its plain version and
-times it (CUDA events, as ``chip_smoke.py`` does), and for flash_bf16 reads
+NAME is flash_bf16, nn_search, ivf_stage2, ivf_stage2_q,
+ivf_stage2_sharded or ivf_stage2_sharded_q. DIR is another checkout of
+the repo (for example the parent commit, unpacked by ``git archive`` into
+an ignored directory). Each round runs one process per checkout in the
+order other, this, this, other; each process imports its own checkout's
+``repro_torch``, builds that checkout's kernel sources into its own
+``build/``, makes the inputs from one seed on the card, and for each
+kernel checks it against its plain version and times it (CUDA events, as
+``chip_smoke.py`` does); for flash_bf16 and the stage-2 entries it reads
 the kernel's stage profile where the checkout has one. It prints one JSON
-line per process, then the card's name and power limit. Without
-``--other`` it times this checkout once.
+line per process and kernel, then the card's name and power limit.
+Without ``--other`` it times this checkout once.
 
 The shapes are the serve paths': flash_bf16 the yi-6b prefill's q, k, v
 (B 4, S 2048, H 32, KV 4, d 128, causal, bf16); nn_search the ogbn-mag
-bank (1,939,743 x 128 fp32) with 32 queries and k = 8.
+bank (1,939,743 x 128 fp32) with 32 queries and k = 8; the IVF stage 2
+entries an index of 64 buckets over that bank (fp32, or over its int8
+quantization), or 3 shards of 64 buckets each, 32 queries (rows of the
+bank) probing 8 buckets (of each shard), k = 8 over fp32 rows and kq = 32
+over int8 rows, each also timed at the other k. nn_search and the stage-2
+entries are also timed on the batches the KB engine pads (``padded``):
+it fills a batch with zero queries up to a power of two of at least 8,
+so B 8 with 4 real queries and B 16 with 12, each checked against its
+plain version (``zero_rows_exact``: the zero queries' lists, all ties at
+0, equal the plain version's bit for bit). ``host_us`` is the host's
+time per call of the kernel's launcher, 20 calls queued without a
+synchronisation.
 """
 import argparse
 import json
@@ -49,57 +62,171 @@ def time_ms(fn, iters: int) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def measure(root: Path, kernel: str) -> dict:
-    """Build ``root``'s kernel, check it against the plain version and
+STAGE2 = {  # name: (sharded, int8, k, the other k)
+    "ivf_stage2": (False, False, 8, 32),
+    "ivf_stage2_q": (False, True, 32, 8),
+    "ivf_stage2_sharded": (True, False, 8, 32),
+    "ivf_stage2_sharded_q": (True, True, 32, 8),
+}
+KERNELS = ("flash_bf16", "nn_search", *STAGE2)
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host time per call of ``fn`` in µs, ``iters`` calls queued on the
+    stream without a synchronisation between them."""
+    import time
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def padded_batches(queries):
+    """(label, batch, real rows) of the batches the engine pads: B 8
+    with 4 real queries, B 16 with 12, the rest zero rows."""
+    import torch
+    out = []
+    for real, B in ((4, 8), (12, 16)):
+        pad = torch.zeros((B - real, queries.shape[1]), device=queries.device)
+        out.append((f"B{B}", torch.cat([queries[:real], pad]), real))
+    return out
+
+
+def padded_check(fn, plain, q, real: int, rest, k: int) -> dict:
+    """Time ``fn`` on a padded batch and hold its zero rows against the
+    plain version's exactly."""
+    import torch
+    args = rest(q)
+    s, i = fn(*args, k)
+    ws, wi = plain(*args, k)
+    return {"ms": time_ms(lambda: fn(*args, k), 20),
+            "max_abs_err": (s - ws).abs().max().item(),
+            "zero_rows_exact": torch.equal(s[real:], ws[real:])
+            and torch.equal(i[real:], wi[real:])}
+
+
+def stage2_inputs(name: str, bank, queries):
+    """(launcher args without k, plain version, the args for other
+    queries) of a stage-2 entry at the serve shapes, the index built by
+    the checkout's own ann_index."""
+    from repro_torch.core import ann_index
+    from repro_torch.core import knowledge_bank as kbm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.nn_search_ivf import ivf_probes, sharded_probes
+    sharded, int8, _, _ = STAGE2[name]
+    if sharded:
+        index = ann_index.build_sharded_ivf_index(bank, 3, nlist=64)
+        if int8:
+            index = ann_index.QuantizedShardedIVFIndex(index)
+    else:
+        rows = kbm.dequantize_rows(*kbm.quantize_rows(bank)) if int8 \
+            else bank
+        index = ann_index.build_ivf_index(rows, nlist=64)
+        if int8:
+            index = ann_index.QuantizedIVFIndex(index)
+    packed = ((index.packed_codes, index.packed_scale, index.packed_offset)
+              if int8 else (index.packed_vecs,))
+
+    def rest(q):
+        probes = (sharded_probes(q, index.centroids, 3, 8) if sharded
+                  else ivf_probes(q, index.centroids, 8))
+        return (*packed, index.packed_ids, index.bucket_occ, q, probes)
+    return rest(queries), getattr(ref, f"{name}_ref"), rest
+
+
+def measure(root: Path, kernels) -> list:
+    """Build ``root``'s kernels, check each against its plain version and
     time it; runs in a process of its own."""
     sys.path.insert(0, str(root / "src"))
     import torch
     from repro_torch.kernels import _build, ops, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    extra = {}
-    if kernel == "flash_bf16":
-        _build.build(["flash_attention"])
-        q, k, v = (torch.randn((4, 2048, n, 128), generator=g,
-                               device=dev).to(torch.bfloat16)
-                   for n in (32, 4, 4))
-        fn = ops.LAUNCHERS["flash_attention"]
-        got = fn(q, k, v, causal=True)
-        err = (got.float() - ref.flash_attention_ref(
-            q, k, v, causal=True).float()).abs().max().item()
-        ms = time_ms(lambda: fn(q, k, v, causal=True), 20)
-        from repro_torch.kernels import flash_attention as fa
-        if hasattr(fa, "flash_stage_cycles"):       # a checkout that has it
-            extra = {"stage_cycles": fa.flash_stage_cycles(q, k, v,
-                                                           causal=True)}
-    elif kernel == "nn_search":
-        _build.build(["nn_search"])
+    _build.build(sorted({"flash_attention" if k == "flash_bf16" else
+                         "ivf_stage2_sharded" if k.startswith(
+                             "ivf_stage2_sharded") else k for k in kernels}))
+    bank = queries = None
+    if any(k != "flash_bf16" for k in kernels):
         bank = torch.randn((1_939_743, 128), generator=g, device=dev)
-        queries = torch.randn((32, 128), generator=g, device=dev)
-        fn = ops.LAUNCHERS["nn_search"]
-        s, i = fn(queries, bank, 8)
-        ws, wi = ref.nn_search_ref(queries, bank, 8)
-        err = (s - ws).abs().max().item()
-        err = max(err, 0.0 if torch.equal(i, wi) else float("inf"))
-        ms = time_ms(lambda: fn(queries, bank, 8), 20)
-    else:
-        raise ValueError(f"unknown kernel {kernel!r}")
-    return {"root": str(root), "kernel": kernel, "ms": ms,
-            "max_abs_err": err, **extra}
+        queries = bank[torch.randint(0, bank.shape[0], (32,), generator=g,
+                                     device=dev)] + 0.01
+    out = []
+    for kernel in kernels:
+        extra = {}
+        if kernel == "flash_bf16":
+            g.manual_seed(0)
+            q, k, v = (torch.randn((4, 2048, n, 128), generator=g,
+                                   device=dev).to(torch.bfloat16)
+                       for n in (32, 4, 4))
+            fn = ops.LAUNCHERS["flash_attention"]
+            got = fn(q, k, v, causal=True)
+            err = (got.float() - ref.flash_attention_ref(
+                q, k, v, causal=True).float()).abs().max().item()
+            ms = time_ms(lambda: fn(q, k, v, causal=True), 20)
+            from repro_torch.kernels import flash_attention as fa
+            if hasattr(fa, "flash_stage_cycles"):   # a checkout that has it
+                extra = {"stage_cycles": fa.flash_stage_cycles(
+                    q, k, v, causal=True)}
+        elif kernel == "nn_search":
+            fn = ops.LAUNCHERS["nn_search"]
+            s, i = fn(queries, bank, 8)
+            ws, wi = ref.nn_search_ref(queries, bank, 8)
+            err = (s - ws).abs().max().item()
+            err = max(err, 0.0 if torch.equal(i, wi) else float("inf"))
+            ms = time_ms(lambda: fn(queries, bank, 8), 20)
+            extra = {"host_us": host_us(lambda: fn(queries, bank, 8)),
+                     "padded": {
+                         label: padded_check(fn, ref.nn_search_ref, q, real,
+                                             lambda q: (q, bank), 8)
+                         for label, q, real in padded_batches(queries)}}
+        elif kernel in STAGE2:
+            args, plain, rest = stage2_inputs(kernel, bank, queries)
+            fn = ops.LAUNCHERS[kernel]
+            k, other = STAGE2[kernel][2:]
+            s, i = fn(*args, k)
+            ws, wi = plain(*args, k)
+            # ids are held by chip_smoke.py's gaps; here the largest score
+            # error and the share of ids equal at their rank
+            err = (s - ws).abs().max().item()
+            extra = {"ids_equal": (i == wi).float().mean().item(),
+                     "ms_other_k": time_ms(lambda: fn(*args, other), 20),
+                     "host_us": host_us(lambda: fn(*args, k)),
+                     "padded": {
+                         label: padded_check(fn, plain, q, real, rest, k)
+                         for label, q, real in padded_batches(queries)}}
+            ms = time_ms(lambda: fn(*args, k), 20)
+            from repro_torch.kernels import ivf_stage2 as s2
+            if hasattr(s2, "ivf_stage2_cycles"):    # a checkout that has it
+                extra["stage_cycles"] = s2.ivf_stage2_cycles(kernel, *args,
+                                                             k=k)
+            del args
+        else:
+            raise ValueError(f"unknown kernel {kernel!r}")
+        out.append({"root": str(root), "kernel": kernel, "ms": ms,
+                    "max_abs_err": err, **extra})
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, default=None)
     ap.add_argument("--kernel", default="flash_bf16",
-                    choices=("flash_bf16", "nn_search"))
+                    help="comma-separated, of " + ", ".join(KERNELS))
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--measure", type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = args.kernel.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernel takes names of {', '.join(KERNELS)}")
     if args.measure is not None:
-        print(json.dumps(measure(args.measure.resolve(), args.kernel)),
-              flush=True)
+        for line in measure(args.measure.resolve(), kernels):
+            print(json.dumps(line), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -114,7 +241,8 @@ def main() -> int:
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return out.returncode
-        print(out.stdout.strip().splitlines()[-1], flush=True)
+        for line in out.stdout.strip().splitlines()[-len(kernels):]:
+            print(line, flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
