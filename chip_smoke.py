@@ -97,11 +97,13 @@ softmax and in the output) and whether it reaches SDPA's time in this
 run, and on seven smaller cases (window, soft cap, d 32 and 64, not
 causal, S no multiple of 128, H/KV 8), and the WKV kernel
 (y and the final state) at the rwkv6-7b prefill's shapes (B 4, S 2048,
-H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases, and the
-Mamba scan kernel (y and the final state) at the jamba prefill's shapes
-(B 4, S 2048, di 16384, ds 16; x bf16, delta, B, C and A fp32) and on
-smaller cases (one step, S and di no multiple of the kernel's chunk and
-block, fp32 x); phase 3
+H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases (two with
+extreme decays, w from 0 to ~0.9997 per channel), and the Mamba scan
+kernel (y and the final state) at the jamba prefill's shapes (B 4,
+S 2048, di 16384, ds 16; x bf16, delta, B, C and A fp32), there again
+with a trained model's per-channel A, and on smaller cases (one step, S
+and di no multiple of the kernel's chunk and block, fp32 x, per-channel
+A); phase 3
 first sends out-of-range ids to a cuda server, which must refuse them,
 leave the bank as it was and serve the next request.
 
@@ -133,10 +135,13 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_stage_cycles)
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cycles  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan_cycles  # noqa: E402
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
+from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cycles  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from tools.kernel_ab import scan_inputs, wkv_inputs  # noqa: E402
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 SHARDS = 3                          # the smallest count that divides N_ROWS
@@ -173,14 +178,26 @@ ATOL_FLASH = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # steps run in another order and with fused multiply-adds)
 ATOL_WKV, RTOL_WKV = 5e-5, 1e-5
 # the Mamba scan against its plain version, y and the final state: the WKV
-# bound. Each step's exp, multiply and add are the plain version's in fp32,
-# but with fused multiply-adds and the 16-state sum in another order; the
-# decay (exp of delta A < 1) keeps the state from growing those errors.
+# bound. Each step's multiply and add are the plain version's in fp32, but
+# with fused multiply-adds, the 16-state sum in another order and each exp
+# as exp2 by ex2.approx (relative error at most 2^-22); the decay (exp of
+# delta A < 1) keeps the state from growing those errors.
 ATOL_SCAN, RTOL_SCAN = 5e-5, 1e-5
 # exps: H100 SXM special-function units, 16 results a clock per SM (the
 # CUDA programming guide's throughput table, compute capability 9.0), at
 # the 1.98 GHz boost clock
 EXP_PER_S = 132 * 16 * 1.98e9
+# the card's least time for the scan's exps, on two pipes: a state-step
+# issues 4 FP32 instructions (delta A, delta x B, two FMAs) and its exp,
+# either one MUFU.EX2 (one issue slot, and 8 slots' time on the MUFU pipe,
+# which takes 16 a clock per SM where 128 lanes issue) or POLY_EXP_INSTR
+# instructions on the FMA and integer pipes (a clamp 2, a Cody-Waite
+# split 3, a degree-6 polynomial 6, the exponent 2). The least time is at
+# the share p of polynomial exps where issue, 5 + 12 p slots, meets the
+# MUFU pipe's 8 (1 - p): p = 3/20. The kernel runs every exp on the MUFU.
+ISSUE_PER_S = 132 * 128 * 1.98e9
+POLY_EXP_INSTR = 13
+POLY_SHARE = 3 / (8 + POLY_EXP_INSTR - 1)
 # the LM's serve run: batch, prompt and decoded tokens
 LM_B, LM_PROMPT, LM_GEN = 4, 2048, 16
 # the reduced LM, card against CPU: hidden states (after the final norm, up
@@ -598,25 +615,14 @@ def phase2_flash():
     return res
 
 
-WKV_SMALL = [  # (B, S, H, d, dtype)
-    (2, 200, 4, 16, torch.float32),      # a ragged last chunk
-    (3, 333, 8, 32, torch.bfloat16),
-    (1, 1000, 2, 64, torch.float32),
-    (2, 1, 3, 32, torch.bfloat16),       # one step
+WKV_SMALL = [  # (B, S, H, d, dtype, decays)
+    (2, 200, 4, 16, torch.float32, "model"),     # a ragged last chunk
+    (3, 333, 8, 32, torch.bfloat16, "model"),
+    (1, 1000, 2, 64, torch.float32, "model"),
+    (2, 1, 3, 32, torch.bfloat16, "model"),      # one step
+    (2, 2048, 4, 64, torch.bfloat16, "extreme"),
+    (1, 333, 3, 32, torch.float32, "extreme"),
 ]
-
-
-def wkv_inputs(B, S, H, d, dtype, g):
-    """r, k, v N(0, 1) in ``dtype``; w = exp(-exp(N(-2, 0.5))) and u
-    0.1 N(0, 1) in fp32: the rwkv6 model's ranges (the projections of a
-    normed input; the decay base dec_0 = -2 plus a low-rank term)."""
-    dev = torch.device("cuda")
-    r, k, v = (torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
-               for _ in range(3))
-    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
-        (B, S, H, d), generator=g, device=dev)))
-    u = 0.1 * torch.randn((H, d), generator=g, device=dev)
-    return r, k, v, w, u
 
 
 def wkv_err(got, want) -> float:
@@ -641,49 +647,40 @@ def phase2_wkv():
     got, want = kern(*args), ref.rwkv_wkv_ref(*args)
     torch.cuda.synchronize()
     err = wkv_err(got, want)
-    # r, k, v read once, w and u once, y and S_fin written once; 2 FMAs
-    # per (b, h, t, i, j)
+    # r, k, v read once, w and u once, y and S_fin written once; per
+    # (b, h, t, i, j) the k v product, S's FMA and y's FMA: 5 flops
     n = args[0].numel()
     nbytes = 3 * n * 2 + n * 4 + args[4].numel() * 4 + n * 4 \
         + LM_B * H * d * d * 4
     res = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args), 20),
                plain_ms=time_ms(lambda: ref.rwkv_wkv_ref(*args), 2),
                library_ms=None,
-               bound=bound(nbytes, 4.0 * LM_B * H * LM_PROMPT * d * d))
+               bound=bound(nbytes, 5.0 * LM_B * H * LM_PROMPT * d * d))
     log(f"phase 2: rwkv_wkv bf16 (B {LM_B}, S {LM_PROMPT}, H {H}, d {d}): "
         f"{res}; y up to {float(want[0].abs().max())}, S_fin up to "
         f"{float(want[1].abs().max())}")
+    log(f"phase 2: rwkv_wkv profile (cycles a warp, over the sequence): "
+        f"{rwkv_wkv_cycles(*args)}")
     del args, got, want
-    for B, S, H, d, dtype in WKV_SMALL:
-        args = wkv_inputs(B, S, H, d, dtype, g)
+    for B, S, H, d, dtype, decays in WKV_SMALL:
+        args = wkv_inputs(B, S, H, d, dtype, g, decays)
         got, want = kern(*args), ref.rwkv_wkv_ref(*args)
         torch.cuda.synchronize()
-        log(f"phase 2: rwkv_wkv {dtype} B {B} S {S} H {H} d {d}: "
-            f"max_abs_err={wkv_err(got, want)}")
+        log(f"phase 2: rwkv_wkv {dtype} B {B} S {S} H {H} d {d} {decays} "
+            f"decays: max_abs_err={wkv_err(got, want)}; y up to "
+            f"{float(want[0].abs().max())}, S_fin up to "
+            f"{float(want[1].abs().max())}")
     return res
 
 
-SCAN_SMALL = [  # (B, S, di, ds, x dtype)
-    (2, 1, 256, 16, torch.bfloat16),      # one step
-    (2, 333, 256, 16, torch.float32),     # S no multiple of the chunk
-    (3, 100, 200, 16, torch.bfloat16),    # di no multiple of the block
-    (1, 1000, 512, 8, torch.float32),
+SCAN_SMALL = [  # (B, S, di, ds, x dtype, A)
+    (2, 1, 256, 16, torch.bfloat16, "init"),      # one step
+    (2, 333, 256, 16, torch.float32, "init"),     # S no multiple of the chunk
+    (3, 100, 200, 16, torch.bfloat16, "init"),    # di no multiple of the block
+    (1, 1000, 512, 8, torch.float32, "init"),
+    (2, 333, 256, 16, torch.bfloat16, "trained"),
+    (2, 50, 37, 8, torch.float32, "trained"),     # di no multiple of 8
 ]
-
-
-def scan_inputs(B, S, di, ds, dtype, g):
-    """delta = softplus(N(-4.6, 1)) (the model's dt_bias plus a
-    projection), x N(0, 1) in ``dtype``, B and C N(0, 1), A = -(1 .. ds)
-    on every channel (the model's init); all but x fp32."""
-    dev = torch.device("cuda")
-    delta = torch.nn.functional.softplus(
-        -4.6 + torch.randn((B, S, di), generator=g, device=dev))
-    x = torch.randn((B, S, di), generator=g, device=dev).to(dtype)
-    bm, cm = (torch.randn((B, S, ds), generator=g, device=dev)
-              for _ in range(2))
-    A = -torch.arange(1, ds + 1, dtype=torch.float32,
-                      device=dev).expand(di, ds).contiguous()
-    return delta, bm, cm, x, A
 
 
 def scan_err(got, want) -> float:
@@ -698,7 +695,8 @@ def scan_err(got, want) -> float:
 
 def phase2_mamba():
     """The Mamba scan kernel against its plain version at the jamba
-    prefill's shapes (B 4, S 2048, di 16384, ds 16; x bf16), then on
+    prefill's shapes (B 4, S 2048, di 16384, ds 16; x bf16), with the
+    model's init A and with a trained model's per-channel A, then on
     smaller and ragged cases."""
     kern = ops.LAUNCHERS["mamba_scan"]
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -714,24 +712,37 @@ def phase2_mamba():
     nbytes = (n * 4 + n * 2 + 2 * args[1].numel() * 4 + args[4].numel() * 4
               + n * 4 + LM_B * di * ds * 4)
     b_ms, b_by = bound(nbytes, 5.0 * steps)
-    exp_ms = steps / EXP_PER_S * 1e3
+    exp_ms = steps / EXP_PER_S * 1e3               # every exp on the MUFU
+    two_pipe_ms = steps * 8 * (1 - POLY_SHARE) / ISSUE_PER_S * 1e3
     res = dict(max_abs_err=err, ms=time_ms(lambda: kern(*args), 20),
                plain_ms=time_ms(lambda: ref.mamba_scan_ref(*args), 2),
                library_ms=None,
-               bound=(exp_ms, "operations") if exp_ms > b_ms
+               bound=(two_pipe_ms, "operations") if two_pipe_ms > b_ms
                else (b_ms, b_by))
     log(f"phase 2: mamba_scan x bf16 (B {LM_B}, S {LM_PROMPT}, di {di}, "
-        f"ds {ds}): {res}; bytes {nbytes}, exps {steps} "
-        f"({exp_ms:.4f} ms), fp32 term {b_ms:.4f} ms ({b_by}); y up to "
+        f"ds {ds}): {res}; bytes {nbytes}, exps {steps}: MUFU alone "
+        f"{exp_ms:.4f} ms, MUFU and FMA pipes balanced ({POLY_SHARE:.2f} "
+        f"of the exps on the FMA pipe) {two_pipe_ms:.4f} ms, bytes and "
+        f"flops {b_ms:.4f} ms ({b_by}); y up to "
         f"{float(want[0].abs().max())}, h_fin up to "
         f"{float(want[1].abs().max())}")
+    log(f"phase 2: mamba_scan profile (cycles a consumer warp or producer "
+        f"thread, over the sequence): {mamba_scan_cycles(*args)}")
     del args, got, want
-    for B, S, di, ds, dtype in SCAN_SMALL:
-        args = scan_inputs(B, S, di, ds, dtype, g)
+    args = scan_inputs(LM_B, LM_PROMPT, di, ds, torch.bfloat16, g,
+                       "trained")
+    got, want = kern(*args), ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    log(f"phase 2: mamba_scan x bf16 (B {LM_B}, S {LM_PROMPT}, di {di}, "
+        f"ds {ds}) trained A: max_abs_err={scan_err(got, want)}, "
+        f"{time_ms(lambda: kern(*args), 5)} ms")
+    del args, got, want
+    for B, S, di, ds, dtype, A_kind in SCAN_SMALL:
+        args = scan_inputs(B, S, di, ds, dtype, g, A_kind)
         got, want = kern(*args), ref.mamba_scan_ref(*args)
         torch.cuda.synchronize()
-        log(f"phase 2: mamba_scan x {dtype} B {B} S {S} di {di} ds {ds}: "
-            f"max_abs_err={scan_err(got, want)}")
+        log(f"phase 2: mamba_scan x {dtype} B {B} S {S} di {di} ds {ds} "
+            f"{A_kind} A: max_abs_err={scan_err(got, want)}")
     return res
 
 

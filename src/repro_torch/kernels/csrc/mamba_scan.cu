@@ -2,152 +2,227 @@
 // (B, S, ds) and A (di, ds); out y (B, S, di), the scan's output before the
 // D skip and the gate, and the state after the last step h_fin (B, di, ds),
 // both fp32. delta, B, C and A are fp32; x is fp32 or bf16 (the model
-// dtype); ds is 4, 8, 16 or 32; S and di are any sizes.
+// dtype); ds is 4, 8, 16 or 32; S is any size, di a multiple of 8 (the
+// wrapper pads other widths).
 //
 // Replaces: src/repro/kernels/mamba_scan.py:55, mamba_scan_pallas (the JAX
 // model path's time scan, models/ssm.py:126-137, computes the same
 // recurrence). The Pallas kernel keeps h in VMEM scratch and asks for
 // di % 512 == 0 and S % 256 == 0; here h_fin is an output, since the decode
-// cache starts from it, and any S and di are taken.
+// cache starts from it.
 //
 // What it computes: with h_0 = 0, for t = 0 .. S-1 and each channel i,
 //   h[i][s] <- exp(delta_t[i] A[i][s]) h[i][s] + (delta_t[i] x_t[i]) B_t[s],
 //   y_t[i]   = sum_s h[i][s] C_t[s].
 //
-// What bounds it: operations, then bytes. At the jamba prefill (B 4,
-// S 2048, di 16384, ds 16; delta fp32, x bf16) it reads 537 MB of delta and
-// 268 MB of x and writes 537 MB of y (B, C, A and h_fin are a few MB):
-// 0.40 ms at 3.35 TB/s. It takes one exp per state element and step, 2.15 G
-// of them: 0.51 ms at the special-function units' 16 a clock per SM (132
-// SMs, 1.98 GHz). Its multiplies and FMAs (10.7 GFLOP) take 0.16 ms at the
-// fp32 peak.
+// What bounds it: at the jamba prefill (B 4, S 2048, di 16384, ds 16;
+// delta fp32, x bf16) it reads 537 MB of delta and 268 MB of x and writes
+// 537 MB of y (B, C, A and h_fin are a few MB): 0.40 ms at 3.35 TB/s. It
+// takes one exp per state element and step, 2.15 G of them: 0.51 ms at the
+// special-function units' (MUFU) 16 a clock per SM (132 SMs, 1.98 GHz),
+// if each exp is one MUFU instruction. Around it a state-step issues 4
+// FP32 instructions (delta A, the multiply of delta x by B, two FMAs).
 //
-// Design: one thread per (b, channel), its ds states and its row of A in
-// registers for the whole sequence; a block holds 128 consecutive channels
-// of one b, so a row of delta, x or y is read or written by the block as
-// one coalesced run. B and C, the same for every channel of a b, are staged
-// into shared memory TC steps at a time with cp.async (double-buffered) and
-// read as broadcasts. Each thread loads its own delta and x PF steps ahead
-// into a ring of registers, in x's own dtype, so that a load has PF steps
-// of work to land in and any di (no alignment) is taken. y is written
-// every step; h_fin once at the end. exp is expf (the accurate one), and
-// each state update one fused multiply-add.
+// Design: one thread per (b, channel), its ds states and its row of
+// A log2(e) in registers for the whole sequence; a block holds 128
+// consecutive channels of one b. Each exp is exp2 of delta (A log2 e):
+// one multiply and one ex2.approx.ftz (a MUFU.EX2, max relative error
+// 2^-22; the accurate expf costs ~8 FP32 instructions around its MUFU).
+// The warps' issue, not the MUFU, sets the pace (the profile's 98
+// scheduler cycles a warp-step are fewer than 15 MUFU.EX2 at 16 a clock
+// per SM would take), and under this kernel the SM clock falls to ~1.45
+// GHz (PERF.md); evaluating 1 of every 16 exps on the FMA pipe instead (a
+// degree-6 polynomial, 13 issue slots) took 2% longer (tools/kernel_ab.py,
+// PERF.md).
+//
+// Staging is off the consumer threads: a producer warp issues TMA loads of
+// a chunk of TC steps of delta and x (a (TC, 128) box of each) and of B
+// and C (a (TC, ds) box) into a ring of NS stages on mbarriers; the
+// consumers wait on the stage's barrier, read their delta and x as
+// conflict-free 32-bit and 16-bit loads and B, C as broadcast float4s, and
+// store each step's y from registers (a warp's 32 channels are 128
+// contiguous bytes); at the end of a chunk each warp hands the stage back
+// to the producer. Staging y in the stage and storing the (TC, 128) tile by
+// TMA instead held the stage a chunk longer and cost a barrier of the four
+// consumer warps a chunk: 0.660 ms against 0.639 (tools/kernel_ab.py).
+// h_fin goes out from registers at the end.
 #include "common.cuh"
+#include "tma.cuh"
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 
 namespace {
 
-constexpr int NT = 128;  // threads (channels) a block
-constexpr int TC = 32;   // time steps of B and C staged at a time
-constexpr int PF = 4;    // steps of delta and x loaded ahead; divides TC
+constexpr int NC = 128;  // channels (consumer threads) a block
+constexpr int TC = 16;   // time steps a chunk
+constexpr int NS = 3;    // stages of the ring
+constexpr int THREADS = NC + 32;   // + the producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <typename T, int DS>
+struct Smem {
+  static constexpr int DELTA = TC * NC * 4;
+  static constexpr int X = TC * NC * static_cast<int>(sizeof(T));
+  static constexpr int BC = TC * DS * 4;
+  static constexpr int STAGE = (DELTA + X + 2 * BC + 127) / 128 * 128;
+  static constexpr int BAR_OFF = NS * STAGE;        // 2 NS mbarriers
+  static constexpr int BYTES = BAR_OFF + 2 * NS * 8 + 128;  // + alignment
+  static constexpr uint32_t TX = DELTA + X + 2 * BC;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Rows t0 .. t0 + TC - 1 of one b's (S, DS) slice into dst[TC][DS], 16
-// bytes a copy with cp.async; rows past S are zeros.
-template <int DS>
-__device__ __forceinline__ void copy_bc(float* dst, const float* src, int t0,
-                                        int S) {
-  constexpr int PER_ROW = DS / 4;
-  for (int idx = threadIdx.x; idx < TC * PER_ROW; idx += NT) {
-    const int r = idx / PER_ROW, c = idx % PER_ROW;
-    float* d = dst + r * DS + 4 * c;
-    if (t0 + r < S)
-      __pipeline_memcpy_async(
-          d, src + static_cast<int64_t>(t0 + r) * DS + 4 * c, 16);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+// 2^x on the MUFU pipe
+__device__ __forceinline__ float exp2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <typename T, int DS>
-__global__ void __launch_bounds__(NT, 4)
-scan_kernel(const float* __restrict__ delta, const float* __restrict__ bm,
-            const float* __restrict__ cm, const T* __restrict__ x,
-            const float* __restrict__ A, float* __restrict__ y,
-            float* __restrict__ h_fin, int S, int di) {
-  __shared__ __align__(16) float sb[2][TC * DS];
-  __shared__ __align__(16) float sc[2][TC * DS];
+// Profile slots (mamba_scan.py's PROFILE_SLOTS): clock64 cycles summed
+// over the consumer warps (lane 0 of each) and over the producer threads,
+// then the number of each.
+enum {
+  P_CONSUMER_WAIT, P_CONSUMER_STEPS, P_CONSUMER_CHUNK_END,
+  P_PRODUCER_WAIT_EMPTY, P_PRODUCER_ISSUE, P_CONSUMER_WARPS,
+  P_PRODUCER_THREADS, P_SLOTS
+};
 
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * NT + threadIdx.x;
+template <typename T, int DS, bool kProf>
+__global__ void __launch_bounds__(THREADS, 4)
+scan_kernel(const __grid_constant__ CUtensorMap tm_delta,
+            const __grid_constant__ CUtensorMap tm_x,
+            const __grid_constant__ CUtensorMap tm_b,
+            const __grid_constant__ CUtensorMap tm_c,
+            float* __restrict__ y,
+            const float* __restrict__ A, float* __restrict__ h_fin, int S,
+            int di, unsigned long long* __restrict__ prof) {
+  using M = Smem<T, DS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sm = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sm + M::BAR_OFF);
+  uint64_t* const empty = full + NS;
+  auto sdelta = [&](int st) {
+    return reinterpret_cast<float*>(sm + st * M::STAGE);
+  };
+  auto sx = [&](int st) {
+    return reinterpret_cast<T*>(sm + st * M::STAGE + M::DELTA);
+  };
+  auto sb = [&](int st) {
+    return reinterpret_cast<float*>(sm + st * M::STAGE + M::DELTA + M::X);
+  };
+  auto sc = [&](int st) { return sb(st) + TC * DS; };
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, c0 = blockIdx.x * NC;
+  const int n_chunks = (S + TC - 1) / TC;
+  // with kProf, lap(p) adds the cycles since the last lap to slot p
+  long long cyc[P_CONSUMER_WARPS] = {}, t_last = kProf ? clock64() : 0;
+  auto lap = [&](int p) {
+    if constexpr (kProf) {
+      const long long now = clock64();
+      cyc[p] += now - t_last;
+      t_last = now;
+    }
+  };
+  auto flush = [&](int first, int last, int count_slot) {
+    if constexpr (kProf) {
+      for (int p = first; p <= last; ++p)
+        atomicAdd(&prof[p], static_cast<unsigned long long>(cyc[p]));
+      atomicAdd(&prof[count_slot], 1ull);
+    }
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NC / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    // ---- producer warp: one lane issues every load ----
+    if (tid == NC) {
+      for (int c = 0; c < n_chunks; ++c) {
+        const int st = c % NS;
+        if (c >= NS) mbar_wait(&empty[st], (c / NS - 1) & 1);
+        lap(P_PRODUCER_WAIT_EMPTY);
+        mbar_expect_tx(&full[st], M::TX);
+        tma_load_3d(sdelta(st), &tm_delta, &full[st], c0, c * TC, b);
+        tma_load_3d(sx(st), &tm_x, &full[st], c0, c * TC, b);
+        tma_load_3d(sb(st), &tm_b, &full[st], 0, c * TC, b);
+        tma_load_3d(sc(st), &tm_c, &full[st], 0, c * TC, b);
+        lap(P_PRODUCER_ISSUE);
+      }
+      flush(P_PRODUCER_WAIT_EMPTY, P_PRODUCER_ISSUE, P_PRODUCER_THREADS);
+    }
+    return;
+  }
+
+  // ---- consumer threads: channel c0 + tid ----
+  const int i = c0 + tid;
   const bool live = i < di;
   const int ic = live ? i : di - 1;        // a ragged block's spare lanes
-  const int64_t base = static_cast<int64_t>(b) * S * di + ic;
-  const float* dp = delta + base;
-  const T* xp = x + base;
-  float* yp = y + base;
-  const float* bb = bm + static_cast<int64_t>(b) * S * DS;
-  const float* cb = cm + static_cast<int64_t>(b) * S * DS;
-
-  float a[DS], h[DS];
+  float a2[DS], h[DS];
 #pragma unroll
   for (int s = 0; s < DS; ++s) {
-    a[s] = A[static_cast<int64_t>(ic) * DS + s];
+    a2[s] = A[static_cast<int64_t>(ic) * DS + s] * LOG2E;
     h[s] = 0.f;
   }
-  float dr[PF];  // delta and x of the next PF steps
-  T xr[PF];
-#pragma unroll
-  for (int k = 0; k < PF; ++k) {          // steps past S: never used
-    const int64_t off = static_cast<int64_t>(min(k, S - 1)) * di;
-    dr[k] = dp[off];
-    xr[k] = xp[off];
-  }
 
-  const int n_chunks = (S + TC - 1) / TC;
-  copy_bc<DS>(sb[0], bb, 0, S);
-  copy_bc<DS>(sc[0], cb, 0, S);
-  __pipeline_commit();
-
-  for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c & 1, t0 = c * TC;
-    __pipeline_wait_prior(0);              // this thread's copies of c
-    // every copy of chunk c has landed, and every thread is done with
-    // chunk c - 1, whose buffer the next copies overwrite
-    __syncthreads();
-    if (c + 1 < n_chunks) {
-      copy_bc<DS>(sb[buf ^ 1], bb, t0 + TC, S);
-      copy_bc<DS>(sc[buf ^ 1], cb, t0 + TC, S);
-      __pipeline_commit();
-    }
-    const int steps = min(TC, S - t0);
-    for (int tt = 0; tt < steps; tt += PF) {
+  auto step = [&](const float* dp, const T* xp, const float* bt,
+                  const float* ct, float* yp) {
+    const float dt = dp[tid];
+    const float dx = dt * to_f(xp[tid]);
+    float acc = 0.f;
 #pragma unroll
-      for (int k = 0; k < PF; ++k) {
-        const int t = t0 + tt + k;
-        if (tt + k < steps) {
-          const float dt = dr[k];
-          const float dx = dt * to_f(xr[k]);
-          if (t + PF < S) {
-            dr[k] = dp[static_cast<int64_t>(t + PF) * di];
-            xr[k] = xp[static_cast<int64_t>(t + PF) * di];
-          }
-          const float* bt = sb[buf] + (tt + k) * DS;
-          const float* ct = sc[buf] + (tt + k) * DS;
-          float acc = 0.f;
+    for (int s4 = 0; s4 < DS; s4 += 4) {
+      const float4 b4 = *reinterpret_cast<const float4*>(bt + s4);
+      const float4 c4 = *reinterpret_cast<const float4*>(ct + s4);
+      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-          for (int s = 0; s < DS; s += 4) {
-            const float4 b4 = *reinterpret_cast<const float4*>(bt + s);
-            const float4 c4 = *reinterpret_cast<const float4*>(ct + s);
-            const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-            const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              h[s + e] = fmaf(expf(dt * a[s + e]), h[s + e], dx * bv[e]);
-              acc = fmaf(h[s + e], cv[e], acc);
-            }
-          }
-          if (live) yp[static_cast<int64_t>(t) * di] = acc;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int s = s4 + e;
+        h[s] = fmaf(exp2_mufu(dt * a2[s]), h[s], dx * bv[e]);
+        acc = fmaf(h[s], cv[e], acc);
       }
     }
+    if (live) *yp = acc;
+  };
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c % NS, steps = min(TC, S - c * TC);
+    const float* dp = sdelta(st);
+    const T* xp = sx(st);
+    const float* bt = sb(st);
+    const float* ct = sc(st);
+    float* yp = y + (static_cast<int64_t>(b) * S + c * TC) * di + i;
+    mbar_wait(&full[st], (c / NS) & 1);
+    lap(P_CONSUMER_WAIT);
+    if (steps == TC) {             // the chunk as one block of code
+#pragma unroll
+      for (int tt = 0; tt < TC; ++tt)
+        step(dp + tt * NC, xp + tt * NC, bt + tt * DS, ct + tt * DS,
+             yp + static_cast<int64_t>(tt) * di);
+    } else {
+#pragma unroll 1
+      for (int tt = 0; tt < steps; ++tt)
+        step(dp + tt * NC, xp + tt * NC, bt + tt * DS, ct + tt * DS,
+             yp + static_cast<int64_t>(tt) * di);
+    }
+    lap(P_CONSUMER_STEPS);
+    __syncwarp();                  // the warp is done with the stage
+    if ((tid & 31) == 0) mbar_arrive(&empty[st]);
+    lap(P_CONSUMER_CHUNK_END);
   }
+  if ((tid & 31) == 0)
+    flush(P_CONSUMER_WAIT, P_CONSUMER_CHUNK_END, P_CONSUMER_WARPS);
   if (live) {
     float4* hp = reinterpret_cast<float4*>(
         h_fin + (static_cast<int64_t>(b) * di + i) * DS);
@@ -160,48 +235,73 @@ scan_kernel(const float* __restrict__ delta, const float* __restrict__ bm,
 template <typename T, int DS>
 int launch_typed(const float* delta, const float* bm, const float* cm,
                  const void* x, const float* A, float* y, float* h_fin,
-                 int B, int S, int di, cudaStream_t stream) {
-  const dim3 grid((di + NT - 1) / NT, B);
-  scan_kernel<T, DS><<<grid, NT, 0, stream>>>(
-      delta, bm, cm, static_cast<const T*>(x), A, y, h_fin, S, di);
+                 int B, int S, int di, unsigned long long* prof,
+                 cudaStream_t stream) {
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr CUtensorMapDataType TX = sizeof(T) == 4
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long wide[3] = {di, S, B}, narrow[3] = {DS, S, B};
+  const int wide_box[3] = {NC, TC, 1}, narrow_box[3] = {DS, TC, 1};
+  CUtensorMap md, mx, mb, mc;
+  cudaError_t err;
+  if ((err = contiguous_map(&md, F32, delta, 3, wide, 4, wide_box)) !=
+          cudaSuccess ||
+      (err = contiguous_map(&mx, TX, x, 3, wide, sizeof(T), wide_box)) !=
+          cudaSuccess ||
+      (err = contiguous_map(&mb, F32, bm, 3, narrow, 4, narrow_box)) !=
+          cudaSuccess ||
+      (err = contiguous_map(&mc, F32, cm, 3, narrow, 4, narrow_box)) !=
+          cudaSuccess)
+    return err;
+  constexpr int smem = Smem<T, DS>::BYTES;
+  auto kernel = prof ? scan_kernel<T, DS, true> : scan_kernel<T, DS, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((di + NC - 1) / NC, B);
+  kernel<<<grid, THREADS, smem, stream>>>(md, mx, mb, mc, y, A, h_fin, S,
+                                          di, prof);
   return cudaGetLastError();
 }
 
 template <int DS>
 int launch_ds(int bf16, const float* delta, const float* bm, const float* cm,
               const void* x, const float* A, float* y, float* h_fin, int B,
-              int S, int di, cudaStream_t stream) {
+              int S, int di, unsigned long long* prof, cudaStream_t stream) {
   if (bf16)
     return launch_typed<__nv_bfloat16, DS>(delta, bm, cm, x, A, y, h_fin, B,
-                                           S, di, stream);
+                                           S, di, prof, stream);
   return launch_typed<float, DS>(delta, bm, cm, x, A, y, h_fin, B, S, di,
-                                 stream);
+                                 prof, stream);
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING(mamba_scan)
 
+// prof: null, or P_SLOTS zeroed counters that a profiled launch adds to
 extern "C" int mamba_scan_launch(const float* delta, const float* bm,
                                  const float* cm, const void* x,
                                  const float* A, float* y, float* h_fin,
                                  int B, int S, int di, int ds, int bf16,
+                                 unsigned long long* prof,
                                  cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || B > 65535)
+  if (B <= 0 || S <= 0 || di <= 0 || di % 8 || B > 65535)
     return cudaErrorInvalidValue;
   switch (ds) {
     case 4:
       return launch_ds<4>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
-                          stream);
+                          prof, stream);
     case 8:
       return launch_ds<8>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
-                          stream);
+                          prof, stream);
     case 16:
       return launch_ds<16>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
-                           stream);
+                           prof, stream);
     case 32:
       return launch_ds<32>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
-                           stream);
+                           prof, stream);
     default:
       return cudaErrorInvalidValue;
   }

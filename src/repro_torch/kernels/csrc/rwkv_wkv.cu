@@ -13,246 +13,434 @@
 //   S[i][j] <- S[i][j] w_t[i] + k_t[i] v_t[j],
 // in the equal form y_t[j] = sum_i r_t[i] S[i][j] + v_t[j] c_t with
 // c_t = sum_i r_t[i] u[i] k_t[i], so that each (i, j) costs one FMA for y
-// and a multiply and an FMA for S.
+// and a multiply and an FMA for S: 5 flops, 3 instructions.
 //
-// What bounds it: bytes. At the rwkv6-7b prefill (B 4, S 2048, H 64,
-// d 64, r/k/v bf16) it reads 201 MB of r, k, v and 134 MB of w and writes
-// 134 MB of y and 4 MB of S_fin: 0.14 ms at 3.35 TB/s; its 2 B H S d^2
-// FMAs (8.6 GFLOP) take 0.13 ms at the fp32 peak. Neither is reached: the
-// 2048 steps run in series, and each step's broadcast reads of r, k and w
-// from shared memory, more than its FMAs, appear to set its pace.
+// What bounds it: at the rwkv6-7b prefill (B 4, S 2048, H 64, d 64, r/k/v
+// bf16) it moves 474 MB (0.14 ms at 3.35 TB/s) and does 5 B H S d^2 =
+// 10.7 GFLOP (0.16 ms at the fp32 peak). The 2048 steps of a head run in
+// series, so only the FP32 pipe's issue can be shared out: 3 instructions
+// per state element and step, 2 heads an SM, ~0.19 ms at 1.98 GHz. What
+// else a step issues (shared loads of r, k, w and v, the sum of y over the
+// rows, staging) comes on top of that.
 //
-// Design: one block per (b, h), d^2 / 16 threads (256 at d 64); the
-// (d, d) state stays in fp32 registers for the whole sequence (the Pallas
-// kernel chunks time only to fit VMEM, and carries the same numbers across
-// chunks). Thread (q, j) holds rows 8 q .. 8 q + 7 of columns j and
-// j + d / 2, so each float4 of r, k and w it reads feeds two columns, and
-// every lane of a warp reads the same float4 (one broadcast). One thread a
-// column, holding all d of its rows, ran 1.37x slower at the prefill: one
-// warp a scheduler, and twice the shared loads a step. Time runs in
-// chunks of TC steps. The next chunk of r, k, v and w is copied into
-// shared memory with cp.async, in its own dtype, while the current one
-// runs. r and k are widened to fp32 once a chunk, and c_t summed once a
-// step (d / TC threads a step, joined by shuffles in a fixed order). Each
-// step writes the d / 8 partial y sums of a column to shared memory; at
-// the end of the chunk the block adds them in a fixed order, adds
-// v_j c_t, and writes the chunk's y rows whole. S_fin goes out at the end.
+// Design: one block per (b, h); its (d, d) state stays in fp32 registers
+// of 4 consumer warps (at d 64) for the whole sequence, each warp holding
+// 16 columns. A thread holds R = 8 rows of C = 4 columns (at d 32, 4 rows;
+// at d 16, 4 rows of 2 columns), so each float4 of r, k and w it loads
+// from shared memory feeds 12 FP32 instructions (at 8 rows of 2 columns:
+// 6). The 8 row groups of a column lie in one warp, group g in lanes
+// 4g .. 4g + 3; group g holds the float4s g, g + 8, ... of the rows, so
+// one warp-wide LDS.128 reads 8 consecutive float4s (128 bytes, no bank
+// conflict). The sum of y over the rows is a reduce-scatter over the
+// groups in registers (4 shuffles a step, fixed order; the lanes of the
+// upper half warp hold their 4 columns in the order 2, 3, 0, 1, so that
+// its first level needs no selects: 2% of the kernel's time), after which
+// one lane of each pair holds a whole y_t[j]; it adds v_t[j] c_t (v_t[j]
+// from its own registers, not shared memory: 4% of the kernel's time) and
+// writes y into the warp's (TC, 16) tile, which its lane 0 stores by TMA
+// once per chunk: no partial sums in shared memory and no barrier between
+// the consumer warps (stored to device memory each step instead, without
+// the chunk's fence, y cost 0.509 ms against 0.419). A chunk's TC steps
+// are one unrolled block of code, so the compiler lays a step's shuffles
+// beside the next steps' products.
+// Why 4 warps of 32 states a thread and not 2 of 64: every FP32
+// instruction here reads two registers besides a reused one, and the
+// profile (rwkv_wkv_cycles, PERF.md) shows a warp alone on its scheduler
+// issuing ~0.5 instructions a clock, two warps ~0.7; the loads per FMA
+// this costs are cheap beside that.
+//
+// Staging is off the consumer warps: two producer warps (so that each of
+// the SM's four schedulers runs two consumer warps and one producer warp
+// of the two blocks an SM holds) take a chunk's steps half each. The
+// first issues TMA loads of each chunk's r, k, v (in their dtype) and w
+// (fp32) into a ring of NS stages on mbarriers; both widen r, k and v to
+// fp32 and sum c_t one chunk ahead (4 columns a lane, then one lane a step
+// in a fixed order) and arrive on the stage's full barrier; the consumers
+// wait on that barrier and release the stage on its empty barrier. A
+// ragged last chunk is zero-filled by the tensor maps and its steps past S
+// are neither run nor stored. S_fin goes out from registers at the end.
 #include "common.cuh"
+#include "tma.cuh"
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 
 namespace {
 
 constexpr int TC = 16;   // time steps per chunk
-constexpr int RT = 8;    // state rows a thread, in each of its 2 columns
+constexpr int NS = 4;    // stages of the ring
+constexpr int NP = 2;    // producer warps, TC / NP steps of a chunk each
+constexpr int YC = 16;   // columns a consumer warp holds
 
-// threads a block: d / RT row groups x d / 2 column pairs
-__host__ __device__ constexpr int threads(int D) { return D * D / (2 * RT); }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Rows t0 .. t0 + TC - 1 of one (b, h) slice of a (B, S, H, D) tensor
-// into dst[TC][D], 16 bytes a copy with cp.async; rows past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void copy_chunk(T* dst, const T* src,
-                                           int64_t row_stride, int t0,
-                                           int S) {
-  constexpr int PER_ROW = D * static_cast<int>(sizeof(T)) / 16;
-  for (int idx = threadIdx.x; idx < TC * PER_ROW; idx += threads(D)) {
-    const int r = idx / PER_ROW, c = idx % PER_ROW;
-    char* d = reinterpret_cast<char*>(dst + r * D) + 16 * c;
-    if (t0 + r < S)
-      __pipeline_memcpy_async(
-          d,
-          reinterpret_cast<const char*>(
-              src + static_cast<int64_t>(t0 + r) * row_stride) + 16 * c,
-          16);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// The block's shared memory (dynamic: above 48 KB for fp32 inputs). Every
-// array's size is a multiple of 16 bytes, so each starts 16-byte aligned.
-template <typename T, int D>
-struct alignas(16) Smem {
-  T raw_r[2][TC * D];                        // chunks as copied, two buffers
-  T raw_k[2][TC * D];
-  T raw_v[2][TC * D];
-  float raw_w[2][TC * D];
-  float fr[TC * D];                          // the chunk's r and k in fp32
-  float fk[TC * D];
-  float yp[D / RT][TC * D];                  // partial y sums of a chunk
-  float su[D];
-  float cs[TC];                              // c_t of the chunk's steps
+template <int D>
+struct Layout {
+  static constexpr int G = D >= 32 ? 8 : 4;     // row groups in a warp
+  static constexpr int C = YC * G / 32;          // state columns a thread
+  static constexpr int R = D / G;                // state rows a thread
+  static constexpr int CW = D / YC;              // consumer warps
+  static constexpr int THREADS = 32 * (CW + NP);
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(threads(D))
-wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
-           const T* __restrict__ v, const float* __restrict__ w,
-           const float* __restrict__ u, float* __restrict__ y,
-           float* __restrict__ s_fin, int S, int H) {
-  static_assert(D % TC == 0 && D <= 64, "d must be 16, 32 or 64");
-  constexpr int L = D / TC;                  // threads that sum one c_t
-  constexpr int NT = threads(D), G = D / RT, HALF = D / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_raw);
-  auto& raw_r = sm.raw_r;
-  auto& raw_k = sm.raw_k;
-  auto& raw_v = sm.raw_v;
-  auto& raw_w = sm.raw_w;
-  float* fr = sm.fr;
-  float* fk = sm.fk;
-  auto& yp = sm.yp;
-  float* su = sm.su;
-  float* cs = sm.cs;
+struct Smem {
+  static constexpr bool WIDEN = sizeof(T) != 4;          // bf16 r, k, v
+  static constexpr int TILE = TC * D * 4;                // an fp32 tile
+  static constexpr int RAW = WIDEN ? TC * D * 2 : 0;     // a bf16 tile
+  static constexpr int QP = D / 4;                       // quads a step
+  // a stage: fp32 r, k, v, w tiles, raw r, k, v, the chunk's c_t
+  static constexpr int C_OFF = 4 * TILE + 3 * RAW;
+  static constexpr int STAGE = (C_OFF + TC * 4 + 127) / 128 * 128;
+  static constexpr int Y_OFF = NS * STAGE;   // y tiles [2][CW][TC][YC]
+  static constexpr int PART_OFF = Y_OFF + 2 * TC * D * 4;  // [TC][QP + 1]
+  static constexpr int BAR_OFF = (PART_OFF + TC * (QP + 1) * 4 + 7) / 8 * 8;
+  static constexpr int BYTES = BAR_OFF + 3 * NS * 8 + 128;  // + alignment
+  static constexpr uint32_t TX = TC * D * (3 * sizeof(T) + 4);
+};
 
-  // thread (q, j): rows q RT .. q RT + RT - 1 of columns j and j + d / 2
-  const int tid = threadIdx.x, q = tid / HALF, j = tid % HALF;
-  const int i0 = q * RT;
+// Profile slots (rwkv_wkv.py's PROFILE_SLOTS): clock64 cycles summed over
+// the consumer warps (lane 0 of each) and over the producer warps, then
+// the number of each.
+enum {
+  P_CONSUMER_WAIT, P_CONSUMER_STEPS, P_CONSUMER_CHUNK_END,
+  P_PRODUCER_WAIT_LOADED, P_PRODUCER_WIDEN, P_PRODUCER_C_SUM,
+  P_PRODUCER_REFILL, P_CONSUMER_WARPS, P_PRODUCER_WARPS, P_SLOTS
+};
+
+// four bf16 (8 bytes) or fp32 (16 bytes) values as fp32
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+template <typename T, int D, bool kProf>
+__global__ void __launch_bounds__(Layout<D>::THREADS)
+wkv_kernel(const __grid_constant__ CUtensorMap tm_r,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v,
+           const __grid_constant__ CUtensorMap tm_w,
+           const __grid_constant__ CUtensorMap tm_y,
+           const float* __restrict__ u, float* __restrict__ s_fin, int S,
+           int H, unsigned long long* __restrict__ prof) {
+  using L = Layout<D>;
+  using M = Smem<T, D>;
+  constexpr int G = L::G, C = L::C, R = L::R, CW = L::CW, QP = M::QP;
+  constexpr int TH = TC / NP;                     // steps a producer widens
+  constexpr int NQ = TH * QP / 32;                // quads a producer lane
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const sm = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* const loaded = reinterpret_cast<uint64_t*>(sm + M::BAR_OFF);
+  uint64_t* const full = loaded + NS;
+  uint64_t* const empty = full + NS;
+  auto tile = [&](int st, int which) {   // fp32 r, k, v, w of a stage
+    return reinterpret_cast<float*>(sm + st * M::STAGE + which * M::TILE);
+  };
+  auto raw = [&](int st, int which) {    // T r, k, v as loaded
+    return reinterpret_cast<T*>(M::WIDEN ? sm + st * M::STAGE + 4 * M::TILE +
+                                               which * M::RAW
+                                         : sm + st * M::STAGE +
+                                               which * M::TILE);
+  };
+  auto ct = [&](int st) {
+    return reinterpret_cast<float*>(sm + st * M::STAGE + M::C_OFF);
+  };
+  float* const ybuf = reinterpret_cast<float*>(sm + M::Y_OFF);
+  float* const part = reinterpret_cast<float*>(sm + M::PART_OFF);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int64_t row = static_cast<int64_t>(H) * D;   // elements a step
-  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
-  const T* rb = r + base;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  const float* wb = w + base;
-  float* yb = y + base;
-
-  if (tid < D) su[tid] = u[h * D + tid];
-  float s0[RT], s1[RT];        // S[i0 + e][j], S[i0 + e][j + d / 2]
-#pragma unroll
-  for (int e = 0; e < RT; ++e) s0[e] = s1[e] = 0.f;
-
   const int n_chunks = (S + TC - 1) / TC;
-  copy_chunk<T, D>(raw_r[0], rb, row, 0, S);
-  copy_chunk<T, D>(raw_k[0], kb, row, 0, S);
-  copy_chunk<T, D>(raw_v[0], vb, row, 0, S);
-  copy_chunk<float, D>(raw_w[0], wb, row, 0, S);
-  __pipeline_commit();
+  // with kProf, lap(p) adds the cycles since the last lap to slot p
+  long long cyc[P_CONSUMER_WARPS] = {}, t_last = kProf ? clock64() : 0;
+  auto lap = [&](int p) {
+    if constexpr (kProf) {
+      const long long now = clock64();
+      cyc[p] += now - t_last;
+      t_last = now;
+    }
+  };
+  auto flush = [&](int first, int last, int count_slot) {
+    if constexpr (kProf) {
+      if (lane == 0) {
+        for (int p = first; p <= last; ++p)
+          atomicAdd(&prof[p], static_cast<unsigned long long>(cyc[p]));
+        atomicAdd(&prof[count_slot], 1ull);
+      }
+    }
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(&loaded[st], 1);
+      mbar_init(&full[st], 32 * NP);
+      mbar_init(&empty[st], 32 * CW);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CW) {
+    // ---- producer warps: warp p widens steps p TH .. p TH + TH - 1 ----
+    const int p = warp - CW;
+    auto issue = [&](int c) {   // chunk c into stage c % NS
+      const int st = c % NS;
+      mbar_expect_tx(&loaded[st], M::TX);
+      tma_load_3d(raw(st, 0), &tm_r, &loaded[st], h * D, c * TC, b);
+      tma_load_3d(raw(st, 1), &tm_k, &loaded[st], h * D, c * TC, b);
+      tma_load_3d(raw(st, 2), &tm_v, &loaded[st], h * D, c * TC, b);
+      tma_load_3d(tile(st, 3), &tm_w, &loaded[st], h * D, c * TC, b);
+    };
+    if (p == 0 && lane == 0)
+      for (int c = 0; c < NS && c < n_chunks; ++c) issue(c);
+    // lane l widens columns i .. i + 3 of the steps p TH + (l + 32 n) / QP
+    const int i = 4 * (lane % QP);
+    const float4 u4 = *reinterpret_cast<const float4*>(u + h * D + i);
+    float* const pp = part + p * TH * (QP + 1);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % NS;
+      mbar_wait(&loaded[st], (c / NS) & 1);
+      lap(P_PRODUCER_WAIT_LOADED);
+      float4 r4[NQ], k4[NQ], v4[NQ];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {             // every load, then stores
+        const int e = (p * TH + (lane + 32 * n) / QP) * D + i;
+        r4[n] = widen4(raw(st, 0) + e);
+        k4[n] = widen4(raw(st, 1) + e);
+        if (M::WIDEN) v4[n] = widen4(raw(st, 2) + e);
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const int q = lane + 32 * n, e = (p * TH + q / QP) * D + i;
+        if (M::WIDEN) {
+          *reinterpret_cast<float4*>(tile(st, 0) + e) = r4[n];
+          *reinterpret_cast<float4*>(tile(st, 1) + e) = k4[n];
+          *reinterpret_cast<float4*>(tile(st, 2) + e) = v4[n];
+        }
+        float cp = r4[n].x * u4.x * k4[n].x;
+        cp = fmaf(r4[n].y * u4.y, k4[n].y, cp);
+        cp = fmaf(r4[n].z * u4.z, k4[n].z, cp);
+        pp[(q / QP) * (QP + 1) + q % QP] = fmaf(r4[n].w * u4.w, k4[n].w, cp);
+      }
+      __syncwarp();
+      lap(P_PRODUCER_WIDEN);
+      if (lane < TH) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < QP; ++j) acc += pp[lane * (QP + 1) + j];
+        ct(st)[p * TH + lane] = acc;
+      }
+      __syncwarp();
+      mbar_arrive(&full[st]);
+      lap(P_PRODUCER_C_SUM);
+      // the first refills the stage of chunk c - 1 once the consumers are
+      // done with it (the other's next wait on `loaded` follows from that)
+      if (p == 0 && c >= 1 && c - 1 + NS < n_chunks) {
+        mbar_wait(&empty[(c - 1) % NS], ((c - 1) / NS) & 1);
+        if (lane == 0) issue(c - 1 + NS);
+      }
+      lap(P_PRODUCER_REFILL);
+    }
+    flush(P_PRODUCER_WAIT_LOADED, P_PRODUCER_REFILL, P_PRODUCER_WARPS);
+    return;
+  }
+
+  // ---- consumer warps: warp w holds columns 16 w .. 16 w + 15 ----
+  constexpr int CG = 32 / G;                     // column groups a warp
+  const int g = lane / CG;                       // row group
+  const int col0 = (lane % CG) * C;              // in the warp's 16
+  // after the reduce-scatter the lanes of group bits (4, 3) hold column
+  // col0 + 2 bit4 + bit3 (C 4) or col0 + bit4 (C 2), written by one lane
+  const bool hi4 = lane & 16, hi3 = lane & 8, hi2 = lane & 4;
+  const int ycol = C == 4 ? col0 + 2 * hi4 + hi3 : col0 + hi4;
+  const bool writer = C == 4 ? !hi2 : !hi3;
+  const int hc = warp * YC;                      // the warp's first column
+  // S[4 (G m + g) + e][hc + col0 + (x ^ 2 hi4)] (C 4; C 2: + x)
+  float st_reg[R * C];
+#pragma unroll
+  for (int e = 0; e < R * C; ++e) st_reg[e] = 0.f;
+
+  auto step = [&](const float* rt, const float* kt, const float* vt,
+                  const float* wt, float c_t, float* yt) {
+    float vv[C];
+    if constexpr (C == 4) {
+      // register x holds column col0 + (x ^ 2 hi4)
+      const float2 va = *reinterpret_cast<const float2*>(vt + hc + col0 +
+                                                          2 * hi4);
+      const float2 vb = *reinterpret_cast<const float2*>(vt + hc + col0 +
+                                                          2 - 2 * hi4);
+      vv[0] = va.x; vv[1] = va.y; vv[2] = vb.x; vv[3] = vb.y;
+    } else {
+      const float2 v2 = *reinterpret_cast<const float2*>(vt + hc + col0);
+      vv[0] = v2.x; vv[1] = v2.y;
+    }
+    float a[C];
+#pragma unroll
+    for (int x = 0; x < C; ++x) a[x] = 0.f;
+#pragma unroll
+    for (int m = 0; m < R / 4; ++m) {
+      const int i4 = 4 * (G * m + g);
+      const float4 r4 = *reinterpret_cast<const float4*>(rt + i4);
+      const float4 k4 = *reinterpret_cast<const float4*>(kt + i4);
+      const float4 w4 = *reinterpret_cast<const float4*>(wt + i4);
+      const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+      const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+      const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int x = 0; x < C; ++x) {
+          float& s = st_reg[(4 * m + e) * C + x];
+          a[x] = fmaf(rr[e], s, a[x]);
+          s = fmaf(s, ww[e], kk[e] * vv[x]);
+        }
+    }
+    // reduce-scatter over the row groups: lane bit 4, bit 3, then bit 2
+    float y;
+    if constexpr (C == 4) {
+      const float k0 = a[0] + __shfl_xor_sync(FULL_MASK, a[2], 16);
+      const float k1 = a[1] + __shfl_xor_sync(FULL_MASK, a[3], 16);
+      float kk = hi3 ? k1 : k0;
+      kk += __shfl_xor_sync(FULL_MASK, hi3 ? k0 : k1, 8);
+      y = kk + __shfl_xor_sync(FULL_MASK, kk, 4);
+    } else {
+      float k0 = hi4 ? a[1] : a[0];
+      k0 += __shfl_xor_sync(FULL_MASK, hi4 ? a[0] : a[1], 16);
+      y = k0 + __shfl_xor_sync(FULL_MASK, k0, 8);
+    }
+    // v_t[ycol] is one of the lane's own columns: vv[hi3] (C 4), vv[hi4]
+    if (writer) yt[ycol] = fmaf(C == 4 ? (hi3 ? vv[1] : vv[0])
+                                       : (hi4 ? vv[1] : vv[0]), c_t, y);
+  };
 
   for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c & 1, t0 = c * TC;
-    __pipeline_wait_prior(0);                // this thread's copies of c
-    // every copy of chunk c has landed, and every thread is done with
-    // chunk c - 1 (its fp32 arrays, partial sums and the raw buffer
-    // copied into next)
-    __syncthreads();
-    if (c + 1 < n_chunks) {
-      const int nb = buf ^ 1, t1 = t0 + TC;
-      copy_chunk<T, D>(raw_r[nb], rb, row, t1, S);
-      copy_chunk<T, D>(raw_k[nb], kb, row, t1, S);
-      copy_chunk<T, D>(raw_v[nb], vb, row, t1, S);
-      copy_chunk<float, D>(raw_w[nb], wb, row, t1, S);
-      __pipeline_commit();
-    }
-    for (int e = tid; e < TC * D; e += NT) {
-      fr[e] = to_f(raw_r[buf][e]);
-      fk[e] = to_f(raw_k[buf][e]);
-    }
-    __syncthreads();
-    if (tid < D) {  // c_t: threads L tt .. L tt + L - 1 sum TC terms each
-      const int tt = tid / L, c0 = (tid % L) * TC;
-      float part = 0.f;
+    const int st = c % NS, steps = min(TC, S - c * TC);
+    const float* fr = tile(st, 0);
+    const float* fk = tile(st, 1);
+    const float* fv = tile(st, 2);
+    const float* fw = tile(st, 3);
+    const float* cs = ct(st);
+    float* yt = ybuf + ((c & 1) * CW + warp) * TC * YC;
+    mbar_wait(&full[st], (c / NS) & 1);
+    lap(P_CONSUMER_WAIT);
+    if (steps == TC) {
+      // the whole chunk in one block of code, so that the compiler lays a
+      // step's shuffles and y beside the next steps' products (unrolled
+      // by 2 instead, the kernel took 0.585 ms against 0.429)
 #pragma unroll
-      for (int i = c0; i < c0 + TC; ++i)
-        part = fmaf(fr[tt * D + i] * su[i], fk[tt * D + i], part);
-      if constexpr (L >= 2)
-        part += __shfl_xor_sync(FULL_MASK, part, 1);
-      if constexpr (L >= 4)
-        part += __shfl_xor_sync(FULL_MASK, part, 2);
-      if (tid % L == 0) cs[tt] = part;
+      for (int tt = 0; tt < TC; ++tt)
+        step(fr + tt * D, fk + tt * D, fv + tt * D, fw + tt * D, cs[tt],
+             yt + tt * YC);
+    } else {                       // a ragged last chunk
+#pragma unroll 1
+      for (int tt = 0; tt < steps; ++tt)
+        step(fr + tt * D, fk + tt * D, fv + tt * D, fw + tt * D, cs[tt],
+             yt + tt * YC);
     }
-    const int steps = min(TC, S - t0);
-    for (int tt = 0; tt < steps; ++tt) {
-      const float v0 = to_f(raw_v[buf][tt * D + j]);
-      const float v1 = to_f(raw_v[buf][tt * D + j + HALF]);
-      const float* rt = fr + tt * D + i0;
-      const float* kt = fk + tt * D + i0;
-      const float* wt = raw_w[buf] + tt * D + i0;
-      float a0 = 0.f, a1 = 0.f;              // column j, j + d / 2
+    lap(P_CONSUMER_STEPS);
+    mbar_arrive(&empty[st]);
+    fence_proxy_async();           // this lane's y, seen by the TMA store
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_3d(&tm_y, yt, h * D + hc, c * TC, b);
+      bulk_commit();
+      // the store of chunk c - 1 has read the tile chunk c + 1 reuses
+      bulk_wait_read<1>();
+    }
+    __syncwarp();
+    lap(P_CONSUMER_CHUNK_END);
+  }
+  flush(P_CONSUMER_WAIT, P_CONSUMER_CHUNK_END, P_CONSUMER_WARPS);
+  if (lane == 0) bulk_wait<0>();
+  float* sf = s_fin + (static_cast<int64_t>(b) * H + h) * D * D + hc + col0;
 #pragma unroll
-      for (int e = 0; e < RT; e += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(rt + e);
-        const float4 k4 = *reinterpret_cast<const float4*>(kt + e);
-        const float4 w4 = *reinterpret_cast<const float4*>(wt + e);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+  for (int m = 0; m < R / 4; ++m)
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          a0 = fmaf(rr[x], s0[e + x], a0);
-          s0[e + x] = fmaf(s0[e + x], ww[x], kk[x] * v0);
-          a1 = fmaf(rr[x], s1[e + x], a1);
-          s1[e + x] = fmaf(s1[e + x], ww[x], kk[x] * v1);
-        }
+    for (int e = 0; e < 4; ++e) {
+      const int row = 4 * (G * m + g) + e;
+      const float* sv = st_reg + (4 * m + e) * C;
+      if constexpr (C == 4) {
+        *reinterpret_cast<float2*>(sf + row * D + 2 * hi4) =
+            make_float2(sv[0], sv[1]);
+        *reinterpret_cast<float2*>(sf + row * D + 2 - 2 * hi4) =
+            make_float2(sv[2], sv[3]);
       }
-      yp[q][tt * D + j] = a0;
-      yp[q][tt * D + j + HALF] = a1;
+      else
+        *reinterpret_cast<float2*>(sf + row * D) = make_float2(sv[0], sv[1]);
     }
-    __syncthreads();                         // partial sums and c_t
-    for (int e = tid; e < steps * D; e += NT) {
-      const int tt = e / D;
-      float a = yp[0][e] + yp[1][e];
-#pragma unroll
-      for (int p = 2; p < G; p += 2) a += yp[p][e] + yp[p + 1][e];
-      yb[static_cast<int64_t>(t0 + tt) * row + e % D] =
-          fmaf(to_f(raw_v[buf][e]), cs[tt], a);
-    }
-  }
-  float* sf = s_fin + ((static_cast<int64_t>(b) * H + h) * D + i0) * D + j;
-#pragma unroll
-  for (int e = 0; e < RT; ++e) {
-    sf[e * D] = s0[e];
-    sf[e * D + HALF] = s1[e];
-  }
+}
+
+// a (B, S, H d) tensor of `type` as a map of (cols, TC, 1) boxes
+cudaError_t head_map(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, int elem_bytes, int B, int S, int H,
+                     int D, int cols) {
+  const long long dims[3] = {static_cast<long long>(H) * D, S, B};
+  const int box[3] = {cols, TC, 1};
+  return contiguous_map(map, type, base, 3, dims, elem_bytes, box);
 }
 
 template <typename T, int D>
 int launch_typed(const void* r, const void* k, const void* v, const float* w,
                  const float* u, float* y, float* s_fin, int B, int S, int H,
-                 cudaStream_t stream) {
-  constexpr int smem = static_cast<int>(sizeof(Smem<T, D>));
-  const cudaError_t err = cudaFuncSetAttribute(
-      wkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                 unsigned long long* prof, cudaStream_t stream) {
+  constexpr CUtensorMapDataType TT = sizeof(T) == 4
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr int ES = static_cast<int>(sizeof(T));
+  CUtensorMap mr, mk, mv, mw, my;
+  cudaError_t err;
+  if ((err = head_map(&mr, TT, r, ES, B, S, H, D, D)) != cudaSuccess ||
+      (err = head_map(&mk, TT, k, ES, B, S, H, D, D)) != cudaSuccess ||
+      (err = head_map(&mv, TT, v, ES, B, S, H, D, D)) != cudaSuccess ||
+      (err = head_map(&mw, F32, w, 4, B, S, H, D, D)) != cudaSuccess ||
+      (err = head_map(&my, F32, y, 4, B, S, H, D, YC)) != cudaSuccess)
+    return err;
+  constexpr int smem = Smem<T, D>::BYTES;
+  auto kernel = prof ? wkv_kernel<T, D, true> : wkv_kernel<T, D, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  wkv_kernel<T, D><<<B * H, threads(D), smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, u, y, s_fin, S, H);
+  kernel<<<B * H, Layout<D>::THREADS, smem, stream>>>(mr, mk, mv, mw, my, u,
+                                                      s_fin, S, H, prof);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_d(int bf16, const void* r, const void* k, const void* v,
              const float* w, const float* u, float* y, float* s_fin, int B,
-             int S, int H, cudaStream_t stream) {
+             int S, int H, unsigned long long* prof, cudaStream_t stream) {
   if (bf16)
     return launch_typed<__nv_bfloat16, D>(r, k, v, w, u, y, s_fin, B, S, H,
-                                          stream);
-  return launch_typed<float, D>(r, k, v, w, u, y, s_fin, B, S, H, stream);
+                                          prof, stream);
+  return launch_typed<float, D>(r, k, v, w, u, y, s_fin, B, S, H, prof,
+                                stream);
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING(rwkv_wkv)
 
+// prof: null, or P_SLOTS zeroed counters that a profiled launch adds to
 extern "C" int rwkv_wkv_launch(const void* r, const void* k, const void* v,
                                const float* w, const float* u, float* y,
                                float* s_fin, int B, int S, int H, int d,
-                               int bf16, cudaStream_t stream) {
+                               int bf16, unsigned long long* prof,
+                               cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return launch_d<16>(bf16, r, k, v, w, u, y, s_fin, B, S, H, stream);
+      return launch_d<16>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+                          stream);
     case 32:
-      return launch_d<32>(bf16, r, k, v, w, u, y, s_fin, B, S, H, stream);
+      return launch_d<32>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+                          stream);
     case 64:
-      return launch_d<64>(bf16, r, k, v, w, u, y, s_fin, B, S, H, stream);
+      return launch_d<64>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+                          stream);
     default:
       return cudaErrorInvalidValue;
   }

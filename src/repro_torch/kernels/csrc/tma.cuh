@@ -1,6 +1,7 @@
 // Hopper's asynchronous copies, shared by the kernels that stream rows
-// through a ring of shared-memory stages (nn_search.cu, ivf_stage2.cuh):
-// mbarriers, TMA loads of 2-d tensor-map boxes, 1-d bulk copies, and the
+// through a ring of shared-memory stages (nn_search.cu, ivf_stage2.cuh,
+// rwkv_wkv.cu, mamba_scan.cu): mbarriers, TMA loads of 2-d and 3-d
+// tensor-map boxes and TMA stores of 3-d ones, 1-d bulk copies, and the
 // tensor-map encoder, found through the CUDA runtime so that no library
 // links against libcuda.
 #pragma once
@@ -60,6 +61,53 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of shared memory out to a 3-d tensor map (entries past the
+// tensor's edges are not written), in the thread's current bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// close the thread's current bulk group of stores
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of the thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// this thread's shared-memory writes, visible to a later TMA store
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // `bytes` (a multiple of 16) contiguous bytes from 16-byte aligned global
 // memory into 16-byte aligned shared memory, completing on `bar`
 __device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
@@ -117,6 +165,33 @@ cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type,
       map, type, 2, const_cast<void*>(base), dims, strides, box, one,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A contiguous tensor of `rank` dims (dims[0] the fastest, in elements of
+// `elem_bytes`) as a tensor map of `box` boxes, no swizzle; entries past
+// its edges read as zeros and are not written. Each stride, dims[0] *
+// elem_bytes and up, must be a multiple of 16 bytes.
+cudaError_t contiguous_map(CUtensorMap* map, CUtensorMapDataType type,
+                           const void* base, int rank, const long long* dims,
+                           int elem_bytes, const int* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  cuuint64_t gdims[5], strides[4];
+  cuuint32_t gbox[5], one[5];
+  cuuint64_t stride = static_cast<cuuint64_t>(elem_bytes);
+  for (int i = 0; i < rank; ++i) {
+    gdims[i] = static_cast<cuuint64_t>(dims[i]);
+    gbox[i] = static_cast<cuuint32_t>(box[i]);
+    one[i] = 1;
+    stride *= gdims[i];
+    if (i + 1 < rank) strides[i] = stride;
+  }
+  const CUresult r = encode(
+      map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+      gdims, strides, gbox, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

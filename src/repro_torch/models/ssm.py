@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.env import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import _dense, model_dtype
 
@@ -106,8 +107,9 @@ def mamba_apply(params, x, cfg: ModelConfig):
     return mamba_apply_state(params, x, cfg)[0]
 
 
-def mamba_init_state(cfg: ModelConfig, B: int, dtype, device=None):
+def mamba_init_state(cfg: ModelConfig, B: int, dtype, device="cuda"):
     di, _, ds = _mamba_dims(cfg)
+    device = resolve_device(device)
     return {"h": torch.zeros((B, di, ds), device=device),
             "conv_buf": torch.zeros((B, cfg.ssm_conv_width - 1, di),
                                     dtype=dtype, device=device)}
@@ -214,8 +216,9 @@ def rwkv6_apply(params, x, cfg: ModelConfig):
     return rwkv6_apply_state(params, x, cfg)[0]
 
 
-def rwkv6_init_state(cfg: ModelConfig, B: int, dtype, device=None):
+def rwkv6_init_state(cfg: ModelConfig, B: int, dtype, device="cuda"):
     Hn, hd = _heads(cfg)
+    device = resolve_device(device)
     return {"S": torch.zeros((B, Hn, hd, hd), device=device),
             "x_prev": torch.zeros((B, cfg.d_model), dtype=dtype,
                                   device=device)}

@@ -502,24 +502,34 @@ def test_cuda_flash_attention_refuses_what_it_cannot_take():
         require_tma_strides("q", 2 ** 26, 64, 128)
 
 
-WKV_CASES = [  # (B, S, H, d): the rwkv6-7b prefill's, then smaller ones
-    (4, 2048, 64, 64),
-    (2, 200, 4, 16),          # a ragged last chunk
-    (3, 333, 8, 32),
-    (1, 1000, 2, 64),
-    (2, 1, 3, 32),            # one step
+WKV_CASES = [  # (B, S, H, d, decays): the rwkv6-7b prefill's, then smaller
+    (4, 2048, 64, 64, "model"),
+    (2, 200, 4, 16, "model"),          # a ragged last chunk
+    (3, 333, 8, 32, "model"),
+    (1, 1000, 2, 64, "model"),
+    (2, 1, 3, 32, "model"),            # one step
+    (2, 2048, 4, 64, "extreme"),
+    (1, 333, 3, 32, "extreme"),
 ]
 
 
-def wkv_inputs(B, S, H, d, dtype, dev, seed=0):
-    """r, k, v N(0, 1) in ``dtype``, w = exp(-exp(N(-2, 0.5))) and u
-    0.1 N(0, 1) in fp32: the rwkv6 model's ranges (dec_0 = -2 plus a
-    low-rank term; the projections of a normed input)."""
+def wkv_inputs(B, S, H, d, dtype, dev, seed=0, decays="model"):
+    """r, k, v N(0, 1) in ``dtype``, u 0.1 N(0, 1) in fp32 and w
+    = exp(-exp(dec)): with ``decays="model"`` dec = N(-2, 0.5) per entry,
+    the rwkv6 model's ranges (dec_0 = -2 plus a low-rank term; the
+    projections of a normed input); with ``"extreme"`` dec = N(0, 2) per
+    (h, i), the same at every step, so that w runs from 0 (underflowed) to
+    ~0.9997 and the state of the rows with w near 1 grows over thousands
+    of steps."""
     g = torch.Generator(device=dev).manual_seed(seed)
     r, k, v = (torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
                for _ in range(3))
-    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
-        (B, S, H, d), generator=g, device=dev)))
+    if decays == "model":
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+            (B, S, H, d), generator=g, device=dev)))
+    else:
+        dec = 2.0 * torch.randn((H, d), generator=g, device=dev)
+        w = torch.exp(-torch.exp(dec)).expand(B, S, H, d).contiguous()
     u = 0.1 * torch.randn((H, d), generator=g, device=dev)
     return r, k, v, w, u
 
@@ -529,14 +539,15 @@ def wkv_inputs(B, S, H, d, dtype, dev, seed=0):
 @pytest.mark.parametrize("case", WKV_CASES)
 def test_cuda_rwkv_wkv_matches_plain(case, dtype):
     dev = _require_card()
-    args = wkv_inputs(*case, dtype, dev, seed=sum(case))
+    *shape, decays = case
+    args = wkv_inputs(*shape, dtype, dev, seed=sum(shape), decays=decays)
     kern = ops.LAUNCHERS["rwkv_wkv"]
     before = kern.launches
     y, s_fin = kern(*args)
     want_y, want_s = ref.rwkv_wkv_ref(*args)
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    B, S, H, d = case
+    B, S, H, d = shape
     assert y.dtype == s_fin.dtype == torch.float32
     assert y.shape == (B, S, H, d) and s_fin.shape == (B, H, d, d)
     for got, want in ((y, want_y), (s_fin, want_s)):
@@ -558,27 +569,36 @@ def test_cuda_rwkv_wkv_refuses_what_it_cannot_take():
         ops.rwkv_wkv(r.half(), k.half(), v.half(), w, u)
 
 
-MAMBA_CASES = [  # (B, S, di, ds, x dtype): the jamba prefill's, then smaller
-    (4, 2048, 16384, 16, torch.bfloat16),
-    (2, 333, 256, 16, torch.float32),    # S no multiple of the chunk
-    (3, 100, 200, 8, torch.bfloat16),    # di no multiple of the block
-    (2, 1, 128, 32, torch.float32),      # one step
-    (1, 64, 40, 4, torch.float32),
+MAMBA_CASES = [  # (B, S, di, ds, x dtype, A): the jamba prefill's, smaller
+    (4, 2048, 16384, 16, torch.bfloat16, "init"),
+    (2, 333, 256, 16, torch.float32, "init"),    # S no multiple of the chunk
+    (3, 100, 200, 8, torch.bfloat16, "init"),    # di no multiple of the block
+    (2, 1, 128, 32, torch.float32, "init"),      # one step
+    (1, 64, 40, 4, torch.float32, "init"),
+    (4, 2048, 16384, 16, torch.bfloat16, "trained"),
+    (2, 333, 256, 16, torch.bfloat16, "trained"),
+    (2, 50, 37, 8, torch.float32, "trained"),    # di no multiple of 8
 ]
 
 
-def mamba_inputs(B, S, di, ds, dtype, dev, seed=0):
-    """delta = softplus(N(-4.6, 1)) (the model's dt_bias plus a
-    projection), x N(0, 1) in ``dtype``, B and C N(0, 1), A = -(1 .. ds)
-    on every channel (the model's init), all but x fp32."""
+def mamba_inputs(B, S, di, ds, dtype, dev, seed=0, A_kind="init"):
+    """x N(0, 1) in ``dtype``, B and C N(0, 1), all but x fp32. With
+    ``A_kind="init"`` delta = softplus(N(-4.6, 1)) (the model's dt_bias
+    plus a projection) and A = -(1 .. ds) on every channel (the model's
+    init); with ``"trained"`` delta = softplus(N(0, 1)) and a per-channel
+    A = -exp(0.3 N(0, 1)), the ranges of tests/test_torch_jamba.py."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    mu = -4.6 if A_kind == "init" else 0.0
     delta = torch.nn.functional.softplus(
-        -4.6 + torch.randn((B, S, di), generator=g, device=dev))
+        mu + torch.randn((B, S, di), generator=g, device=dev))
     x = torch.randn((B, S, di), generator=g, device=dev).to(dtype)
     bm, cm = (torch.randn((B, S, ds), generator=g, device=dev)
               for _ in range(2))
-    A = -torch.arange(1, ds + 1, dtype=torch.float32,
-                      device=dev).expand(di, ds).contiguous()
+    if A_kind == "init":
+        A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=dev).expand(di, ds).contiguous()
+    else:
+        A = -torch.exp(0.3 * torch.randn((di, ds), generator=g, device=dev))
     return delta, bm, cm, x, A
 
 
@@ -586,12 +606,13 @@ def mamba_inputs(B, S, di, ds, dtype, dev, seed=0):
 @pytest.mark.parametrize("case", MAMBA_CASES)
 def test_cuda_mamba_scan_matches_plain(case):
     """y and the final state within 5e-5 plus 1e-5 of the value (WKV's
-    bound): each step's exp, multiply and add run as the plain version's
-    in fp32, but with fused multiply-adds and the 16-state sum in another
-    order; the decay keeps the state from growing those errors."""
+    bound): each step's multiply and add run as the plain version's in
+    fp32, but with fused multiply-adds, the 16-state sum in another order
+    and each exp as exp2 by ``ex2.approx`` (relative error at most
+    2^-22); the decay keeps the state from growing those errors."""
     dev = _require_card()
-    *shape, dtype = case
-    args = mamba_inputs(*shape, dtype, dev, seed=sum(shape))
+    *shape, dtype, A_kind = case
+    args = mamba_inputs(*shape, dtype, dev, seed=sum(shape), A_kind=A_kind)
     kern = ops.LAUNCHERS["mamba_scan"]
     before = kern.launches
     y, h_fin = kern(*args)

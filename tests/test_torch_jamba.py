@@ -166,11 +166,21 @@ def test_mixer_state_and_decode_match_jax(mixer_pair, S):
     for n in ("h", "conv_buf"):
         _close(st1[n], jst1[n], f"decode {n}")
     assert ssm.mamba_apply(tp, t(x), tcfg).shape == (B, S, D)
-    empty = ssm.mamba_init_state(tcfg, B, torch.float32)
+    empty = ssm.mamba_init_state(tcfg, B, torch.float32, device="cpu")
     jempty = jssm.mamba_init_state(cfg, B, jnp.float32)
     for n in ("h", "conv_buf"):
         assert tuple(empty[n].shape) == jempty[n].shape
         assert not empty[n].any()
+
+
+def test_mamba_init_state_defaults_to_the_card(mixer_pair, monkeypatch):
+    """Like every entry point of the port, the empty state is made on the
+    card unless the caller names the CPU: without a card the default
+    raises the "no CUDA device" error instead of falling back."""
+    tcfg = mixer_pair[2]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssm.mamba_init_state(tcfg, 2, torch.float32)
 
 
 def test_mixer_prefill_on_cpu_launches_nothing(mixer_pair):

@@ -8,6 +8,8 @@ CUDA kernel against its plain version on a card.
 Tolerances: ids, versions and counts exact; rows and state leaves atol
 1e-6; lookup values and nn scores atol 1e-5 (tests/test_kb_engine.py).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +23,10 @@ from repro.kernels.nn_search import nn_search_pallas
 from repro.kernels.nn_search import overfetch_exclude_topk as jax_overfetch
 from repro_torch import env
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import mamba_scan as mamba_scan_mod
+from repro_torch.kernels.mamba_scan import mamba_scan_cycles
 from repro_torch.kernels.nn_search import KMAX, tile_plan
+from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cycles
 
 LAZY_LR, ZMAX = 0.2, 2.0
 
@@ -345,6 +350,108 @@ def test_mamba_scan_kernel_refuses_other_dtypes_and_shapes():
     with pytest.raises(ValueError, match=r"\(di, ds\)"):
         ops.mamba_scan(delta, bm, cm, x, A[:3])
     assert ops.launch_counts()["mamba_scan"] == 0
+
+
+def _off_boundary(t):
+    """``t``'s values in a tensor that starts one element past a 16-byte
+    boundary."""
+    flat = torch.zeros(t.numel() + 16 // t.element_size(), dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("kernel, name", [
+    ("rwkv_wkv", "r"), ("rwkv_wkv", "k"), ("rwkv_wkv", "v"),
+    ("rwkv_wkv", "w"), ("rwkv_wkv", "u"),
+    ("mamba_scan", "delta"), ("mamba_scan", "bm"), ("mamba_scan", "cm"),
+    ("mamba_scan", "x")])
+def test_recurrence_launchers_refuse_inputs_off_a_16_byte_boundary(
+        kernel, name, monkeypatch):
+    """The WKV and scan kernels read their inputs by TMA (u as float4s),
+    which takes 16-byte aligned starts: the launcher names the input that
+    is off that boundary and launches nothing. The device check is set
+    aside so that CPU tensors reach the alignment check."""
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
+
+    def no_launch(*a):
+        raise AssertionError("launched an off-boundary input")
+    monkeypatch.setattr(mod, "launch", no_launch)
+    if kernel == "rwkv_wkv":
+        names = ("r", "k", "v", "w", "u")
+        args = _wkv_tensors(1, 4, 2, 32, torch.bfloat16)
+    else:
+        names = ("delta", "bm", "cm", "x", "A")
+        args = _scan_tensors(1, 4, 16, 16, torch.bfloat16)
+    i = names.index(name)
+    args[i] = _off_boundary(args[i])
+    before = ops.launch_counts()[kernel]
+    with pytest.raises(ValueError, match=f"^{name} must start on a 16-byte"):
+        ops.LAUNCHERS[kernel](*args)
+    assert ops.launch_counts()[kernel] == before
+
+
+@pytest.mark.parametrize("kernel, shape, launched", [
+    ("rwkv_wkv", (1, 0, 2, 32), False), ("rwkv_wkv", (0, 4, 2, 32), False),
+    ("rwkv_wkv", (1, 4, 2, 32), True),
+    ("mamba_scan", (1, 0, 16, 16), False), ("mamba_scan", (1, 4, 0, 16), False),
+    ("mamba_scan", (1, 4, 16, 16), True), ("mamba_scan", (1, 4, 37, 8), True)])
+def test_recurrence_launchers_count_only_their_launches(kernel, shape,
+                                                        launched,
+                                                        monkeypatch):
+    """A launcher adds one to its count where it launches its kernel and
+    nowhere else: a call with no step (S, B or di 0) launches nothing and
+    counts nothing, and a scan whose channels are padded counts its one
+    launch once. The device check and the launch are stood in for so that
+    CPU tensors reach them."""
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
+    calls = []
+    monkeypatch.setattr(mod, "launch", lambda *a: calls.append(a))
+    make = _wkv_tensors if kernel == "rwkv_wkv" else _scan_tensors
+    before = ops.launch_counts()
+    ops.LAUNCHERS[kernel](*make(*shape, torch.bfloat16))
+    assert len(calls) == int(launched)
+    assert ops.launch_counts() == {**before,
+                                   kernel: before[kernel] + int(launched)}
+
+
+def test_recurrence_profilers_refuse_cpu_tensors():
+    """``rwkv_wkv_cycles`` and ``mamba_scan_cycles`` time the kernel on the
+    card: CPU tensors are refused, never run on the plain version, and no
+    count moves."""
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv_wkv_cycles(*_wkv_tensors(1, 4, 2, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_cycles(*_scan_tensors(1, 4, 16, 16))
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+
+
+@pytest.mark.parametrize("di", [1, 5, 8, 37, 200])
+def test_mamba_scan_pads_channels_to_the_kernels_multiple(di):
+    """The launcher pads di with zero channels up to a multiple of 8 (TMA's
+    16-byte rows) and cuts them off again: the padded widths, zeros in the
+    added channels, and the plain version on the padded inputs equal to it
+    on the originals, with y and h exactly 0 in the added channels."""
+    delta, bm, cm, x, A = _scan_tensors(2, 9, di, 8, torch.bfloat16)
+    pd, px, pA = mamba_scan_mod.pad_channels(delta, x, A)
+    width = -(-di // mamba_scan_mod.DI_MULTIPLE) * mamba_scan_mod.DI_MULTIPLE
+    assert pd.shape == px.shape == (2, 9, width) and pA.shape == (width, 8)
+    assert px.dtype == x.dtype
+    if width == di:
+        assert pd is delta and px is x and pA is A
+    assert torch.equal(pd[..., :di], delta) and torch.equal(px[..., :di], x)
+    assert torch.equal(pA[:di], A)
+    assert not pd[..., di:].any() and not px[..., di:].any()
+    assert not pA[di:].any()
+    y, h = ref.mamba_scan_ref(pd, bm, cm, px, pA)
+    want_y, want_h = ref.mamba_scan_ref(delta, bm, cm, x, A)
+    assert not y[..., di:].any() and not h[:, di:].any()
+    torch.testing.assert_close(y[..., :di], want_y, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(h[:, :di], want_h, atol=1e-6, rtol=1e-6)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

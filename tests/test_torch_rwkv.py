@@ -163,11 +163,21 @@ def test_mixer_projections_state_and_decode_match_jax(mixer_pair):
     _close(st1["x_prev"], jst1["x_prev"], "decode x_prev", atol=1e-6,
            rtol=0)
     assert ssm.rwkv6_apply(tp, t(x), tcfg).shape == (B, S, D)
-    empty = ssm.rwkv6_init_state(tcfg, B, torch.float32)
+    empty = ssm.rwkv6_init_state(tcfg, B, torch.float32, device="cpu")
     jempty = jssm.rwkv6_init_state(cfg, B, jnp.float32)
     for n in ("S", "x_prev"):
         assert tuple(empty[n].shape) == jempty[n].shape
         assert not empty[n].any()
+
+
+def test_rwkv6_init_state_defaults_to_the_card(mixer_pair, monkeypatch):
+    """Like every entry point of the port, the empty state is made on the
+    card unless the caller names the CPU: without a card the default
+    raises the "no CUDA device" error instead of falling back."""
+    tcfg = mixer_pair[2]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssm.rwkv6_init_state(tcfg, 2, torch.float32)
 
 
 def test_mixer_prefill_on_cpu_launches_nothing(mixer_pair):

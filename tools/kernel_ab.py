@@ -6,16 +6,18 @@ on one card, in turns.
                               [--rounds 1]
 
 NAME is flash_bf16, nn_search, ivf_stage2, ivf_stage2_q,
-ivf_stage2_sharded or ivf_stage2_sharded_q. DIR is another checkout of
-the repo (for example the parent commit, unpacked by ``git archive`` into
-an ignored directory). Each round runs one process per checkout in the
+ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv or mamba_scan. DIR is
+another checkout of the repo (for example the parent commit, unpacked by
+``git archive`` into an ignored directory, or a variant of ``src/``
+copied under one). Each round runs one process per checkout in the
 order other, this, this, other; each process imports its own checkout's
 ``repro_torch``, builds that checkout's kernel sources into its own
 ``build/``, makes the inputs from one seed on the card, and for each
 kernel checks it against its plain version and times it (CUDA events, as
-``chip_smoke.py`` does); for flash_bf16 and the stage-2 entries it reads
-the kernel's stage profile where the checkout has one. It prints one JSON
-line per process and kernel, then the card's name and power limit.
+``chip_smoke.py`` does); for flash_bf16, the stage-2 entries, rwkv_wkv
+and mamba_scan it reads the kernel's stage profile where the checkout
+has one. It prints one JSON line per process and kernel, then the card's
+name and power limit.
 Without ``--other`` it times this checkout once.
 
 The shapes are the serve paths': flash_bf16 the yi-6b prefill's q, k, v
@@ -24,16 +26,22 @@ bank (1,939,743 x 128 fp32) with 32 queries and k = 8; the IVF stage 2
 entries an index of 64 buckets over that bank (fp32, or over its int8
 quantization), or 3 shards of 64 buckets each, 32 queries (rows of the
 bank) probing 8 buckets (of each shard), k = 8 over fp32 rows and kq = 32
-over int8 rows, each also timed at the other k. nn_search and the stage-2
-entries are also timed on the batches the KB engine pads (``padded``):
-it fills a batch with zero queries up to a power of two of at least 8,
-so B 8 with 4 real queries and B 16 with 12, each checked against its
+over int8 rows, each also timed at the other k; rwkv_wkv the rwkv6-7b
+prefill's r, k, v (B 4, S 2048, H 64, d 64, bf16) and mamba_scan the
+jamba prefill's (B 4, S 2048, di 16384, ds 16, x bf16), made in the
+models' ranges by ``wkv_inputs`` and ``scan_inputs`` (which
+``chip_smoke.py`` phase 2 uses too); their ``max_abs_err`` is over y and
+the final state. nn_search and the stage-2 entries are also timed
+on the batches the KB engine pads (``padded``): it fills a batch with
+zero queries up to a power of two of at least 8, so B 8 with 4 real
+queries and B 16 with 12, each checked against its
 plain version (``zero_rows_exact``: the zero queries' lists, all ties at
 0, equal the plain version's bit for bit). ``host_us`` is the host's
 time per call of the kernel's launcher, 20 calls queued without a
 synchronisation.
 """
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -68,7 +76,7 @@ STAGE2 = {  # name: (sharded, int8, k, the other k)
     "ivf_stage2_sharded": (True, False, 8, 32),
     "ivf_stage2_sharded_q": (True, True, 32, 8),
 }
-KERNELS = ("flash_bf16", "nn_search", *STAGE2)
+KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan")
 
 
 def host_us(fn, iters: int = 20) -> float:
@@ -138,6 +146,49 @@ def stage2_inputs(name: str, bank, queries):
     return rest(queries), getattr(ref, f"{name}_ref"), rest
 
 
+def wkv_inputs(B, S, H, d, dtype, g, decays="model"):
+    """r, k, v N(0, 1) in ``dtype``; u 0.1 N(0, 1) and w = exp(-exp(dec))
+    in fp32. ``decays="model"``: dec = N(-2, 0.5) per entry, the rwkv6
+    model's ranges (the projections of a normed input; the decay base
+    dec_0 = -2 plus a low-rank term). ``"extreme"``: dec = N(0, 2) per
+    (h, i) at every step, so w runs from 0 (underflowed) to ~0.9997 and
+    the state of the rows with w near 1 grows over the whole sequence."""
+    import torch
+    dev = torch.device("cuda")
+    r, k, v = (torch.randn((B, S, H, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    if decays == "model":
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+            (B, S, H, d), generator=g, device=dev)))
+    else:
+        dec = 2.0 * torch.randn((H, d), generator=g, device=dev)
+        w = torch.exp(-torch.exp(dec)).expand(B, S, H, d).contiguous()
+    u = 0.1 * torch.randn((H, d), generator=g, device=dev)
+    return r, k, v, w, u
+
+
+def scan_inputs(B, S, di, ds, dtype, g, A_kind="init"):
+    """x N(0, 1) in ``dtype``, B and C N(0, 1); all but x fp32. With
+    ``A_kind="init"`` delta = softplus(N(-4.6, 1)) (the model's dt_bias
+    plus a projection) and A = -(1 .. ds) on every channel (the model's
+    init); with ``"trained"`` delta = softplus(N(0, 1)) and a per-channel
+    A = -exp(0.3 N(0, 1)) (tests/test_torch_jamba.py's ranges)."""
+    import torch
+    dev = torch.device("cuda")
+    mu = -4.6 if A_kind == "init" else 0.0
+    delta = torch.nn.functional.softplus(
+        mu + torch.randn((B, S, di), generator=g, device=dev))
+    x = torch.randn((B, S, di), generator=g, device=dev).to(dtype)
+    bm, cm = (torch.randn((B, S, ds), generator=g, device=dev)
+              for _ in range(2))
+    if A_kind == "init":
+        A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=dev).expand(di, ds).contiguous()
+    else:
+        A = -torch.exp(0.3 * torch.randn((di, ds), generator=g, device=dev))
+    return delta, bm, cm, x, A
+
+
 def measure(root: Path, kernels) -> list:
     """Build ``root``'s kernels, check each against its plain version and
     time it; runs in a process of its own."""
@@ -150,7 +201,7 @@ def measure(root: Path, kernels) -> list:
                          "ivf_stage2_sharded" if k.startswith(
                              "ivf_stage2_sharded") else k for k in kernels}))
     bank = queries = None
-    if any(k != "flash_bf16" for k in kernels):
+    if any(k == "nn_search" or k in STAGE2 for k in kernels):
         bank = torch.randn((1_939_743, 128), generator=g, device=dev)
         queries = bank[torch.randint(0, bank.shape[0], (32,), generator=g,
                                      device=dev)] + 0.01
@@ -203,6 +254,21 @@ def measure(root: Path, kernels) -> list:
             if hasattr(s2, "ivf_stage2_cycles"):    # a checkout that has it
                 extra["stage_cycles"] = s2.ivf_stage2_cycles(kernel, *args,
                                                              k=k)
+            del args
+        elif kernel in ("rwkv_wkv", "mamba_scan"):
+            g.manual_seed(0)
+            args = (wkv_inputs(4, 2048, 64, 64, torch.bfloat16, g)
+                    if kernel == "rwkv_wkv" else
+                    scan_inputs(4, 2048, 16384, 16, torch.bfloat16, g))
+            fn = ops.LAUNCHERS[kernel]
+            got, want = fn(*args), getattr(ref, f"{kernel}_ref")(*args)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            del got, want
+            ms = time_ms(lambda: fn(*args), 20)
+            mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+            if hasattr(mod, f"{kernel}_cycles"):    # a checkout that has it
+                extra = {"stage_cycles": getattr(mod, f"{kernel}_cycles")(
+                    *args)}
             del args
         else:
             raise ValueError(f"unknown kernel {kernel!r}")
