@@ -24,7 +24,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the merge's windows, where its warps' cycles go). Error, kernel time,
    plain time, the least time the card could take (bytes over 3.35 TB/s
    or fp32 operations over 67 TFLOP/s, from this run's data) and, where
-   one PyTorch call computes the same function, that call's time;
+   one PyTorch call computes the same function, that call's time. The
+   two fused lookups run with the version bump, also at a batch of 1024
+   whose duplicates lie in other blocks, each repeated (bit-identical),
+   beside the launch floor (an empty kernel by the same events); then
+   the whole CudaBackend lookup and lookup_q ops, which must launch one
+   kernel and make no host sync (torch's sync debug mode raises on one);
 3. engine parity: the cuda backend against the dense reference on one op
    stream (duplicate ids, update, lazy_grad, lookup, flush, nn_search with
    and without exclusion), for lazy_update True and False and for int8
@@ -130,7 +135,8 @@ from repro_torch.core import ann_index  # noqa: E402
 from repro_torch.core import knowledge_bank as kbm  # noqa: E402
 from repro_torch.core.async_runtime import KnowledgeBankServer  # noqa: E402
 from repro_torch.core.kb_engine import (  # noqa: E402
-    DenseBackend, KBEngine, KBIdError, ShardedBackend, make_kb_ops)
+    CudaBackend, DenseBackend, KBEngine, KBIdError, ShardedBackend,
+    make_kb_ops)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_stage_cycles)
@@ -141,7 +147,9 @@ from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
 from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cycles  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from tools.kernel_ab import scan_inputs, wkv_inputs  # noqa: E402
+from tools.kernel_ab import (  # noqa: E402
+    lookup_bank, lookup_ids, lookup_op, restorer, scan_inputs, spread_ids,
+    time_ms, wkv_inputs)
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 SHARDS = 3                          # the smallest count that divides N_ROWS
@@ -154,7 +162,6 @@ BF16_FLOP_PER_S = 989e12            # dense tensor-core peak
 SERVE_ROUNDS = 32
 NLIST, NPROBE = 64, 8               # the launcher's IVF defaults
 KQ = 32                             # the int8 engine's 4k over-retrieval
-SLEEP_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 # Tolerances: the kernels compute the references' formulas step by step,
 # but sum squares and products in another order than PyTorch, so a value
 # may move by a few ulps. fp32 leaves and rows of magnitude <= ~10:
@@ -243,31 +250,6 @@ def log(msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def time_ms(fn, iters: int, setup=None) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around each call,
-    after one warm-up call; ``setup`` (untimed) runs before each call. A
-    ~1 ms sleep kernel queued just before the start event keeps the card
-    busy while the host queues the call, so the events bracket the
-    device's work and not the host's launch latency (which would
-    otherwise dominate the microsecond kernels)."""
-    if setup:
-        setup()
-    fn()
-    pairs = []
-    for _ in range(iters):
-        if setup:
-            setup()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
@@ -779,107 +761,172 @@ def phase2_nn_cases(table, queries):
         f"max_abs_err={err}, equal scores lowest id first")
 
 
+def owners_agree(vals, ids) -> bool:
+    """Every occurrence of an id reads, bit for bit, the row of its first
+    occurrence."""
+    _, inverse = torch.unique(ids, return_inverse=True)
+    pos = torch.arange(ids.numel(), device=ids.device)
+    first = torch.full_like(pos, ids.numel()).scatter_reduce(
+        0, inverse, pos, "amin")
+    return torch.equal(vals, vals[first[inverse]])
+
+
+def check_lookup(name, int8, src, ids, label):
+    """One fused lookup with the version bump against its plain version,
+    from copies of ``src`` and a zero version: rows and fp32 leaves within
+    ATOL_ROWS, versions exact, int8 codes as check_codes holds them, each
+    duplicate reading its owner's row bit for bit, untouched rows and
+    versions unchanged. Returns (error, codes rounded the other way, the
+    kernel's vals, its touched leaves' rows and its version)."""
+    kernels = ops.LAUNCHERS
+    plain = getattr(ref, f"{name}_ref")
+    uniq = torch.unique(ids[ids >= 0])
+    zero = torch.zeros(N_ROWS, dtype=torch.int32, device=ids.device)
+    leaves_k, leaves_p = ([t.clone() for t in src] for _ in range(2))
+    ver_k, ver_p = zero.clone(), zero.clone()
+    vals_k = kernels[name](*leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX,
+                           version=ver_k)
+    vals_p = plain(*leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX,
+                   version=ver_p)
+    torch.cuda.synchronize()
+    first = 3 if int8 else 0
+    err = max([max_err(vals_k, vals_p)]
+              + [max_err(a[uniq], b[uniq])
+                 for a, b in zip(leaves_k[first:], leaves_p[first:])])
+    require(err <= ATOL_ROWS, f"{name} {label} disagrees: {err}")
+    require(torch.equal(ver_k, ver_p), f"{name} {label}: versions differ")
+    require(owners_agree(vals_k, ids),
+            f"{name} {label}: a duplicate read another row than its owner")
+    n_half = check_codes(leaves_k[:3], leaves_p[:3], src, uniq,
+                         f"{name} {label}") if int8 else 0
+    rows = [a[uniq].clone() for a in leaves_k + [ver_k]]
+    for a, b in zip(leaves_k + [ver_k], list(src) + [zero]):
+        a[uniq] = b[uniq]               # untouched rows stay as they were
+        require(torch.equal(a, b), f"{name} {label} wrote an untouched row")
+    return err, n_half, vals_k, rows[:-1], rows[-1]
+
+
+def phase2_lookup(name, int8, src, ids, pending):
+    """A fused lookup at the serve batch and at a batch of 1024 spread
+    over 128 blocks, each against its plain version and repeated
+    (bit-identical); its time at both batches and its plain version's;
+    then the whole CudaBackend op on the same bank: one launch, no host
+    sync (torch's sync debug mode raises on one), its kernels under
+    torch.profiler and its time."""
+    kernels = ops.LAUNCHERS
+    plain = getattr(ref, f"{name}_ref")
+    wide = spread_ids(N_ROWS, ids.device)
+    wide[-1] = -1                       # the Pallas padding id
+    out = {}
+    for label, batch in (("B 32", ids), ("B 1024", wide)):
+        err, n_half, vals, rows, ver = check_lookup(name, int8, src, batch,
+                                                    label)
+        again = check_lookup(name, int8, src, batch, label)
+        require(torch.equal(again[2], vals)
+                and all(torch.equal(a, b) for a, b in zip(again[3], rows))
+                and torch.equal(again[4], ver),
+                f"{name} {label}: a repeated run is not bit-identical")
+        n_pend = int(pending[torch.unique(batch[batch >= 0])].sum())
+        log(f"phase 2: {name} {label} ({torch.unique(batch).numel()} "
+            f"distinct, {n_pend} pending): max_abs_err={err}, versions "
+            f"exact ({int(ver.sum())} bumped), repeated run bit-identical"
+            + (f", {n_half} codes rounded the other way at a half-integer"
+               if int8 else ""))
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0), err)
+    ver = torch.zeros(N_ROWS, dtype=torch.int32, device=ids.device)
+    leaves_k, leaves_p = ([t.clone() for t in src] for _ in range(2))
+    out["ms"] = time_ms(lambda: kernels[name](
+        *leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX, version=ver), 50,
+        restorer(leaves_k, src, ids))
+    out["plain_ms"] = time_ms(lambda: plain(
+        *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX, version=ver), 50,
+        restorer(leaves_p, src, ids))
+    out["library_ms"] = None
+    ms_wide = time_ms(lambda: kernels[name](
+        *leaves_k, wide, lazy_lr=LAZY_LR, zmax=ZMAX, version=ver), 50,
+        restorer(leaves_k, src, wide))
+    log(f"phase 2: {name} B 1024: {ms_wide} ms")
+    del leaves_p
+
+    # the whole op, as the engine queues it
+    restorer(leaves_k, src, ids)()
+    n = N_ROWS
+    state = kbm.KBState(leaves_k[0], torch.zeros(n, dtype=torch.int32,
+                                                 device=ids.device),
+                        *leaves_k[-3:],
+                        norm_ema=torch.zeros(n, device=ids.device),
+                        step=torch.zeros((), dtype=torch.int32,
+                                         device=ids.device))
+    bk = CudaBackend()
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if int8:
+            vals, _ = bk.lookup_q(state, leaves_k[1], leaves_k[2], ids,
+                                  lazy_lr=LAZY_LR, zmax=ZMAX)
+        else:
+            vals, _ = bk.lookup(state, ids, lazy_lr=LAZY_LR, zmax=ZMAX)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(ops.launch_counts() == {**before, name: before[name] + 1},
+            f"the {name} op launched other than one {name}")
+    want = check_lookup(name, int8, src, ids, "op")[2]
+    require(torch.equal(vals, want),
+            f"the {name} op differs from its kernel's call")
+    restorer(leaves_k, src, ids)()
+    op = lookup_op(int8, leaves_k, ids)
+    require(op["kernels"] == 1 and op["host_syncs"] == 0,
+            f"the {name} op queued {op['kernels']} kernels and made "
+            f"{op['host_syncs']} host syncs")
+    log(f"phase 2: CudaBackend.{'lookup_q' if int8 else 'lookup'} op (B "
+        f"32, ids on the card): {op['ms']} ms by events, "
+        f"{op['kernels']} device kernel(s) {op['kernel_names']}, "
+        f"{op['host_syncs']} host syncs, {op['host_us']} us of host time "
+        "a call")
+    out.update(op_ms=op["ms"], op_kernels=op["kernels"], ms_b1024=ms_wide)
+    return out
+
+
 def phase2_kernels():
     """Each kernel against its plain version at the serve path's shapes."""
     kernels = ops.LAUNCHERS
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    table = torch.randn((N_ROWS, DIM), generator=g, device=dev)
-    pending = torch.rand((N_ROWS,), generator=g, device=dev) < 0.2
-    grad_cnt = torch.where(
-        pending, torch.randint(1, 4, (N_ROWS,), generator=g,
-                               device=dev).float(), 0.0)
-    grad_sum = torch.randn((N_ROWS, DIM), generator=g, device=dev)
-    grad_sum *= 0.1 * grad_cnt[:, None]
-    # squared-norm sums that put a tenth of the pending rows past the
-    # outlier clip (avg norm > zmax * rms)
-    grad_sqnorm = ((grad_sum * grad_sum).sum(1) / grad_cnt.clamp(min=1.0)
-                   * torch.rand((N_ROWS,), generator=g, device=dev))
+    table, grad_sum, grad_cnt, grad_sqnorm, pending = lookup_bank(g)
     base = (table, grad_sum, grad_cnt, grad_sqnorm)
     n_pending = int(pending.sum())
     log(f"phase 2: {n_pending} of {N_ROWS} rows hold pending gradients")
 
-    pend_rows = torch.nonzero(pending).squeeze(1)
-    pick = torch.randint(0, pend_rows.numel(), (12,), generator=g,
-                         device=dev)
-    ids = torch.cat([pend_rows[pick],
-                     torch.randint(0, N_ROWS, (12,), generator=g,
-                                   device=dev)])
-    ids = torch.cat([ids, ids[:BATCH - ids.numel()]])      # duplicates
+    ids = lookup_ids(g, pending, BATCH)
     uniq = torch.unique(ids)
-    n_uniq, n_uniq_pending = uniq.numel(), int(pending[uniq].sum())
+    n_uniq = uniq.numel()
     queries = torch.randn((BATCH, DIM), generator=g, device=dev)
     results = {}
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0), 200)
+    log(f"phase 2: launch floor (torch.cuda._sleep(0), one thread that "
+        f"returns at once, by the same events): {floor_ms} ms")
 
-    # -- kb_fused_lookup: in place on the touched rows -------------------
-    leaves_k = [t.clone() for t in base]
-    leaves_p = [t.clone() for t in base]
-    vals_k = kernels["kb_fused_lookup"](*leaves_k, ids, lazy_lr=LAZY_LR,
-                                        zmax=ZMAX)
-    vals_p = ref.kb_fused_lookup_ref(*leaves_p, ids, lazy_lr=LAZY_LR,
-                                     zmax=ZMAX)
-    torch.cuda.synchronize()
-    err = max([max_err(vals_k, vals_p)]
-              + [max_err(a[uniq], b[uniq])
-                 for a, b in zip(leaves_k, leaves_p)])
-    require(err <= ATOL_ROWS, f"kb_fused_lookup disagrees: {err}")
-    for a, b in zip(leaves_k, base):      # untouched rows stay as they were
-        a[uniq] = b[uniq]
-        require(torch.equal(a, b), "kb_fused_lookup wrote an untouched row")
-
-    def restore(leaves, source=base):
-        def setup():
-            for a, b in zip(leaves, source):
-                a[uniq] = b[uniq]
-        return setup
-
-    D4 = DIM * 4
-    nbytes = (ids.numel() * 8 + n_uniq * (2 * D4 + 16)
-              + n_uniq_pending * 2 * D4 + BATCH * D4)
-    results["kb_fused_lookup"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kernels["kb_fused_lookup"](
-            *leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
-            restore(leaves_k)),
-        plain_ms=time_ms(lambda: ref.kb_fused_lookup_ref(
-            *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
-            restore(leaves_p)),
-        library_ms=None, bound=bound(nbytes, 0.0))
-    del leaves_k, leaves_p
-
-    # -- kb_fused_lookup_q: the bank quantized, the same pending caches ---
+    # -- the fused lookups: in place on the touched rows, with version ----
     codes, qscale, qoffset = kbm.quantize_rows(table)
     base_q = (codes, qscale, qoffset, grad_sum, grad_cnt, grad_sqnorm)
-    leaves_k = [t.clone() for t in base_q]
-    leaves_p = [t.clone() for t in base_q]
-    vals_k = kernels["kb_fused_lookup_q"](*leaves_k, ids, lazy_lr=LAZY_LR,
-                                          zmax=ZMAX)
-    vals_p = ref.kb_fused_lookup_q_ref(*leaves_p, ids, lazy_lr=LAZY_LR,
-                                       zmax=ZMAX)
-    torch.cuda.synchronize()
-    err = max([max_err(vals_k, vals_p)]
-              + [max_err(a[uniq], b[uniq])
-                 for a, b in zip(leaves_k[3:], leaves_p[3:])])
-    require(err <= ATOL_ROWS, f"kb_fused_lookup_q disagrees: {err}")
-    n_half = check_codes(leaves_k[:3], leaves_p[:3], base_q, uniq,
-                         "kb_fused_lookup_q")
-    for a, b in zip(leaves_k, base_q):    # untouched rows stay as they were
-        a[uniq] = b[uniq]
-        require(torch.equal(a, b), "kb_fused_lookup_q wrote an untouched row")
-    log(f"phase 2: kb_fused_lookup_q codes equal but {n_half} rounded the "
-        f"other way at a half-integer")
-    nbytes = (ids.numel() * 8 + n_uniq * (DIM + 24 + D4)
-              + n_uniq_pending * (D4 + DIM + 8) + BATCH * D4)
-    results["kb_fused_lookup_q"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: kernels["kb_fused_lookup_q"](
-            *leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
-            restore(leaves_k, base_q)),
-        plain_ms=time_ms(lambda: ref.kb_fused_lookup_q_ref(
-            *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX), 50,
-            restore(leaves_p, base_q)),
-        library_ms=None, bound=bound(nbytes, 0.0))
-    del leaves_k, leaves_p
+    D4 = DIM * 4
+    for name, int8, src in (("kb_fused_lookup", False, base),
+                            ("kb_fused_lookup_q", True, base_q)):
+        results[name] = phase2_lookup(name, int8, src, ids, pending)
+        results[name]["launch_floor_ms"] = floor_ms
+        n_p = int(pending[uniq].sum())
+        # what this run's data needs, each input read once and each output
+        # written once: the ids; every distinct row's stored row (fp32, or
+        # codes, scale and offset) and grad_cnt; for each row with pending
+        # gradients its grad_sum row and grad_sqnorm read, its stored row,
+        # zeroed grad_sum row and counters written, and its version read
+        # and written (the other rows' caches are zero already); B output
+        # rows
+        row_bytes = DIM + 8 if int8 else D4
+        nbytes = (ids.numel() * 8 + n_uniq * (row_bytes + 4)
+                  + n_p * (D4 + 4 + row_bytes + D4 + 8 + 8) + BATCH * D4)
+        results[name]["bound"] = bound(nbytes, 0.0)
 
     # -- kb_gather --------------------------------------------------------
     gids = ids.clone()
@@ -1935,7 +1982,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            **({"fp32": r["fp32"]} if "fp32" in r else {})})
+            **{k: r[k] for k in ("fp32", "launch_floor_ms", "ms_b1024",
+                                 "op_ms", "op_kernels") if k in r}})
     log("kernels: " + "; ".join(
         f"{k['name']} err={k['max_abs_err']:.3g} ms={k['ms']:.4g} "
         f"plain={k['plain_ms']:.4g} bound={k['bound_ms']:.4g} "

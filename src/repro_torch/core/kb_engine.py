@@ -194,15 +194,13 @@ class CudaBackend:
         if not apply_pending:
             return (ops.kb_gather(state.table, flat).reshape(*ids.shape, -1),
                     state)
-        # version is (N,) metadata: +1 per touched row with pending
-        # gradients, read before the kernel clears grad_cnt (duplicates
-        # write equal values)
-        rows = flat[(flat >= 0) & (flat < state.table.shape[0])]
-        state.version[rows] = (state.version[rows]
-                               + (state.grad_cnt[rows] > 0).to(torch.int32))
+        # one kernel: the lookup also bumps version, +1 per touched row
+        # with pending gradients (the JAX engine's jnp scatter), so the op
+        # queues nothing else and never waits on the card
         vals = ops.kb_fused_lookup(state.table, state.grad_sum,
                                    state.grad_cnt, state.grad_sqnorm, flat,
-                                   lazy_lr=lazy_lr, zmax=zmax)
+                                   lazy_lr=lazy_lr, zmax=zmax,
+                                   version=state.version)
         return vals.reshape(*ids.shape, -1), state
 
     def update(self, state, ids, values):
@@ -229,13 +227,11 @@ class CudaBackend:
 
     def lookup_q(self, state, qscale, qoffset, ids, *, lazy_lr, zmax):
         flat = ids.reshape(-1).long()
-        rows = flat[(flat >= 0) & (flat < state.table.shape[0])]
-        state.version[rows] = (state.version[rows]
-                               + (state.grad_cnt[rows] > 0).to(torch.int32))
         vals = ops.kb_fused_lookup_q(state.table, qscale, qoffset,
                                      state.grad_sum, state.grad_cnt,
                                      state.grad_sqnorm, flat,
-                                     lazy_lr=lazy_lr, zmax=zmax)
+                                     lazy_lr=lazy_lr, zmax=zmax,
+                                     version=state.version)
         return vals.reshape(*ids.shape, -1), state
 
     def ivf_search(self, state, index, queries, k, nprobe):

@@ -71,9 +71,18 @@ def fit_block_rows(dim: int, *, want: int = DEFAULT_BLOCK_ROWS,
 def fused_lookup_block(batch: int, dim: int, *,
                        want: int = DEFAULT_ROWS_PER_BLOCK,
                        budget: int = SMEM_BYTES) -> int:
-    """Rows one block of the fused-lookup kernel takes (one warp per row).
-    Each warp stages its row's averaged gradient, ``dim`` fp32 values, in
-    shared memory; a batch smaller than ``want`` gets a smaller block so
-    no warp idles."""
+    """Rows one block of the fused-lookup kernels takes (one warp per row).
+    Each warp keeps two (dim,) fp32 tiles in shared memory, its row's
+    averaged gradient and values; a batch smaller than ``want`` gets a
+    smaller block so no warp idles."""
     return fit_block_rows(dim, want=min(want, _floor_pow2(max(1, batch))),
-                          budget=budget)
+                          n_arrays=2, budget=budget)
+
+
+def stage_lookup_ids(batch: int, dim: int, rows: int, *,
+                     budget: int = SMEM_BYTES) -> bool:
+    """Whether a block of the fused-lookup kernels stages the batch's ids
+    (8 bytes each) in shared memory beside its ``rows`` warps' tiles; a
+    batch too large for that is scanned where it lies, in global
+    memory."""
+    return batch * 8 + rows * 2 * dim * 4 <= budget

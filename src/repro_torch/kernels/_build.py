@@ -152,6 +152,21 @@ def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype,
                          f"{t.is_contiguous()})")
 
 
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel that has no backward:
+    the launch writes its outputs through ctypes into fresh tensors, so
+    they would carry no history and the inputs' gradients would be lost
+    without a word. Under ``torch.no_grad()`` or ``torch.inference_mode()``
+    (the serve paths) nothing is recorded and the kernel runs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and grad mode is on, but the "
+            "CUDA kernel has no backward yet (ROADMAP Q1 item 1, the "
+            "trainer slice, gives it an autograd.Function); run it under "
+            "torch.no_grad() or torch.inference_mode(), or on the CPU, "
+            "whose plain version autograd follows")
+
+
 def require_bank(table, grad_sum, grad_cnt, grad_sqnorm) -> None:
     """Raise unless the four leaves a lazy-apply kernel updates are fp32
     CUDA tensors of one bank: (N, D), (N, D), (N,), (N,) on one device."""

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import launch, require_cuda
+from repro_torch.kernels._build import launch, require_cuda, require_no_grad
 
 KV_TILE = 32            # keys per KV tile of the fp32 kernel (F32_BK), the
 #                         tiles the plain version's fp32 arithmetic follows
@@ -97,6 +97,7 @@ def _check(q, k, v) -> None:
     if q.dtype == torch.bfloat16:
         require_tma_strides("q", S, H, d)
         require_tma_strides("k and v", S, KV, d)
+    require_no_grad("flash_attention", q, k, v)
 
 
 def _launch(q, k, v, out, causal, window, softcap, prof) -> None:

@@ -16,7 +16,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import launch, require_cuda
+from repro_torch.kernels._build import launch, require_cuda, require_no_grad
 
 STATE_DIMS = (4, 8, 16, 32)
 X_DTYPES = (torch.float32, torch.bfloat16)
@@ -97,6 +97,7 @@ def _launch(delta, bm, cm, x, A, prof):
                              "(the kernel reads it by TMA)")
     if len({delta.device, bm.device, cm.device, x.device, A.device}) != 1:
         raise ValueError("delta, bm, cm, x and A lie on different devices")
+    require_no_grad("mamba_scan", delta, bm, cm, x, A)
     if di % DI_MULTIPLE:
         delta, x, A = pad_channels(delta, x, A)
         y, h_fin = _launch(delta, bm, cm, x, A, prof)

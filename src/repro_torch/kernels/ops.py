@@ -60,14 +60,18 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def kb_fused_lookup(table, grad_sum, grad_cnt, grad_sqnorm, ids, *,
-                    lazy_lr: float, zmax: float) -> torch.Tensor:
-    """Lookup with pending gradients applied, in place; (B,) -> (B, D)."""
+                    lazy_lr: float, zmax: float,
+                    version=None) -> torch.Tensor:
+    """Lookup with pending gradients applied and, where ``version`` is
+    given, the versions of the rows that had them bumped, in place;
+    (B,) -> (B, D)."""
     if _on_cpu(table):
         return ref.kb_fused_lookup_ref(table, grad_sum, grad_cnt,
                                        grad_sqnorm, ids, lazy_lr=lazy_lr,
-                                       zmax=zmax)
+                                       zmax=zmax, version=version)
     return kb_fused_lookup_cuda(table, grad_sum, grad_cnt, grad_sqnorm,
-                                ids.long(), lazy_lr=lazy_lr, zmax=zmax)
+                                ids.long(), lazy_lr=lazy_lr, zmax=zmax,
+                                version=version)
 
 
 def kb_gather(table, ids) -> torch.Tensor:
@@ -97,16 +101,19 @@ def nn_search(queries, bank, k: int):
 
 def kb_fused_lookup_q(codes, qscale, qoffset, grad_sum, grad_cnt,
                       grad_sqnorm, ids, *, lazy_lr: float,
-                      zmax: float) -> torch.Tensor:
-    """int8 lookup with pending gradients applied and only those rows
-    re-quantized, in place; (B,) -> (B, D) dequantized rows."""
+                      zmax: float, version=None) -> torch.Tensor:
+    """int8 lookup with pending gradients applied, only those rows
+    re-quantized and, where ``version`` is given, their versions bumped,
+    in place; (B,) -> (B, D) dequantized rows."""
     if _on_cpu(codes):
         return ref.kb_fused_lookup_q_ref(codes, qscale, qoffset, grad_sum,
                                          grad_cnt, grad_sqnorm, ids,
-                                         lazy_lr=lazy_lr, zmax=zmax)
+                                         lazy_lr=lazy_lr, zmax=zmax,
+                                         version=version)
     return kb_fused_lookup_q_cuda(codes, qscale, qoffset, grad_sum,
                                   grad_cnt, grad_sqnorm, ids.long(),
-                                  lazy_lr=lazy_lr, zmax=zmax)
+                                  lazy_lr=lazy_lr, zmax=zmax,
+                                  version=version)
 
 
 def ivf_stage2(packed_vecs, packed_ids, bucket_occ, queries, probes,

@@ -25,16 +25,28 @@ def _valid(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
     return (ids >= 0) & (ids < n_rows)
 
 
+def _bump_version(version, grad_cnt, rows) -> None:
+    """+1 to each of ``rows``' versions where the row holds pending
+    gradients, read before its caches clear; duplicates write equal
+    values, so a row is bumped once."""
+    if version is not None:
+        version[rows] = version[rows] + (grad_cnt[rows] > 0).to(torch.int32)
+
+
 def kb_fused_lookup_ref(table, grad_sum, grad_cnt, grad_sqnorm, ids, *,
-                        lazy_lr: float, zmax: float) -> torch.Tensor:
-    """``kb_lookup(apply_pending=True)`` without the version bump, in
-    place: each requested row gets its clipped pending delta and its three
-    caches zeroed, and comes back as a (B, D) row. Ids outside [0, N)
-    (the Pallas kernel's -1 padding) match no row: they read zeros and
-    change nothing. Duplicates all read the same updated row."""
+                        lazy_lr: float, zmax: float,
+                        version=None) -> torch.Tensor:
+    """``kb_lookup(apply_pending=True)`` in place: each requested row gets
+    its clipped pending delta and its three caches zeroed, and comes back
+    as a (B, D) row; where ``version`` ((N,) int32) is given, each
+    requested row with pending gradients is bumped by one (without it,
+    the caller bumps). Ids outside [0, N) (the Pallas kernel's -1
+    padding) match no row: they read zeros and change nothing. Duplicates
+    all read the same updated row."""
     ids = ids.long()
     ok = _valid(ids, table.shape[0])
     rows = ids[ok]
+    _bump_version(version, grad_cnt, rows)
     new = table[rows] + pending_delta(grad_sum[rows], grad_cnt[rows],
                                       grad_sqnorm[rows], lazy_lr=lazy_lr,
                                       zmax=zmax)
@@ -87,17 +99,19 @@ def nn_search_ref(queries, bank, k: int):
 
 def kb_fused_lookup_q_ref(codes, qscale, qoffset, grad_sum, grad_cnt,
                           grad_sqnorm, ids, *, lazy_lr: float,
-                          zmax: float) -> torch.Tensor:
-    """``kb_lookup_q`` without the version bump, in place on the int8
-    codes, the scale/offset side-cars and the caches: each requested row
-    with pending gradients is dequantized, takes its clipped delta and is
-    re-quantized; a row without keeps its exact codes, scale and offset.
-    Every requested row's caches are zeroed, and the (B, D) output is the
-    dequantization of what the bank now stores. Ids outside [0, N) read
-    zeros and change nothing."""
+                          zmax: float, version=None) -> torch.Tensor:
+    """``kb_lookup_q`` in place on the int8 codes, the scale/offset
+    side-cars, the caches and, where given, ``version`` (bumped as
+    ``kb_fused_lookup_ref`` bumps it): each requested row with pending
+    gradients is dequantized, takes its clipped delta and is re-quantized;
+    a row without keeps its exact codes, scale and offset. Every requested
+    row's caches are zeroed, and the (B, D) output is the dequantization
+    of what the bank now stores. Ids outside [0, N) read zeros and change
+    nothing."""
     ids = ids.long()
     ok = _valid(ids, codes.shape[0])
     rows = ids[ok]
+    _bump_version(version, grad_cnt, rows)
     c, s, o, cnt = codes[rows], qscale[rows], qoffset[rows], grad_cnt[rows]
     new = dequantize_rows(c, s, o) + pending_delta(
         grad_sum[rows], cnt, grad_sqnorm[rows], lazy_lr=lazy_lr, zmax=zmax)

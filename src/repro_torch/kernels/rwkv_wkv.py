@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import launch, require_cuda
+from repro_torch.kernels._build import launch, require_cuda, require_no_grad
 
 HEAD_DIMS = (16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -80,6 +80,7 @@ def _launch(r, k, v, w, u, prof):
                          "reads it as float4s)")
     if len({r.device, k.device, v.device, w.device, u.device}) != 1:
         raise ValueError("r, k, v, w and u lie on different devices")
+    require_no_grad("rwkv_wkv", r, k, v, w, u)
     y = torch.empty((B, S, H, d), dtype=torch.float32, device=r.device)
     if B * S * H == 0:             # no step: the state stays at 0
         return y, torch.zeros((B, H, d, d), device=r.device)

@@ -56,18 +56,28 @@ def _card_bank(dev, n=50_021, d=128):
 
 @pytest.mark.cuda
 def test_cuda_fused_lookup_matches_plain():
+    """Rows atol 1e-5, leaves atol 1e-6, versions exact, with and without
+    the version bump."""
     dev = _require_card()
     base = _card_bank(dev)
     ids = torch.tensor([7, 50_020, 7, 3, 3, 1_000, -1, 12], device=dev)
-    got = [t.clone() for t in base]
-    want = [t.clone() for t in base]
-    v1 = ops.LAUNCHERS["kb_fused_lookup"](*got, ids, lazy_lr=0.1, zmax=3.0)
-    v2 = ref.kb_fused_lookup_ref(*want, ids, lazy_lr=0.1, zmax=3.0)
-    torch.cuda.synchronize()
-    assert (v1 - v2).abs().max().item() <= 1e-5
-    assert torch.equal(v1[0], v1[2]) and not v1[6].any()
-    for g, w in zip(got, want):
-        assert (g - w).abs().max().item() <= 1e-6
+    for version in (None, torch.zeros(base[0].shape[0], dtype=torch.int32,
+                                      device=dev)):
+        got = [t.clone() for t in base]
+        want = [t.clone() for t in base]
+        vk = None if version is None else version.clone()
+        vp = None if version is None else version.clone()
+        v1 = ops.LAUNCHERS["kb_fused_lookup"](*got, ids, lazy_lr=0.1,
+                                              zmax=3.0, version=vk)
+        v2 = ref.kb_fused_lookup_ref(*want, ids, lazy_lr=0.1, zmax=3.0,
+                                     version=vp)
+        torch.cuda.synchronize()
+        assert (v1 - v2).abs().max().item() <= 1e-5
+        assert torch.equal(v1[0], v1[2]) and not v1[6].any()
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() <= 1e-6
+        if version is not None:
+            assert torch.equal(vk, vp) and int(vk.sum()) > 0
 
 
 @pytest.mark.cuda
@@ -162,10 +172,14 @@ def test_cuda_fused_lookup_q_matches_plain():
                        device=dev)
     got = [t.clone() for t in base]
     want = [t.clone() for t in base]
+    vk = torch.zeros(base[0].shape[0], dtype=torch.int32, device=dev)
+    vp = vk.clone()
     v1 = ops.LAUNCHERS["kb_fused_lookup_q"](*got, ids, lazy_lr=0.1,
-                                            zmax=3.0)
-    v2 = ref.kb_fused_lookup_q_ref(*want, ids, lazy_lr=0.1, zmax=3.0)
+                                            zmax=3.0, version=vk)
+    v2 = ref.kb_fused_lookup_q_ref(*want, ids, lazy_lr=0.1, zmax=3.0,
+                                   version=vp)
     torch.cuda.synchronize()
+    assert torch.equal(vk, vp) and int(vk.sum()) > 0
     assert (v1 - v2).abs().max().item() <= 1e-5
     assert torch.equal(v1[0], v1[2]) and not v1[6].any()
     assert torch.allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
@@ -174,8 +188,151 @@ def test_cuda_fused_lookup_q_matches_plain():
     for g, w in zip(got[3:], want[3:]):
         assert (g - w).abs().max().item() <= 1e-6
     again = ops.LAUNCHERS["kb_fused_lookup_q"](*got, ids, lazy_lr=0.1,
-                                               zmax=3.0)
+                                               zmax=3.0, version=vk)
     assert torch.equal(again[ids >= 0], v1[ids >= 0])
+    assert torch.equal(vk, vp)          # nothing pending: no bump
+
+
+def _lookup_batch(dev, n, b=1024, rows_per_block=8, seed=5):
+    """b ids: distinct rows, a third of them repeated at a later slot of
+    another block (rows_per_block slots a block), some several times, and
+    two -1 paddings."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randperm(n, generator=g)[:b]
+    for j in range(0, b - 2 * rows_per_block, 3):
+        later = int(torch.randint(j + rows_per_block, b, (1,), generator=g))
+        ids[later] = ids[j]
+    ids[5] = ids[b - 1] = -1
+    return ids.to(dev)
+
+
+def _lookup_pair(int8, base, ids, reps=1):
+    """The kernel and its plain version, ``reps`` times each on its own
+    copy of the leaves and a zero version: (kernel leaves, kernel version,
+    kernel rows of each rep, plain leaves, plain version, plain rows)."""
+    name = "kb_fused_lookup_q" if int8 else "kb_fused_lookup"
+    plain = ref.kb_fused_lookup_q_ref if int8 else ref.kb_fused_lookup_ref
+    n = base[0].shape[0]
+    out = []
+    for fn in (ops.LAUNCHERS[name], plain):
+        leaves = [t.clone() for t in base]
+        version = torch.zeros(n, dtype=torch.int32, device=base[0].device)
+        vals = [fn(*leaves, ids, lazy_lr=0.1, zmax=3.0, version=version)
+                for _ in range(reps)]
+        out += [leaves, version, vals]
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_lookup_agrees(int8, base, ids, got, vk, vals_k, want, vp,
+                          vals_p):
+    """Rows atol 1e-5, fp32 leaves atol 1e-6, scale and offset rtol 1e-6,
+    versions exact; int8 codes equal but where the plain version's value
+    (v - offset) / scale lies within 1e-4 of a half-integer, where one may
+    round the other way (the clip's sum of squares runs in another order),
+    and there the row read back differs by that code's step, the scale;
+    every occurrence of an id reads its owner's row bit for bit; untouched
+    rows keep their bits."""
+    tol = torch.full_like(vals_k, 1e-5)
+    if int8:
+        from repro_torch.core import knowledge_bank as kbm
+        assert torch.allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+        assert torch.allclose(got[2], want[2], rtol=1e-6, atol=1e-6)
+        diff = (got[0].int() - want[0].int()).abs()
+        assert diff.max().item() <= 1
+        rows = torch.nonzero(diff.any(1)).squeeze(1)
+        c, s, o, gsum, cnt, sq = (t[rows] for t in base)
+        v = kbm.dequantize_rows(c, s, o) + kbm.pending_delta(
+            gsum, cnt, sq, lazy_lr=0.1, zmax=3.0)
+        x = ((v.double() - want[2][rows].double()[:, None])
+             / want[1][rows].double()[:, None])
+        near_half = ((x - torch.floor(x)) - 0.5).abs() < 1e-4
+        assert not bool(((diff[rows] == 1) & ~near_half).any())
+        safe = ids.clamp(min=0)
+        tol += diff[safe] * want[1][safe][:, None]
+    assert bool(((vals_k - vals_p).abs() <= tol).all())
+    assert not vals_k[ids < 0].any()
+    assert torch.equal(vk, vp)
+    for g, w in zip(got[3 if int8 else 0:], want[3 if int8 else 0:]):
+        assert (g - w).abs().max().item() <= 1e-6
+    _, inverse = torch.unique(ids, return_inverse=True)
+    pos = torch.arange(ids.numel(), device=ids.device)
+    owner = torch.full_like(pos, ids.numel()).scatter_reduce(
+        0, inverse, pos, "amin")
+    assert torch.equal(vals_k, vals_k[owner[inverse]])
+    touched = torch.zeros(base[0].shape[0], dtype=torch.bool,
+                          device=ids.device)
+    touched[ids[ids >= 0]] = True
+    for g, b in zip(got, base):
+        assert torch.equal(g[~touched], b[~touched])
+    assert not vk[~touched].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b, d", [(1024, 128), (1024, 16), (1024, 37),
+                                  (40_000, 128)])
+def test_cuda_fused_lookups_agree_across_blocks(int8, b, d):
+    """A batch of 1024 ids in 128 blocks, duplicates owned by a warp of
+    another block, at D 128 and 16 (16-byte accesses) and 37 (4-byte
+    ones), and one of 40,000 ids, too many to stage in a block's shared
+    memory (the dedupe scans read them in global memory): against the
+    plain version with the version bump, and a second run from the same
+    state bit-identical on every leaf."""
+    from repro_torch import env
+    dev = _require_card()
+    base = (_card_int8_bank if int8 else _card_bank)(dev, d=d)
+    assert env.stage_lookup_ids(b, d, env.fused_lookup_block(b, d)) == (
+        b < 40_000)
+    ids = _lookup_batch(dev, base[0].shape[0], b=b)
+    got, vk, vals_k, want, vp, vals_p = _lookup_pair(int8, base, ids)
+    _assert_lookup_agrees(int8, base, ids, got, vk, vals_k[0], want, vp,
+                          vals_p[0])
+    again, va, vals_a, *_ = _lookup_pair(int8, base, ids)
+    assert torch.equal(vals_a[0], vals_k[0]) and torch.equal(va, vk)
+    for a, g in zip(again, got):
+        assert torch.equal(a, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_lookup_op_is_one_launch_without_a_host_sync(int8):
+    """CudaBackend.lookup / lookup_q with ids on the card: one kernel
+    launch, no host synchronisation (torch's sync debug mode raises on
+    one), and the state the eager bump and the plain version give."""
+    from repro_torch.core import knowledge_bank as kbm
+    from repro_torch.core.kb_engine import CudaBackend
+    dev = _require_card()
+    base = (_card_int8_bank if int8 else _card_bank)(dev)
+    n = base[0].shape[0]
+    ids = _lookup_batch(dev, n, b=32)
+    ids[ids < 0] = 11                   # the engine refuses -1 on the host
+    table, rest = (base[0], base[3:]) if int8 else (base[0], base[1:])
+    state = kbm.KBState(table.clone(), torch.zeros(n, dtype=torch.int32,
+                                                   device=dev),
+                        *(t.clone() for t in rest),
+                        norm_ema=torch.zeros(n, device=dev),
+                        step=torch.zeros((), dtype=torch.int32, device=dev))
+    qs, qo = (base[1].clone(), base[2].clone()) if int8 else (None, None)
+    bk = CudaBackend()
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if int8:
+            vals, state = bk.lookup_q(state, qs, qo, ids, lazy_lr=0.1,
+                                      zmax=3.0)
+        else:
+            vals, state = bk.lookup(state, ids, lazy_lr=0.1, zmax=3.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    name = "kb_fused_lookup_q" if int8 else "kb_fused_lookup"
+    assert ops.launch_counts() == {**before, name: before[name] + 1}
+    _, _, _, want, vp, vals_p = _lookup_pair(int8, base, ids)
+    leaves = ([state.table, qs, qo] if int8 else [state.table]) + [
+        state.grad_sum, state.grad_cnt, state.grad_sqnorm]
+    _assert_lookup_agrees(int8, base, ids, leaves, state.version, vals,
+                          want, vp, vals_p[0])
 
 
 def _card_index(dev, quantized, n=60_000, d=128, nlist=16):

@@ -489,7 +489,8 @@ def test_block_sizes_fit_shared_memory():
         env.fit_block_rows(128, fixed_bytes=env.SMEM_BYTES)
     assert env.fused_lookup_block(32, 128) == 8
     assert env.fused_lookup_block(3, 128) == 2
-    assert env.fused_lookup_block(1024, 16384) == 2
+    # two 16384-wide fp32 tiles a warp (128 KB) leave room for one row
+    assert env.fused_lookup_block(1024, 16384) == 1
     # nn_search: (bank rows per tile, stages in its ring)
     assert tile_plan(128, 8) == (512, 4)
     assert tile_plan(128, KMAX) == (512, 4)

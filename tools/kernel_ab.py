@@ -6,7 +6,8 @@ on one card, in turns.
                               [--rounds 1]
 
 NAME is flash_bf16, nn_search, ivf_stage2, ivf_stage2_q,
-ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv or mamba_scan. DIR is
+ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv, mamba_scan,
+kb_fused_lookup, kb_fused_lookup_q, lookup_op or launch_floor. DIR is
 another checkout of the repo (for example the parent commit, unpacked by
 ``git archive`` into an ignored directory, or a variant of ``src/``
 copied under one). Each round runs one process per checkout in the
@@ -39,9 +40,26 @@ plain version (``zero_rows_exact``: the zero queries' lists, all ties at
 0, equal the plain version's bit for bit). ``host_us`` is the host's
 time per call of the kernel's launcher, 20 calls queued without a
 synchronisation.
+
+kb_fused_lookup and kb_fused_lookup_q run on the ogbn-mag bank (fp32, or
+its int8 quantization) with a fifth of its rows holding pending
+gradients, made by ``lookup_bank`` (which ``chip_smoke.py`` phase 2
+uses too), at the serve batch (32 ids, 8 of them duplicates:
+``lookup_ids``) and at a batch of 1024 whose duplicates lie in other
+blocks (``ms_b1024``: ``spread_ids``); each call starts from the same
+state (the touched rows restored, untimed), and passes ``version``
+where the checkout's launcher takes it (``with_version``). lookup_op
+times a whole ``CudaBackend.lookup`` and ``lookup_q`` on that bank (ids
+already on the card, the rows left there: the same API on every
+checkout), and reads ``kernels``, the device kernels one op queues
+under ``torch.profiler``, and ``host_syncs``, the synchronisations
+torch's sync debug mode reports in one op. launch_floor times
+``torch.cuda._sleep(0)``, a one-thread kernel that returns at once, by
+the same events: the least a launch costs on the card.
 """
 import argparse
 import importlib
+import inspect
 import json
 import subprocess
 import sys
@@ -51,14 +69,21 @@ ROOT = Path(__file__).resolve().parents[1]
 SLEEP_CYCLES = 2_000_000            # ~1 ms at the H100's clock
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` by CUDA events, after a warm-up call; a
-    sleep kernel before each start event keeps the host's launch latency
-    out of the bracket."""
+def time_ms(fn, iters: int, setup=None) -> float:
+    """Mean device time of ``fn`` in ms, by CUDA events around each call,
+    after one warm-up call; ``setup`` (untimed) runs before each call. A
+    ~1 ms sleep kernel queued just before the start event keeps the card
+    busy while the host queues the call, so the events bracket the
+    device's work and not the host's launch latency (which would
+    otherwise dominate the microsecond kernels)."""
     import torch
+    if setup:
+        setup()
     fn()
     pairs = []
     for _ in range(iters):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -76,7 +101,11 @@ STAGE2 = {  # name: (sharded, int8, k, the other k)
     "ivf_stage2_sharded": (True, False, 8, 32),
     "ivf_stage2_sharded_q": (True, True, 32, 8),
 }
-KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan")
+LOOKUPS = ("kb_fused_lookup", "kb_fused_lookup_q")
+KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan",
+           *LOOKUPS, "lookup_op", "launch_floor")
+N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
+LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
 
 
 def host_us(fn, iters: int = 20) -> float:
@@ -189,6 +218,132 @@ def scan_inputs(B, S, di, ds, dtype, g, A_kind="init"):
     return delta, bm, cm, x, A
 
 
+def lookup_bank(g):
+    """(table, grad_sum, grad_cnt, grad_sqnorm, pending) of the ogbn-mag
+    bank on the card: N(0, 1) rows, a fifth of them holding 1-3 pending
+    gradients of 0.1 N(0, 1) each, with squared-norm sums that put a tenth
+    of the pending rows past the outlier clip (avg norm > zmax * rms)."""
+    import torch
+    dev = torch.device("cuda")
+    table = torch.randn((N_ROWS, DIM), generator=g, device=dev)
+    pending = torch.rand((N_ROWS,), generator=g, device=dev) < 0.2
+    grad_cnt = torch.where(
+        pending, torch.randint(1, 4, (N_ROWS,), generator=g,
+                               device=dev).float(), 0.0)
+    grad_sum = torch.randn((N_ROWS, DIM), generator=g, device=dev)
+    grad_sum *= 0.1 * grad_cnt[:, None]
+    grad_sqnorm = ((grad_sum * grad_sum).sum(1) / grad_cnt.clamp(min=1.0)
+                   * torch.rand((N_ROWS,), generator=g, device=dev))
+    return table, grad_sum, grad_cnt, grad_sqnorm, pending
+
+
+def lookup_ids(g, pending, batch: int = 32):
+    """The serve batch (8 clients x batch 4, coalesced): 12 rows with
+    pending gradients, 12 random rows, and the first 8 again."""
+    import torch
+    dev = pending.device
+    pend_rows = torch.nonzero(pending).squeeze(1)
+    pick = torch.randint(0, pend_rows.numel(), (12,), generator=g,
+                         device=dev)
+    ids = torch.cat([pend_rows[pick],
+                     torch.randint(0, pending.shape[0], (12,), generator=g,
+                                   device=dev)])
+    return torch.cat([ids, ids[:batch - ids.numel()]])
+
+
+def spread_ids(n_rows: int, device, batch: int = 1024, block: int = 8,
+               seed: int = 0):
+    """``batch`` distinct random rows, then every third slot's id copied to
+    a random later slot at least a block (``block`` slots) away, so that
+    about a third of the slots are duplicates owned by a warp of another
+    block."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(n_rows, batch, replace=False)
+    for j in range(0, batch - 2 * block, 3):
+        ids[rng.integers(j + block, batch)] = ids[j]
+    return torch.from_numpy(ids).to(device)
+
+
+def lookup_state(int8: bool, base):
+    """The leaves a fused lookup updates, as the launcher takes them:
+    (table, grad_sum, grad_cnt, grad_sqnorm), or, for int8, the table
+    quantized (codes, scale, offset) and the caches."""
+    from repro_torch.core import knowledge_bank as kbm
+    table, *caches = base
+    if int8:
+        return [*kbm.quantize_rows(table), *caches]
+    return [table, *caches]
+
+
+def restorer(leaves, source, ids):
+    """A setup that puts the rows of ``ids`` of ``leaves`` back as they are
+    in ``source`` (a lookup only touches those rows)."""
+    import torch
+    rows = torch.unique(ids[ids >= 0])
+
+    def setup():
+        for a, b in zip(leaves, source):
+            a[rows] = b[rows]
+    return setup
+
+
+def lookup_op(int8: bool, leaves, ids) -> dict:
+    """One ``CudaBackend.lookup`` (``lookup_q`` for int8) op on ``leaves``:
+    its device time by events, the device kernels it queues, the host
+    synchronisations it makes and the host time of a call."""
+    import warnings
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import knowledge_bank as kbm
+    from repro_torch.core.kb_engine import CudaBackend
+    n = leaves[0].shape[0]
+    dev = leaves[0].device
+    caches = leaves[3:] if int8 else leaves[1:]
+    base = [t.clone() for t in leaves]
+    state = kbm.KBState(leaves[0], torch.zeros(n, dtype=torch.int32,
+                                               device=dev), *caches,
+                        norm_ema=torch.zeros(n, device=dev),
+                        step=torch.zeros((), dtype=torch.int32, device=dev))
+    bk = CudaBackend()
+    if int8:
+        def op():
+            return bk.lookup_q(state, leaves[1], leaves[2], ids,
+                               lazy_lr=LAZY_LR, zmax=ZMAX)
+    else:
+        def op():
+            return bk.lookup(state, ids, lazy_lr=LAZY_LR, zmax=ZMAX)
+    setup = restorer(leaves, base, ids)
+    out = {"ms": time_ms(op, 50, setup)}
+    setup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        op()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "memcpy" not in
+             e.name.lower() and "memset" not in e.name.lower()]
+    out["kernels"] = len(names)
+    out["kernel_names"] = sorted(set(n[:48] for n in names))
+    setup()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            op()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs"] = sum("synchroniz" in str(w.message).lower()
+                            for w in caught)
+    setup()
+    out["host_us"] = host_us(op)
+    setup()
+    return out
+
+
 def measure(root: Path, kernels) -> list:
     """Build ``root``'s kernels, check each against its plain version and
     time it; runs in a process of its own."""
@@ -197,14 +352,22 @@ def measure(root: Path, kernels) -> list:
     from repro_torch.kernels import _build, ops, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    _build.build(sorted({"flash_attention" if k == "flash_bf16" else
-                         "ivf_stage2_sharded" if k.startswith(
-                             "ivf_stage2_sharded") else k for k in kernels}))
-    bank = queries = None
+    sources = {"flash_attention" if k == "flash_bf16" else
+               "ivf_stage2_sharded" if k.startswith("ivf_stage2_sharded")
+               else k for k in kernels if k != "launch_floor"}
+    if "lookup_op" in sources:
+        sources = (sources - {"lookup_op"}) | set(LOOKUPS)
+    _build.build(sorted(sources))
+    bank = queries = lookups = None
     if any(k == "nn_search" or k in STAGE2 for k in kernels):
-        bank = torch.randn((1_939_743, 128), generator=g, device=dev)
+        bank = torch.randn((N_ROWS, DIM), generator=g, device=dev)
         queries = bank[torch.randint(0, bank.shape[0], (32,), generator=g,
                                      device=dev)] + 0.01
+    if any(k in LOOKUPS or k == "lookup_op" for k in kernels):
+        g.manual_seed(0)
+        *lookups, pending = lookup_bank(g)
+        ids = lookup_ids(g, pending)
+        wide = spread_ids(N_ROWS, dev)
     out = []
     for kernel in kernels:
         extra = {}
@@ -270,6 +433,45 @@ def measure(root: Path, kernels) -> list:
                 extra = {"stage_cycles": getattr(mod, f"{kernel}_cycles")(
                     *args)}
             del args
+        elif kernel in LOOKUPS:
+            int8 = kernel == "kb_fused_lookup_q"
+            fn = ops.LAUNCHERS[kernel]
+            plain = getattr(ref, f"{kernel}_ref")
+            base = lookup_state(int8, lookups)
+            with_version = "version" in inspect.signature(fn).parameters
+            ver = {"version": torch.zeros(N_ROWS, dtype=torch.int32,
+                                          device=dev)} if with_version \
+                else {}
+            err = 0.0
+            for batch in (ids, wide):
+                got = [t.clone() for t in base]
+                want = [t.clone() for t in base]
+                vals = fn(*got, batch, lazy_lr=LAZY_LR, zmax=ZMAX, **ver)
+                err = max(err, (vals - plain(
+                    *want, batch, lazy_lr=LAZY_LR,
+                    zmax=ZMAX)).abs().max().item())
+                del got, want
+            leaves = [t.clone() for t in base]
+            ms = time_ms(lambda: fn(*leaves, ids, lazy_lr=LAZY_LR,
+                                    zmax=ZMAX, **ver), 50,
+                         restorer(leaves, base, ids))
+            extra = {"with_version": with_version,
+                     "ms_b1024": time_ms(
+                         lambda: fn(*leaves, wide, lazy_lr=LAZY_LR,
+                                    zmax=ZMAX, **ver), 50,
+                         restorer(leaves, base, wide)),
+                     "host_us": host_us(lambda: fn(
+                         *leaves, ids, lazy_lr=LAZY_LR, zmax=ZMAX, **ver))}
+            del leaves, base
+        elif kernel == "lookup_op":
+            ms, err = None, None
+            for int8 in (False, True):
+                leaves = lookup_state(int8, [t.clone() for t in lookups])
+                extra["int8" if int8 else "fp32"] = lookup_op(int8, leaves,
+                                                              ids)
+                del leaves
+        elif kernel == "launch_floor":
+            ms, err = time_ms(lambda: torch.cuda._sleep(0), 200), None
         else:
             raise ValueError(f"unknown kernel {kernel!r}")
         out.append({"root": str(root), "kernel": kernel, "ms": ms,
