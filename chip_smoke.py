@@ -88,7 +88,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    profiled prefill and decode, the device time split by part (GEMMs,
    the scan, flash, the MoE dispatch's gathers and sorts, elementwise),
    and one Mamba layer profiled alone (its GEMMs, scan and elementwise
-   passes).
+   passes);
+8. training: the reduced yi-6b (2 layers, d 128, fp32) takes one
+   ``make_carls_train_step`` step on the card and on the CPU from one set
+   of parameters, one bank (a fifth of its rows pending) and one batch:
+   loss and metrics, the neighbour gradient, the post-step parameters and
+   moments and every bank leaf compared at the CPU tests' bounds; then,
+   with jamba's weights freed, ``repro_torch.launch.train.train_carls`` at
+   the full width of yi-6b cut to 16 of its 32 layers (d 4096, 32/4 heads
+   of 128, d_ff 11008, vocab 64000, bf16 parameters, fp32 AdamW moments;
+   3.29 B parameters) at batch 8 x seq 64, a 2048 x 4096 fp32 bank and 8
+   neighbours a sample, lr 1e-4, 10 steps with the maker pass on step 10:
+   losses
+   finite and falling, one ``kb_fused_lookup`` launch a step and no
+   flash, WKV or scan launch, ms a step (steps 3-10), peak device memory,
+   and one more step profiled (device time by part: GEMMs, the lookup
+   kernel, the optimizer, elementwise; and by the step's ranges); then the
+   10 steps again from the same seed, whose losses must be within 1% of
+   the first run's at every step (whether they are bit-identical is
+   printed).
 
 Phase 2 also holds nn_search beyond the serve shape (a repeated run
 bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
@@ -100,7 +118,12 @@ kernel's stage profile (the cycles its consumer warpgroups spend waiting
 for K and V, for their turn, issuing products, waiting for them, in the
 softmax and in the output) and whether it reaches SDPA's time in this
 run, and on seven smaller cases (window, soft cap, d 32 and 64, not
-causal, S no multiple of 128, H/KV 8), and the WKV kernel
+causal, S no multiple of 128, H/KV 8), ``kb_fused_lookup`` at the
+trainer's shape (a 2048 x 4096 fp32 bank, a fifth of its rows pending,
+and the 64 neighbour ids of the trainer's first batch of 8, duplicates
+included: rows against the plain version, versions exact, a repeat
+bit-identical, its time beside the bytes bound and the launch floor),
+and the WKV kernel
 (y and the final state) at the rwkv6-7b prefill's shapes (B 4, S 2048,
 H 64, d 64; r, k, v bf16, w and u fp32) and on smaller cases (two with
 extreme decays, w from 0 to ~0.9997 per channel), and the Mamba scan
@@ -145,11 +168,16 @@ from repro_torch.kernels.mamba_scan import mamba_scan_cycles  # noqa: E402
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
 from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cycles  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.core.trainer import make_carls_train_step  # noqa: E402
+from repro_torch.data import SyntheticGraphCorpus  # noqa: E402
+from repro_torch.env import fused_lookup_block, stage_lookup_ids  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import AdamW, constant_lr  # noqa: E402
+from repro_torch.tree import tree_items  # noqa: E402
 from tools.kernel_ab import (  # noqa: E402
-    lookup_bank, lookup_ids, lookup_op, restorer, scan_inputs, spread_ids,
-    time_ms, wkv_inputs)
+    PROFILE_CAPTURES, lookup_bank, lookup_ids, lookup_op, restorer,
+    scan_inputs, spread_ids, time_ms, wkv_inputs)
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 SHARDS = 3                          # the smallest count that divides N_ROWS
@@ -241,6 +269,22 @@ KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
 # published; 25.79 B parameters, 51.6 GB in bf16 (16 experts: 90.2 GB)
 JAMBA = "jamba-1.5-large-398b"
 JAMBA_CUT = dict(num_layers=8, num_experts=8)
+# the trainer (phase 8): yi-6b at full width cut to 16 of its 32 layers
+# (3.29 B parameters: with bf16 grads and fp32 moments 39.5 GB; all 32
+# layers would need ~72.7 GB before activations), the JAX launcher's
+# batch, seq and --nodes, 10 steps with the maker pass on the last. The
+# launcher's --lr 1e-3 suits the reduced model: at d 4096 Adam's first
+# steps move a logit by up to ~4096 lr, and at 1e-3 the loss rose from
+# 12.06 to 14.07 by step 3 (a chip run of this script); 1e-4 is used.
+TRAIN_LAYERS, TRAIN_B, TRAIN_SEQ = 16, 8, 64
+TRAIN_NODES, TRAIN_STEPS, TRAIN_LR = 2048, 10, 1e-4
+# the reduced step, card against CPU: the CPU tests' bounds
+# (tests/test_torch_trainer.py): metrics atol 1e-5 + rtol 1e-5; bank
+# leaves, moments and gradients atol 1e-6; post-step parameters atol 1e-6
+# where the CPU gradient exceeds 10x its bound (1e-5), elsewhere 2 lr
+PARITY_LR, ADAM_B1 = 2e-3, 0.9
+ATOL_GRAD = 1e-6
+SIGN_T = 10 * ATOL_GRAD
 
 
 def log(msg: str) -> None:
@@ -781,7 +825,8 @@ def check_lookup(name, int8, src, ids, label):
     kernels = ops.LAUNCHERS
     plain = getattr(ref, f"{name}_ref")
     uniq = torch.unique(ids[ids >= 0])
-    zero = torch.zeros(N_ROWS, dtype=torch.int32, device=ids.device)
+    zero = torch.zeros(src[0].shape[0], dtype=torch.int32,
+                       device=ids.device)
     leaves_k, leaves_p = ([t.clone() for t in src] for _ in range(2))
     ver_k, ver_p = zero.clone(), zero.clone()
     vals_k = kernels[name](*leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX,
@@ -881,10 +926,84 @@ def phase2_lookup(name, int8, src, ids, pending):
             f"{op['host_syncs']} host syncs")
     log(f"phase 2: CudaBackend.{'lookup_q' if int8 else 'lookup'} op (B "
         f"32, ids on the card): {op['ms']} ms by events, "
-        f"{op['kernels']} device kernel(s) {op['kernel_names']}, "
-        f"{op['host_syncs']} host syncs, {op['host_us']} us of host time "
-        "a call")
+        f"{op['kernels']} device kernel(s) {op['kernel_names']} (profile "
+        f"capture {op['captures']}), {op['host_syncs']} host syncs, "
+        f"{op['host_us']} us of host time a call")
     out.update(op_ms=op["ms"], op_kernels=op["kernels"], ms_b1024=ms_wide)
+    return out
+
+
+def lookup_bytes(ids, pending, dim: int, int8: bool) -> int:
+    """The bytes a fused lookup of ``ids`` must move on this run's data,
+    each input read once and each output written once: the ids; every
+    distinct row's stored row (fp32, or codes, scale and offset) and
+    grad_cnt; for each row with pending gradients its grad_sum row and
+    grad_sqnorm read, its stored row, zeroed grad_sum row and counters
+    written, and its version read and written (the other rows' caches are
+    zero already); B output rows."""
+    uniq = torch.unique(ids[ids >= 0])
+    n_p = int(pending[uniq].sum())
+    d4 = dim * 4
+    row_bytes = dim + 8 if int8 else d4
+    return (ids.numel() * 8 + uniq.numel() * (row_bytes + 4)
+            + n_p * (d4 + 4 + row_bytes + d4 + 8 + 8) + ids.numel() * d4)
+
+
+def trainer_ids() -> np.ndarray:
+    """The 64 neighbour ids of ``train_carls``'s first batch at phase 8's
+    configuration: ``SyntheticGraphCorpus(num_nodes=2048, seed=0)``, batch
+    8 drawn from ``default_rng(seed + 1)``, 8 neighbours a sample."""
+    cfg = get_config("yi-6b")
+    corpus = SyntheticGraphCorpus(
+        num_nodes=TRAIN_NODES, vocab_size=cfg.vocab_size,
+        seq_len=TRAIN_SEQ + 1, neighbors_per_node=cfg.carls.num_neighbors)
+    return corpus.batch(np.random.default_rng(1),
+                        TRAIN_B)["neighbor_ids"].reshape(-1)
+
+
+def phase2_trainer_lookup(floor_ms: float) -> dict:
+    """``kb_fused_lookup`` at the trainer's shape: a 2048 x 4096 fp32 bank
+    (``lookup_bank``'s distribution, a fifth of its rows pending) and the
+    64 ids of the trainer's first batch, duplicates included; rows against
+    the plain version, versions exact, a repeat bit-identical; its time
+    and its plain version's by events, beside the bytes bound and the
+    launch floor."""
+    name = "kb_fused_lookup"
+    dim = get_config("yi-6b").d_model
+    g = torch.Generator(device="cuda").manual_seed(3)
+    *src, pending = lookup_bank(g, TRAIN_NODES, dim)
+    ids = torch.from_numpy(trainer_ids()).long().cuda()
+    rows = fused_lookup_block(ids.numel(), dim)
+    staged = stage_lookup_ids(ids.numel(), dim, rows)
+    err, _, vals, kept, ver = check_lookup(name, False, src, ids,
+                                           "trainer")
+    again = check_lookup(name, False, src, ids, "trainer")
+    require(torch.equal(again[2], vals)
+            and all(torch.equal(a, b) for a, b in zip(again[3], kept))
+            and torch.equal(again[4], ver),
+            f"{name} trainer: a repeated run is not bit-identical")
+    leaves_k, leaves_p = ([t.clone() for t in src] for _ in range(2))
+    zero = torch.zeros(TRAIN_NODES, dtype=torch.int32, device="cuda")
+    out = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.LAUNCHERS[name](
+            *leaves_k, ids, lazy_lr=LAZY_LR, zmax=ZMAX, version=zero), 50,
+            restorer(leaves_k, src, ids)),
+        plain_ms=time_ms(lambda: ref.kb_fused_lookup_ref(
+            *leaves_p, ids, lazy_lr=LAZY_LR, zmax=ZMAX, version=zero), 50,
+            restorer(leaves_p, src, ids)),
+        bound=bound(lookup_bytes(ids, pending, dim, False), 0.0),
+        launch_floor_ms=floor_ms)
+    n_uniq = torch.unique(ids).numel()
+    n_pend = int(pending[torch.unique(ids)].sum())
+    log(f"phase 2: {name} trainer shape ({TRAIN_NODES} x {dim} fp32, "
+        f"{ids.numel()} ids, {n_uniq} distinct, {n_pend} pending; {rows} "
+        f"warps a block, ids staged in shared memory: {staged}): "
+        f"max_abs_err={err} (exact: {err == 0.0}), versions exact "
+        f"({int(ver.sum())} bumped), repeated run bit-identical; "
+        f"{out['ms']} ms by events, plain {out['plain_ms']} ms, bound "
+        f"{out['bound'][0]} ms ({out['bound'][1]}), launch floor "
+        f"{floor_ms} ms")
     return out
 
 
@@ -915,18 +1034,9 @@ def phase2_kernels():
                             ("kb_fused_lookup_q", True, base_q)):
         results[name] = phase2_lookup(name, int8, src, ids, pending)
         results[name]["launch_floor_ms"] = floor_ms
-        n_p = int(pending[uniq].sum())
-        # what this run's data needs, each input read once and each output
-        # written once: the ids; every distinct row's stored row (fp32, or
-        # codes, scale and offset) and grad_cnt; for each row with pending
-        # gradients its grad_sum row and grad_sqnorm read, its stored row,
-        # zeroed grad_sum row and counters written, and its version read
-        # and written (the other rows' caches are zero already); B output
-        # rows
-        row_bytes = DIM + 8 if int8 else D4
-        nbytes = (ids.numel() * 8 + n_uniq * (row_bytes + 4)
-                  + n_p * (D4 + 4 + row_bytes + D4 + 8 + 8) + BATCH * D4)
-        results[name]["bound"] = bound(nbytes, 0.0)
+        results[name]["bound"] = bound(
+            lookup_bytes(ids, pending, DIM, int8), 0.0)
+    results["kb_fused_lookup"]["trainer"] = phase2_trainer_lookup(floor_ms)
 
     # -- kb_gather --------------------------------------------------------
     gids = ids.clone()
@@ -1803,16 +1913,25 @@ def device_parts(prof):
 
 
 def profiled(fn):
-    """Run ``fn`` once under ``torch.profiler``; (wall ms, profile)."""
+    """Run ``fn`` under ``torch.profiler``; (wall ms, profile). A capture
+    that holds no device record lost them (CUPTI now and then delivers
+    none), so ``fn`` runs again under a new one, at most
+    ``PROFILE_CAPTURES`` times."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(PROFILE_CAPTURES):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, prof
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return wall_ms, prof
+        log("torch.profiler recorded no device event; capturing again")
+    require(False, f"torch.profiler lost the device records of "
+            f"{PROFILE_CAPTURES} captures in a row")
 
 
 def profile_lm(cfg):
@@ -1934,6 +2053,229 @@ def phase7_jamba():
     return counts
 
 
+def train_bank_leaves(n: int, dim: int) -> dict:
+    """A bank as numpy leaves: N(0, 0.01²) rows, a fifth of them holding
+    1-2 pending gradients of 0.01 N(0, 1), half the rows with a norm
+    EMA (tests/test_torch_trainer.py's bank)."""
+    rng = np.random.default_rng(0)
+    pend = rng.random(n) < 0.2
+    gsum = (rng.standard_normal((n, dim)) * 0.01
+            * pend[:, None]).astype(np.float32)
+    return dict(
+        table=(rng.standard_normal((n, dim)) * 0.01).astype(np.float32),
+        version=np.zeros(n, np.int32), grad_sum=gsum,
+        grad_cnt=np.where(pend, rng.integers(1, 3, n), 0).astype(
+            np.float32),
+        grad_sqnorm=(np.sum(gsum ** 2, -1) * 1.5).astype(np.float32),
+        norm_ema=np.where(rng.random(n) < 0.5, 1e-4, 0.0).astype(
+            np.float32),
+        step=np.int32(3))
+
+
+def _one_step(model, params, leaves, batch, device):
+    """One ``make_carls_train_step`` step on ``device``: (params, AdamW
+    state, bank, metrics, the neighbour gradient pushed to the lazy cache,
+    the launches it made)."""
+    cc = model.cfg.carls
+    opt = AdamW(lr=constant_lr(PARITY_LR))
+    st = opt.init(params)
+    kb = convert.kb_state_from_numpy(leaves, device=device)
+    pushed = []
+    base = make_kb_ops(backend="cuda", lazy_lr=cc.lazy_lr,
+                       zmax=cc.outlier_zmax, apply_pending=cc.lazy_update)
+    kb_ops = base._replace(lazy_grad=lambda kb, ids, g: pushed.append(g)
+                           or base.lazy_grad(kb, ids, g))
+    step = make_carls_train_step(model, opt, kb_ops=kb_ops)
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ops.reset_launch_counts()
+    params, st, kb, m = step(params, st, kb, tb)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return params, st, kb, m, pushed[0], ops.launch_counts()
+
+
+def phase8_reduced_parity() -> None:
+    """The reduced yi-6b takes one CARLS step on the card and on the CPU
+    from one set of parameters, one bank and one batch; everything the
+    step produces is compared at the CPU tests' bounds."""
+    cfg = get_config("yi-6b").reduced()
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    p_dev = _to(p_cpu, "cuda")
+    leaves = train_bank_leaves(cfg.carls.kb_entries, cfg.d_model)
+    corpus = SyntheticGraphCorpus(
+        num_nodes=cfg.carls.kb_entries, vocab_size=cfg.vocab_size,
+        seq_len=TRAIN_SEQ + 1, neighbors_per_node=cfg.carls.num_neighbors)
+    batch = corpus.batch(np.random.default_rng(1), TRAIN_B)
+    d = _one_step(model, p_dev, leaves, batch, "cuda")
+    c = _one_step(model, p_cpu, leaves, batch, "cpu")
+    errs = {}
+
+    def close(a, b, what, atol, rtol=0.0):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        over = (a - b).abs() - rtol * b.abs() > atol
+        require(not bool(over.any()), f"reduced step card vs CPU: {what} "
+                f"off at {int(over.sum())} entries")
+        errs[what.split(" ")[0]] = max(errs.get(what.split(" ")[0], 0.0),
+                                       max_err(a, b))
+
+    require(set(d[3]) == set(c[3]), "metric names differ")
+    for k, v in c[3].items():
+        if k in ("acc", "tokens", "kb_pending"):
+            require(float(d[3][k]) == float(v), f"metric {k} differs")
+        else:
+            close(d[3][k], v, f"metric {k}", 1e-5, 1e-5)
+    close(d[4], c[4], "neighbour_grad", ATOL_GRAD)
+    for f in kbm.KBState._fields:
+        a, b = getattr(d[2], f), getattr(c[2], f)
+        if b.is_floating_point():
+            close(a, b, f"bank {f}", ATOL_GRAD)
+        else:
+            require(torch.equal(a.cpu(), b), f"bank {f} differs")
+    require(int(d[1].count) == int(c[1].count) == 1, "counts differ")
+    for name in ("mu", "nu"):
+        for (k, a), (_, b) in zip(tree_items(getattr(d[1], name)),
+                                  tree_items(getattr(c[1], name))):
+            close(a, b, f"moments {name} {k}", ATOL_GRAD)
+    decided = total = 0
+    for (k, pd), (_, pc), (_, md), (_, mc) in zip(
+            tree_items(d[0]), tree_items(c[0]), tree_items(d[1].mu),
+            tree_items(c[1].mu)):
+        g_c = mc / (1 - ADAM_B1)
+        close(md / (1 - ADAM_B1), g_c, f"grads {k}", ATOL_GRAD)
+        sure = g_c.abs() > SIGN_T
+        err = (pd.cpu() - pc).abs()
+        require(float(err[sure].max()) <= ATOL_GRAD if sure.any() else True,
+                f"post-step {k} off where the gradient is decided")
+        require(float(err.max()) <= 2 * PARITY_LR + ATOL_GRAD,
+                f"post-step {k} off by more than two Adam steps")
+        errs["params_decided"] = max(errs.get("params_decided", 0.0),
+                                     float(err[sure].max())
+                                     if sure.any() else 0.0)
+        errs["params_other"] = max(errs.get("params_other", 0.0),
+                                   float(err[~sure].max())
+                                   if (~sure).any() else 0.0)
+        decided += int(sure.sum())
+        total += sure.numel()
+    want = {"kb_fused_lookup": 1, "flash_attention": 0, "rwkv_wkv": 0,
+            "mamba_scan": 0}
+    got = {k: d[5][k] for k in want}
+    require(got == want, f"the card's step launched {got}, not {want}")
+    log(f"phase 8: reduced yi-6b ({cfg.num_layers} layers, d {cfg.d_model},"
+        f" fp32), one CARLS step, batch {TRAIN_B} x seq {TRAIN_SEQ}, "
+        f"{cfg.carls.kb_entries} x {cfg.d_model} bank: loss card "
+        f"{float(d[3]['loss'])} CPU {float(c[3]['loss'])}; card vs CPU max "
+        f"abs err {errs}; parameters held at {ATOL_GRAD} on {decided} of "
+        f"{total} entries (|grad| > {SIGN_T}); launches on the card {got}")
+
+
+def train_parts(prof, wall_ms: float) -> str:
+    """One profiled training step: device time, its split by part (GEMMs,
+    the lookup kernel, the optimizer's kernels, the rest) and the busy
+    share. The step's ranges (``carls.lookup``, ``carls.kb_push``,
+    ``carls.optimizer``) appear on the device as annotations spanning
+    their kernels; a part's time is the sum of the kernels that start
+    inside its annotations (one stream, so no other kernel runs there).
+    The forward and backward are the rest of the step."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith("carls.")]
+    dur = {id(e): e.time_range.elapsed_us() / 1e3 for e in kernels}
+    total = sum(dur.values())
+
+    def named(pats):
+        return sum(dur[id(e)] for e in kernels
+                   if any(p in e.name.lower() for p in pats))
+
+    def inside(name):
+        spans = [(a.time_range.start, a.time_range.end) for a in dev
+                 if a.name == name]
+        require(bool(spans), f"no device annotation for {name} in the "
+                "profile")
+        return sum(dur[id(e)] for e in kernels
+                   if any(b <= e.time_range.start < f for b, f in spans))
+
+    gemm = named(dict(PROFILE_PARTS)["GEMMs"])
+    lookup = named(("fused_lookup",))
+    ranges = {n: inside(n) for n in ("carls.lookup", "carls.kb_push",
+                                     "carls.optimizer")}
+    optim = ranges["carls.optimizer"]
+    require(optim + gemm + lookup <= total * (1 + 1e-9),
+            f"the profile's parts exceed its device time: {ranges}")
+    ranges["forward, backward and the rest"] = total - sum(ranges.values())
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    top = [e for e in top if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("carls.")][:8]
+    return (f"wall {wall_ms} ms, device {total} ms "
+            f"({100 * total / wall_ms:.1f}% busy under the profiler); by "
+            f"part: GEMMs {gemm:.4g} ms, kb_fused_lookup {lookup:.4g} ms, "
+            f"optimizer {optim:.4g} ms, elementwise and other "
+            f"{total - gemm - lookup - optim:.4g} ms; by range: "
+            + "; ".join(f"{k} {v:.4g} ms" for k, v in ranges.items())
+            + "; top: " + "; ".join(
+                f"{e.key[:60]} x{e.count} "
+                f"{e.self_device_time_total / 1e3:.4g} ms" for e in top))
+
+
+def train_run(label: str, cfg):
+    """``train_carls`` at phase 8's configuration with every kernel
+    counter set to 0 just before it and read just after."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.train_carls(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_SEQ,
+        nodes=TRAIN_NODES, lr=TRAIN_LR, maker_every=TRAIN_STEPS, seed=0,
+        device="cuda", log=lambda line: log(f"phase 8: {label}: {line}"))
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    ms = float(np.mean(res["step_ms"][2:]))
+    log(f"phase 8: {label}: {TRAIN_STEPS} steps at lr {TRAIN_LR}, losses "
+        f"{losses}; {ms} ms a step (steps 3-{TRAIN_STEPS}; each "
+        f"{res['step_ms']}); peak device memory {peak} bytes; {wall:.1f} s "
+        f"with init; launches {counts}")
+    require(bool(np.isfinite(losses).all()), f"{label}: a loss is not "
+            f"finite: {losses}")
+    require(np.mean(losses[-3:]) < losses[0],
+            f"{label}: the loss did not fall: {losses}")
+    want = {"kb_fused_lookup": TRAIN_STEPS, "flash_attention": 0,
+            "rwkv_wkv": 0, "mamba_scan": 0}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{label}: launches {got}, not {want}")
+    return res, counts
+
+
+def phase8_train():
+    """The trainer: the reduced step card against CPU; then, jamba's
+    weights freed, ``train_carls`` at full width twice and one step
+    profiled."""
+    phase8_reduced_parity()
+    free_weights("phase 8", "yi-6b training")
+    cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
+    log(f"phase 8: yi-6b cut to {TRAIN_LAYERS} of 32 layers: "
+        f"{cfg.param_count()} parameters")
+    res, counts = train_run("yi-6b full width run 1", cfg)
+    losses1 = res["losses"]
+    wall_ms, prof = profiled(res["loop"].step)
+    log(f"phase 8: profiled step {TRAIN_STEPS + 1}: "
+        f"{train_parts(prof, wall_ms)}")
+    del res, prof
+    gc.collect()
+    res, _ = train_run("yi-6b full width run 2", cfg)
+    losses2 = res["losses"]
+    del res
+    gc.collect()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
+    require(max(rel) <= 0.01, f"the two runs' losses differ by more than "
+            f"1%: {losses1} vs {losses2}")
+    log(f"phase 8: the two full-width runs' losses bit-identical: "
+        f"{losses1 == losses2}; largest relative gap {max(rel)}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1959,6 +2301,9 @@ def main() -> int:
     t = time.perf_counter()
     paths["serve_jamba"] = phase7_jamba()
     log(f"phase 7: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths["train"] = phase8_train()
+    log(f"phase 8: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]
@@ -1984,6 +2329,17 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("fp32", "launch_floor_ms", "ms_b1024",
                                  "op_ms", "op_kernels") if k in r}})
+        if "trainer" in r:      # kb_fused_lookup on the trainer's path
+            t = r["trainer"]
+            record[-1]["trainer"] = {
+                "launches": paths["train"][name],
+                "launches_per_step": paths["train"][name] // TRAIN_STEPS,
+                "rows": TRAIN_NODES, "ids": TRAIN_B * get_config(
+                    "yi-6b").carls.num_neighbors,
+                "dim": get_config("yi-6b").d_model,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": None}
     log("kernels: " + "; ".join(
         f"{k['name']} err={k['max_abs_err']:.3g} ms={k['ms']:.4g} "
         f"plain={k['plain_ms']:.4g} bound={k['bound_ms']:.4g} "

@@ -11,7 +11,12 @@ dict; ``KBEngine.load_state`` takes one too.
 ``lm_params_from_numpy`` turns the JAX ``LM.init`` pytree, flattened to
 numpy arrays under ``::``-joined key paths (as
 ``repro.checkpoint.checkpointing.flatten_params`` writes them), into the
-port's nested parameter dicts.
+port's nested parameter dicts; ``lm_params_to_numpy`` is its inverse (a
+bf16 leaf widened to fp32, which narrows back exactly).
+``adamw_state_from_numpy`` and ``adamw_state_to_numpy`` carry an AdamW
+state (its ``count`` and its two moment trees, flattened the same way), so
+that both packages can start a step from one state and be compared after
+it.
 
 ``ivf_index_from`` turns an IVF index of either package (any object with
 the index's array attributes, read through ``np.asarray``, so a JAX
@@ -30,8 +35,11 @@ import torch
 from repro_torch.core.ann_index import (IVFIndex, QuantizedIVFIndex,
                                         QuantizedShardedIVFIndex,
                                         ShardedIVFIndex)
+from repro_torch.checkpoint.checkpointing import flatten_params
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
+from repro_torch.optim import AdamWState
+from repro_torch.tree import SEP
 
 _DTYPES = {"table": np.float32, "version": np.int32, "grad_sum": np.float32,
            "grad_cnt": np.float32, "grad_sqnorm": np.float32,
@@ -58,7 +66,6 @@ def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
         for f in KBState._fields})
 
 
-LM_KEY_SEP = "::"
 # the fp32 leaves of an LM, as ``repro.models`` makes them: the norm
 # scales, RWKV6's per-head bonus ``u``, decay base ``dec_0`` and
 # group-norm scale ``ln_x`` (repro/models/ssm.py:203-206), and Mamba's
@@ -68,6 +75,22 @@ LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "u", "dec_0", "ln_x",
                   "a_log", "d_skip")
 
 
+def _nest(flat: Dict[str, np.ndarray], dtype_of, device) -> dict:
+    """Nested dicts on ``device`` from ``{"a::b::c": array}``, each leaf
+    in ``dtype_of(its last key)`` (through fp32, so a bf16 leaf widened
+    to fp32 narrows back exactly)."""
+    device = resolve_device(device)
+    tree: dict = {}
+    for key, arr in flat.items():
+        *path, leaf = key.split(SEP)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.tensor(np.asarray(arr, np.float32),
+                                  device=device).to(dtype_of(leaf))
+    return tree
+
+
 def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg,
                          device="cuda") -> dict:
     """The port's LM parameters on ``device`` from ``{"a::b::c": array}``:
@@ -75,18 +98,38 @@ def lm_params_from_numpy(flat: Dict[str, np.ndarray], cfg,
     ``cfg.dtype`` (a bf16 leaf that was widened to fp32 to be stored in
     numpy narrows back exactly). Arrays may also be bf16 arrays of
     ``ml_dtypes``."""
-    device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    params: dict = {}
-    for key, arr in flat.items():
-        *path, leaf = key.split(LM_KEY_SEP)
-        node = params
-        for part in path:
-            node = node.setdefault(part, {})
-        want = torch.float32 if leaf in LM_FP32_LEAVES else dtype
-        node[leaf] = torch.tensor(np.asarray(arr, np.float32),
-                                  device=device).to(want)
-    return params
+    return _nest(flat, lambda leaf: torch.float32
+                 if leaf in LM_FP32_LEAVES else dtype, device)
+
+
+def lm_params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``{"a::b::c": array}`` host copies of the port's LM parameters, bf16
+    leaves widened to fp32: what the JAX ``flatten_params`` gives for the
+    same tree."""
+    return flatten_params(params)
+
+
+
+
+def adamw_state_from_numpy(state: Dict, *, moments_dtype="float32",
+                           device="cuda") -> AdamWState:
+    """An ``AdamWState`` on ``device`` from ``{"count": int, "mu": flat,
+    "nu": flat}``, each moment leaf in ``moments_dtype``."""
+    device = resolve_device(device)
+    dtype = getattr(torch, moments_dtype)
+    return AdamWState(
+        count=torch.tensor(int(state["count"]), dtype=torch.int32,
+                           device=device),
+        mu=_nest(state["mu"], lambda _: dtype, device),
+        nu=_nest(state["nu"], lambda _: dtype, device))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> Dict:
+    """``{"count": int, "mu": flat, "nu": flat}`` host copies of
+    ``state``, bf16 moments widened to fp32."""
+    return {"count": int(state.count), "mu": flatten_params(state.mu),
+            "nu": flatten_params(state.nu)}
 
 
 def kb_state_to_numpy(state: KBState) -> Dict[str, np.ndarray]:

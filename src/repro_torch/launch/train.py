@@ -1,0 +1,212 @@
+"""Training launcher: the in-graph CARLS training loop on the port.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 3 --batch 2 --seq 16 --nodes 64
+
+The default loop of ``repro.launch.train``, with its flags and its printed
+lines: the reduced config of ``--arch`` (``--reduced`` is always on, as
+there), random weights from ``--seed`` (a ``torch.Generator`` on the
+device), a bank of ``--nodes`` rows of N(0, 0.01²) at width d_model, the
+``SyntheticGraphCorpus`` of ``--nodes`` nodes, and per step: a neighbour
+lookup through ``KBOps`` (on the card one launch of the fused-lookup
+kernel), the loss (chunked cross-entropy + MoE aux + the graph regulariser
+on the fetched rows), the gradient with respect to the parameters and the
+rows, the rows' gradient pushed to the bank's lazy cache, the trainer's
+push of its pooled sample embeddings, and AdamW (warmup-cosine from
+``--lr``, weight decay 0.01). Every ``--maker-every`` steps an
+embedding-refresh maker pass re-encodes ``--batch`` random nodes; with
+``--ckpt-dir`` the parameters are saved as npz every ``--ckpt-every``
+steps (the JAX package's layout; either package loads them).
+
+The run is on the CUDA device unless ``--device cpu`` is given. On the
+card a config whose training forward would reach a kernel without a
+backward (rwkv6 and Mamba mixers; attention over ``--seq`` >= 2048
+tokens, the flash branch) is refused before any parameter is built.
+``--makers`` (the asynchronous maker runtime) and ``--kb-connect`` (the
+wire) are not ported yet and raise, naming their ROADMAP items.
+
+``train_carls(cfg, ...)`` is the loop for any config of the ported archs,
+the full-width one included; it returns the losses and each step's time.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import DiskCheckpointStore
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.knowledge_bank import kb_create
+from repro_torch.core.knowledge_maker import make_embedding_refresh
+from repro_torch.core.trainer import (make_carls_train_step,
+                                      require_trainable_on_device)
+from repro_torch.data import SyntheticGraphCorpus
+from repro_torch.env import resolve_device
+from repro_torch.models import build_model
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.tree import tree_leaves
+
+
+class CarlsLoop:
+    """The state of one in-graph CARLS run and its step: the model, its
+    parameters and AdamW state, the bank, the corpus and the batch
+    stream. ``step()`` takes the next batch, runs one training step and,
+    on their cadence, the maker pass and the checkpoint; it returns the
+    step's metrics (tensors on the device)."""
+
+    def __init__(self, cfg, *, steps: int, batch: int, seq: int, nodes: int,
+                 lr: float, maker_every: int, ckpt_dir=None,
+                 ckpt_every: int = 50, seed: int = 0, device="cuda"):
+        self.dev = resolve_device(device)
+        require_trainable_on_device(cfg, seq, self.dev)
+        self.cfg = cfg.replace(carls=cfg.carls.__class__(
+            **{**cfg.carls.__dict__, "kb_entries": nodes}))
+        self.batch, self.nodes = batch, nodes
+        self.maker_every, self.ckpt_every = maker_every, ckpt_every
+        self.model = build_model(self.cfg)
+        self.params = self.model.init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        self.opt = AdamW(lr=warmup_cosine(lr, steps // 10, steps),
+                         weight_decay=0.01)
+        self.opt_state = self.opt.init(self.params)
+        self.kb = kb_create(nodes, self.cfg.d_model, device=self.dev,
+                            generator=torch.Generator(
+                                device=self.dev).manual_seed(1))
+        self.corpus = SyntheticGraphCorpus(
+            num_nodes=nodes, vocab_size=self.cfg.vocab_size,
+            seq_len=seq + 1,
+            neighbors_per_node=self.cfg.carls.num_neighbors)
+        self.step_fn = make_carls_train_step(self.model, self.opt)
+        self.maker_fn = make_embedding_refresh(self.model)
+        self.ckpts = DiskCheckpointStore(ckpt_dir) if ckpt_dir else None
+        self.rng = np.random.default_rng(seed + 1)
+        self.done = 0
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in tree_leaves(self.params))
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        b = self.corpus.batch(self.rng, self.batch)
+        tb = {k: self._tensor(v) for k, v in b.items()}
+        self.params, self.opt_state, self.kb, m = self.step_fn(
+            self.params, self.opt_state, self.kb, tb)
+        self.done += 1
+        if self.done % self.maker_every == 0:
+            ids = self.rng.integers(0, self.nodes,
+                                    self.batch).astype(np.int32)
+            toks = self.corpus.node_tokens(ids)[:, :-1]
+            self.kb = self.maker_fn(self.params, self.kb, self._tensor(ids),
+                                    self._tensor(toks))
+        if self.ckpts and self.done % self.ckpt_every == 0:
+            self.ckpts.save(self.done, self.params)
+        return m
+
+    def sync(self) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+
+def train_carls(cfg, *, steps: int = 100, batch: int = 8, seq: int = 64,
+                nodes: int = 2048, lr: float = 1e-3, maker_every: int = 10,
+                ckpt_dir=None, ckpt_every: int = 50, seed: int = 0,
+                device="cuda", log=print) -> Dict:
+    """``steps`` in-graph CARLS steps of ``cfg`` (the JAX launcher's loop),
+    printing its lines through ``log``. Returns {"losses": [float],
+    "step_ms": [float] (host clock around each step, ending in a device
+    sync), "metrics": the last step's, "loop": the ``CarlsLoop``, which
+    can take more steps}."""
+    loop = CarlsLoop(cfg, steps=steps, batch=batch, seq=seq, nodes=nodes,
+                     lr=lr, maker_every=maker_every, ckpt_dir=ckpt_dir,
+                     ckpt_every=ckpt_every, seed=seed, device=device)
+    log(f"actual params: {loop.num_params()/1e6:.1f}M")
+    losses: List[float] = []
+    step_ms: List[float] = []
+    m: Dict = {}
+    loop.sync()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        ts = time.perf_counter()
+        m = loop.step()
+        loop.sync()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(m["loss"]))
+        if step < 3 or (step + 1) % 10 == 0:
+            log(f"step {step+1:5d} loss={losses[-1]:.4f} "
+                f"acc={float(m['acc']):.3f} "
+                f"reg={float(m['graph_reg']):.4f}"
+                f" gnorm={float(m['grad_norm']):.2f}")
+    dt = time.perf_counter() - t0
+    log(f"done: {steps} steps in {dt:.1f}s "
+        f"({dt/max(steps, 1)*1e3:.0f} ms/step)")
+    return {"losses": losses, "step_ms": step_ms, "metrics": m,
+            "loop": loop}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, default="yi-6b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--nodes", type=int, default=2048)
+    ap.add_argument("--maker-every", type=int, default=10)
+    ap.add_argument("--makers", default="",
+                    help="not ported yet (ROADMAP Q1 item 2)")
+    ap.add_argument("--kb-connect", default="", metavar="HOST:PORT",
+                    help="not ported yet (ROADMAP Q1 item 4)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None) -> Dict:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    if args.kb_connect and not args.makers:
+        # as in JAX: the in-graph loop owns its bank and never talks to a
+        # server, so a remote bank is refused rather than ignored
+        ap.error("--kb-connect requires the async topology: pass --makers "
+                 "(e.g. --makers graph_builder)")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    if args.d_model:
+        cfg = cfg.replace(d_model=args.d_model,
+                          head_dim=args.d_model // cfg.num_heads or 32)
+    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+          f"(reduced={args.reduced})")
+    if args.kb_connect:
+        raise NotImplementedError(
+            "--kb-connect (the wire protocol) is not ported yet (ROADMAP Q1 "
+            "item 4)")
+    if args.makers:
+        raise NotImplementedError(
+            "--makers (the asynchronous maker runtime) is not ported yet "
+            "(ROADMAP Q1 item 2)")
+    return train_carls(cfg, steps=args.steps, batch=args.batch,
+                       seq=args.seq, nodes=args.nodes, lr=args.lr,
+                       maker_every=args.maker_every, ckpt_dir=args.ckpt_dir,
+                       ckpt_every=args.ckpt_every, seed=args.seed,
+                       device=device,
+                       log=lambda line: print(line, flush=True))
+
+
+if __name__ == "__main__":
+    main()

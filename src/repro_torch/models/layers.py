@@ -161,13 +161,17 @@ def _pick_chunk(S: int, target: int) -> int:
     return best
 
 
+# ``attention(impl="auto")`` takes flash from this many (query, key) pairs
+FLASH_MIN_PAIRS = 2048 * 2048
+
+
 def attention(q, k, v, *, causal: bool, window: int = 0,
               softcap: float = 0.0, impl: str = "auto", q_offset: int = 0,
               kv_positions=None) -> torch.Tensor:
     """Dispatch. ``auto``: flash for long sequences, naive for
     short/decode."""
     Sq, Skv = q.shape[1], k.shape[1]
-    if impl == "naive" or (impl == "auto" and (Sq * Skv < 2048 * 2048
+    if impl == "naive" or (impl == "auto" and (Sq * Skv < FLASH_MIN_PAIRS
                                                or Sq == 1
                                                or kv_positions is not None)):
         return naive_attention(q, k, v, causal=causal, window=window,

@@ -6,8 +6,8 @@ attention mixers, MoE and SwiGLU feed-forwards); the port of
 Parameters keep the JAX package's pytree as nested dicts, with each layer
 parameter stacked over the ``G`` scan groups, so that a JAX checkpoint
 converts leaf by leaf (``repro_torch.convert.lm_params_from_numpy``). A
-Python loop over the groups takes the place of ``lax.scan`` and indexes
-group ``g`` of each stacked tensor (a view, not a copy).
+Python loop over the groups takes the place of ``lax.scan`` and takes
+group ``g``'s view of each stacked tensor (a view, not a copy).
 
 The decode cache is a dict as in JAX, with an entry per mixer position:
 an attention layer's ``groups/pos{p}/k|v`` of shape (G, B, C, KV, hd), an
@@ -19,8 +19,9 @@ by each ring slot (-1 empty), present only when some layer attends; and
 ``t % C`` and the recurrent states in place and returns the same dict.
 
 A MoE feed-forward's parameters sit under ``groups/pos{p}/moe``, a dense
-one's under ``ffn``, as in JAX. ``hidden`` drops the MoE router's aux
-loss, which only training reads. Cross-attention and the vision and audio
+one's under ``ffn``, as in JAX. ``hidden`` returns the MoE routers' aux
+loss summed over the layers, as the JAX function does; the trainer's
+loss reads it. Cross-attention and the vision and audio
 front-ends raise ``NotImplementedError`` naming the ROADMAP item that
 holds them, and ``build_model`` builds only the archs whose parity with
 the JAX package the port's tests hold (``PORTED_ARCHS``).
@@ -49,11 +50,16 @@ def _ffn_key(kind: str) -> str:
     return "moe" if kind == "moe" else "ffn"
 
 
-def _layer(tree, g: int):
-    """Group ``g`` of every stacked tensor of ``tree``."""
+def _groups(tree, G: int) -> list:
+    """Each of the ``G`` groups' views of every stacked tensor of
+    ``tree``. The tensors are split once (``unbind``), so that under
+    autograd the groups' gradients are stacked once; indexing group by
+    group would give each group a zero-filled gradient of the whole
+    stacked tensor to add up (``select``'s backward)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, g) for k, v in tree.items()}
-    return tree[g]
+        per = {k: _groups(v, G) for k, v in tree.items()}
+        return [{k: per[k][g] for k in per} for g in range(G)]
+    return list(tree.unbind(0))
 
 
 class LM:
@@ -128,20 +134,25 @@ class LM:
     # ------------------------------------------------------------------
     def hidden(self, params, tokens, *, impl="auto", collect_cache=False):
         """tokens: (B, S) integer ids. Returns (h (B, S, D) after the final
-        norm, cache_ys): with ``collect_cache``, cache_ys holds each
+        norm, aux, cache_ys). aux is the feed-forwards' aux loss, a () fp32
+        tensor: each group's layers summed in order, then the groups (the
+        JAX function's order; 0 without MoE). With ``collect_cache``,
+        cache_ys holds each
         position's cache entries stacked over the groups, an attention
         layer's keys and values ``{"k", "v": (G, B, S, KV, hd)}``, an
         RWKV6 layer's final state ``{"S": (G, B, Hn, hd, hd), "x_prev":
         (G, B, D)}`` and a Mamba layer's ``{"h": (G, B, di, ds),
         "conv_buf": (G, B, w - 1, di)}``, under ``"pos{p}"``; else None.
-        The JAX function also returns the MoE aux loss summed over the
-        layers; only training reads it, and it is dropped here."""
+        Autograd follows the whole forward through the kernels' plain
+        versions; on the card the flash, WKV and scan kernels refuse grad
+        (``kernels._build.require_no_grad``)."""
         cfg = self.cfg
         h = params["embed"]["tok"][tokens.long()]
         positions = torch.arange(h.shape[1], device=h.device)
         ys: Dict[str, Dict[str, list]] = {}
-        for g in range(self.num_groups):
-            gp = _layer(params["groups"], g)
+        auxs = []
+        for gp in _groups(params["groups"], self.num_groups):
+            aux = torch.zeros((), device=h.device)
             for p, (mixer, ffnk) in enumerate(self.spec):
                 lp = gp[f"pos{p}"]
                 hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
@@ -158,12 +169,16 @@ class LM:
                             n, []).append(x)
                 h = h + a
                 hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-                h = h + T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)[0]
+                f, al = T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)
+                h = h + f
+                aux = aux + al
+            auxs.append(aux)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        aux = torch.stack(auxs).sum()
         if not collect_cache:
-            return h, None
-        return h, {pk: {n: torch.stack(xs) for n, xs in ent.items()}
-                   for pk, ent in ys.items()}
+            return h, aux, None
+        return h, aux, {pk: {n: torch.stack(xs) for n, xs in ent.items()}
+                        for pk, ent in ys.items()}
 
     # ------------------------------------------------------------------
     # decode
@@ -218,8 +233,7 @@ class LM:
             C = kv_pos.shape[1]
             kv_pos[:, t % C] = t
             window = self._serve_window(C)
-        for g in range(self.num_groups):
-            gp = _layer(params["groups"], g)
+        for g, gp in enumerate(_groups(params["groups"], self.num_groups)):
             for p, (mixer, ffnk) in enumerate(self.spec):
                 lp = gp[f"pos{p}"]
                 cc = cache["groups"][f"pos{p}"]
@@ -255,8 +269,8 @@ class LM:
     def prefill(self, params, tokens, *, cache_len: Optional[int] = None):
         """Run the full prompt, return (cache, last_hidden)."""
         B, S = tokens.shape
-        h, cache_ys = self.hidden(params, tokens, impl="auto",
-                                  collect_cache=True)
+        h, _, cache_ys = self.hidden(params, tokens, impl="auto",
+                                     collect_cache=True)
         C = cache_len or S + 64
         cache = self.init_cache(B, C, device=h.device)
         for pk, ent in cache_ys.items():

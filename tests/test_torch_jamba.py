@@ -285,11 +285,15 @@ def test_group_spec_is_jax_s(lm_pair):
 def test_hidden_matches_jax(lm_pair):
     jm, params, tm, tp = lm_pair
     toks = np.random.default_rng(64).integers(0, jm.cfg.vocab_size, (2, 64))
-    want = jax.jit(lambda p, tk: jm.hidden(p, tk, {}, DistContext())[0])(
+    want, _, want_aux, _ = jax.jit(
+        lambda p, tk: jm.hidden(p, tk, {}, DistContext()))(
         params, jnp.asarray(toks, jnp.int32))
-    got, cache = tm.hidden(tp, t(toks))
+    got, aux, cache = tm.hidden(tp, t(toks))
     assert cache is None
     _close(got, want, "hidden")
+    # the MoE routers' aux loss summed over the layers, as JAX sums it
+    assert aux.shape == () and float(aux) > 0.0
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-6)
 
 
 B_SERVE, P_SERVE, G_SERVE = 2, 16, 4

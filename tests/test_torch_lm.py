@@ -197,8 +197,9 @@ def test_hidden_matches_jax(lm_pair, S, impl, monkeypatch):
     toks = np.random.default_rng(S).integers(0, jm.cfg.vocab_size, (1, S))
     want = jm.hidden(params, jnp.asarray(toks, jnp.int32), {}, DistContext(),
                      impl=impl)[0]
-    got, cache = tm.hidden(tp, t(toks), impl=impl)
+    got, aux, cache = tm.hidden(tp, t(toks), impl=impl)
     assert cache is None
+    assert aux.shape == () and float(aux) == 0.0  # no MoE layer
     assert len(calls) == jm.cfg.num_layers        # the flash branch
     _assert_close(got, want, f"hidden S={S}")
 

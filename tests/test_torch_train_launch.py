@@ -1,0 +1,111 @@
+"""The port's training launcher (repro_torch.launch.train) on the CPU: the
+JAX launcher's printed lines, its refusals, the device rule, and the
+up-front refusal on the card of configs whose training forward would
+reach a kernel that has no backward (the device check monkeypatched
+away, as the kernel wrappers' refusals are tested)."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.checkpoint import DiskCheckpointStore
+from repro_torch.configs import get_config
+from repro_torch.core.trainer import require_trainable_on_device
+from repro_torch.launch import train
+from repro_torch.models import build_model
+from repro_torch.models.model import LM
+
+ROOT = Path(__file__).resolve().parents[1]
+CPU_RUN = ["--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
+           "--nodes", "64"]
+# the JAX launcher's line shapes (repro/launch/train.py)
+STEP = (r"step +{} loss=\d+\.\d{{4}} acc=\d\.\d{{3}} reg=\d+\.\d{{4}} "
+        r"gnorm=\d+\.\d{{2}}")
+LINES = [r"arch=yi-6b params=\d+\.\dM \(reduced=True\)",
+         r"actual params: \d+\.\dM",
+         STEP.format(1), STEP.format(2), STEP.format(3),
+         r"done: 3 steps in \d+\.\ds \(\d+ ms/step\)"]
+
+
+def test_cpu_run_prints_the_jax_launchers_lines(capsys, tmp_path):
+    res = train.main(CPU_RUN + ["--maker-every", "2", "--ckpt-dir",
+                                str(tmp_path), "--ckpt-every", "2"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == len(LINES), out
+    for line, pat in zip(out, LINES):
+        assert re.fullmatch(pat, line), (line, pat)
+    cfg = get_config("yi-6b").reduced()
+    assert out[1] == f"actual params: {cfg.param_count()/1e6:.1f}M"
+    assert len(res["losses"]) == len(res["step_ms"]) == 3
+    assert np.isfinite(res["losses"]).all()
+    loop = res["loop"]
+    assert loop.kb.table.shape == (64, cfg.d_model)
+    assert loop.done == 3 and int(loop.kb.version.max()) >= 1
+    assert int(loop.opt_state.count) == 3
+    store = DiskCheckpointStore(str(tmp_path), template=loop.params)
+    assert store.steps() == [2]
+    step, params = store.load_latest()
+    assert step == 2 and params["embed"]["tok"].shape == (
+        cfg.vocab_size, cfg.d_model)
+
+
+def test_without_a_card_the_launcher_exits_with_the_no_cuda_error():
+    code = ("from repro_torch.launch.train import main; "
+            "main(['--steps', '1'])")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                          "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "arch=" not in proc.stdout
+
+
+def test_unported_modes_raise_naming_their_items():
+    with pytest.raises(NotImplementedError, match="Q1 item 2"):
+        train.main(CPU_RUN + ["--makers", "graph_builder"])
+    with pytest.raises(NotImplementedError, match="Q1 item 4"):
+        train.main(CPU_RUN + ["--makers", "graph_builder", "--kb-connect",
+                              "127.0.0.1:7787"])
+    with pytest.raises(SystemExit):     # JAX's argument error comes first
+        train.main(CPU_RUN + ["--kb-connect", "127.0.0.1:7787"])
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """A CUDA device that the launcher believes in, and an LM.init that
+    fails the test if any parameter is built."""
+    monkeypatch.setattr(train, "resolve_device",
+                        lambda device="cuda": torch.device(device))
+
+    def no_init(self, gen):
+        raise AssertionError("parameters were built")
+
+    monkeypatch.setattr(LM, "init", no_init)
+
+
+@pytest.mark.parametrize("argv", [["--arch", "rwkv6-7b"],
+                                  ["--arch", "jamba-1.5-large-398b"],
+                                  ["--seq", "2048"]])
+def test_card_refuses_configs_without_a_backward_before_params(fake_card,
+                                                               argv):
+    with pytest.raises(NotImplementedError, match="Q1 item 1"):
+        train.main(argv + ["--steps", "1"])
+
+
+def test_trainable_rule():
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    yi = get_config("yi-6b")
+    require_trainable_on_device(yi.replace(num_layers=16), 64, cuda)
+    require_trainable_on_device(yi.reduced(), 2047, cuda)
+    for cfg, seq in ((yi.reduced(), 2048),
+                     (get_config("rwkv6-7b").reduced(), 16)):
+        require_trainable_on_device(cfg, seq, cpu)
+        with pytest.raises(NotImplementedError, match="backward"):
+            require_trainable_on_device(cfg, seq, cuda)
+    assert build_model(yi.reduced()).spec == [("attn", "swiglu")]
