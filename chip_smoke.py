@@ -106,11 +106,42 @@ Phases, in order; any failed check raises and the script exits non-zero:
    kernel, the optimizer, elementwise; and by the step's ranges); then the
    10 steps again from the same seed, whose losses must be within 1% of
    the first run's at every step (whether they are bit-identical is
-   printed).
+   printed);
+9. the knowledge makers and their runtime (``run_async_training``):
+   (a) the twin of examples/quickstart.py on the card (the reduced
+   yi-6b of 2 layers, 1,024 nodes, seq 33, 8 clusters, 60 steps of batch
+   16, two embedding-refresh makers of batch 64, a checkpoint every 5
+   steps, lr 2e-3, seed 0), which must show the quickstart's three
+   trends: the loss falls (~6.4 -> ~5.3), the graph loss ends below 0.1,
+   and the bank's rows sit nearer their graph neighbours' than random
+   nodes'; (b) the full-width triangle: yi-6b cut to 16 layers as in
+   phase 8 (bf16, fp32 moments), batch 8 x seq 64, 2,048 nodes, lr 1e-4,
+   the trainer's push, all four makers of batch 64, a checkpoint every 5
+   steps, 20 steps, once with the makers, once without, and once with
+   them paced at 0.05 s (the serving makers' default): ms a step
+   (median of steps 3-20, the train core and the whole loop step), each
+   maker's line (each of the four kinds must step, none may fail, in
+   both runs with makers), peak device memory, the server's coalescing,
+   and the launches of kb_fused_lookup and nn_search at width 4096 on
+   that path (both must launch); then 8 steps with the makers under
+   torch.profiler: the device's busy share of steps 3-8 and its time
+   split between the trainer's kernels and the makers' and server's;
+   (c)
+   ``serve --kb --kb-makers graph_builder`` at phase 4's fp32 exact
+   configuration, whose graph builder must write rows.
 
 Phase 2 also holds nn_search beyond the serve shape (a repeated run
 bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
-times over whose equal scores must go to the lowest id), and the
+times over whose equal scores must go to the lowest id), and at the
+trainer's width: the makers' search (64 queries over a 2048 x 4096 bank
+of unit-norm rows, k 9 and 32: scores within 1e-4 plus 8 fp32 ulps,
+ids exact where separated, a repeat bit-identical, timed beside its
+bound), D 8192 and D 1,544 (a width no multiple of the 16-dim stage;
+N(0, 1) rows, scores within 1e-4 plus a probabilistic rounding bound of
+two D-term sums, 2 LAMBDA_WIDE sqrt(D) 2^-24 sum|q r|), and the four
+stage-2 entries at D 4096 (an index of 64 buckets, or 3 shards of 64,
+over 61,440 unit-norm rows, 32 queries probing 8, then 80 queries: three
+query tiles, the last partial), and the
 flash-attention kernel against its plain version at the prefill's shapes
 (B 4, S 2048, H 32, KV 4, d 128, causal) in bf16 and fp32, beside
 ``scaled_dot_product_attention`` as the library yardstick, with the bf16
@@ -139,6 +170,7 @@ It prints the kernels' record as one JSON line before the last, and as
 the last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
 or of the JAX package.
 """
+import bisect
 import gc
 import json
 import subprocess
@@ -156,7 +188,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ann_index  # noqa: E402
 from repro_torch.core import knowledge_bank as kbm  # noqa: E402
-from repro_torch.core.async_runtime import KnowledgeBankServer  # noqa: E402
+from repro_torch.core.async_runtime import (  # noqa: E402
+    KnowledgeBankServer, MakerRuntime, format_maker_stats,
+    run_async_training)
 from repro_torch.core.kb_engine import (  # noqa: E402
     CudaBackend, DenseBackend, KBEngine, KBIdError, ShardedBackend,
     make_kb_ops)
@@ -175,9 +209,11 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import AdamW, constant_lr  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
+from repro_torch.kernels.nn_search import tile_plan  # noqa: E402
 from tools.kernel_ab import (  # noqa: E402
-    PROFILE_CAPTURES, lookup_bank, lookup_ids, lookup_op, restorer,
-    scan_inputs, spread_ids, time_ms, wkv_inputs)
+    PROFILE_CAPTURES, STAGE2, WIDE_IVF_ROWS, lookup_bank, lookup_ids,
+    lookup_op, restorer, scan_inputs, spread_ids, stage2_inputs, time_ms,
+    wkv_inputs)
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 SHARDS = 3                          # the smallest count that divides N_ROWS
@@ -285,6 +321,31 @@ TRAIN_NODES, TRAIN_STEPS, TRAIN_LR = 2048, 10, 1e-4
 PARITY_LR, ADAM_B1 = 2e-3, 0.9
 ATOL_GRAD = 1e-6
 SIGN_T = 10 * ATOL_GRAD
+# the makers' search at the trainer's width: a maker batch of 64 queries
+# over the 2048-row bank of width 4096; graph_builder asks k + 1 = 9 (its
+# own row excluded), graph_agreement 8 x 4 over-fetched = 32
+WIDE_DIM, MAKER_B, MAKER_KS = 4096, 64, (9, 32)
+# wide scores: unit-norm rows (the pooled embeddings the trainer and the
+# makers write) within ATOL_WIDE plus 8 fp32 ulps of the score; N(0, 1)
+# rows within ATOL_WIDE plus 2 LAMBDA_WIDE sqrt(D) 2^-24 sum|q_d r_d|: two
+# D-term fp32 sums in different orders, each off by at most
+# lambda sqrt(D) u sum|x_d| but with probability below 2 D exp(-lambda^2/2)
+# (Higham and Mary's probabilistic bound for rounding errors of random
+# sign). The worst case, 2 D u sum|x_d|, is ~5 at D 8192, where a chunk of
+# 16 dims dropped moves a score by ~4; this bound is ~0.5 there, and the
+# kernel's largest error 0.0244 (a chip run of this script).
+ATOL_WIDE, ULPS8, LAMBDA_WIDE = 1e-4, 8 * 2.0 ** -23, 6.0
+# the stage-2 entries' query tiles: a multi-tile batch at D 4096, whose
+# last tile is partial (the kernels take 32 queries a tile)
+WIDE_TILED_B = 80
+# phase 9 (a): examples/quickstart.py's run
+QS_NODES, QS_SEQ, QS_CLUSTERS, QS_STEPS, QS_B = 1024, 33, 8, 60, 16
+QS_MAKERS, QS_MAKER_B, QS_CKPT, QS_LR = 2, 64, 5, 2e-3
+# phase 9 (b): the JAX launcher's async mode at phase 8's width and depth
+ASYNC_STEPS, ASYNC_CKPT, ASYNC_MAKER_B = 20, 5, 64
+# the contended triangle under torch.profiler: steps 3-8 of an 8-step run
+ASYNC_PROFILE_STEPS = 8
+SERVE_MAKER_PERIOD = 0.05           # serve --kb-maker-period's default
 
 
 def log(msg: str) -> None:
@@ -424,17 +485,17 @@ def check_padded(name: str, kern, plain, rest, queries, k: int) -> None:
             f"the zero queries' lists equal the plain version's exactly")
 
 
-def ivf_bound(index, probes, k: int, row_bytes: int):
+def ivf_bound(bucket_occ, probes, k: int, row_bytes: int, dim: int = DIM):
     """Each bucket that the batch probes read once (its occupied rows at
     ``row_bytes`` each, ids included), the queries, probes and occupancy
     read once, the (B, k) outputs written once; 2 D operations per
     (query, probed row)."""
-    occ = index.bucket_occ.long()
+    occ = bucket_occ.long()
     probed = torch.unique(probes.long())
     B = probes.shape[0]
-    nbytes = (int(occ[probed].sum()) * row_bytes + B * DIM * 4
+    nbytes = (int(occ[probed].sum()) * row_bytes + B * dim * 4
               + probes.numel() * 4 + occ.numel() * 4 + B * k * 12)
-    flops = 2.0 * int(occ[probes.long()].sum()) * DIM
+    flops = 2.0 * int(occ[probes.long()].sum()) * dim
     return bound(nbytes, flops)
 
 
@@ -480,7 +541,8 @@ def phase2_ivf(table, codes, qscale, qoffset, ids):
             max_abs_err=err,
             ms=time_ms(lambda: kernels[name](*args, *tail, k), 20),
             plain_ms=time_ms(lambda: plain(*args, *tail, k), 3),
-            library_ms=None, bound=ivf_bound(idx, probes, k, row_bytes))
+            library_ms=None,
+            bound=ivf_bound(idx.bucket_occ, probes, k, row_bytes))
         # the same call at the other kernel's k: how much of the time is
         # the longer top-k list and how much the row format
         other = KQ if k == K else K
@@ -543,7 +605,7 @@ def phase2_ivf_sharded(table, queries):
             ms=time_ms(lambda: kernels[name](*args, *tail, k), 20),
             plain_ms=time_ms(lambda: plain(*args, *tail, k), 3),
             library_ms=None,
-            bound=ivf_bound(idx, gprobes, k * SHARDS, row_bytes))
+            bound=ivf_bound(idx.bucket_occ, gprobes, k * SHARDS, row_bytes))
         other = KQ if k == K else K
         log(f"phase 2: {name} at k = {other}: "
             f"{time_ms(lambda: kernels[name](*args, *tail, other), 20)} ms")
@@ -803,6 +865,124 @@ def phase2_nn_cases(table, queries):
             f"nn_search planted ties: err {err}, ids {i_k.tolist()}")
     log(f"phase 2: nn_search planted ties (3 x 4096 rows, k = 9): "
         f"max_abs_err={err}, equal scores lowest id first")
+
+
+def wide_tol(q, bank, ids, scores, unit: bool):
+    """Per-score tolerance at a wide D (ATOL_WIDE's comment)."""
+    if unit:
+        return ATOL_WIDE + ULPS8 * scores.double().abs()
+    mag = torch.einsum("bd,bkd->bk", q.abs().double(),
+                       bank[ids.clamp(min=0)].abs().double())
+    return ATOL_WIDE + 2 * LAMBDA_WIDE * q.shape[1] ** 0.5 * 2.0 ** -24 * mag
+
+
+def check_wide(label, s_k, i_k, s_p, i_p, k, tol):
+    """Scores within ``tol`` (per plain score, k + 1 of them); ids equal
+    at each rank whose plain score is more than twice the bound from both
+    neighbours'. Returns (max error, ranks checked)."""
+    err = max_err(s_k, s_p[:, :k])
+    bad = (s_k.double() - s_p[:, :k].double()).abs() > tol[:, :k]
+    require(not bool(bad.any()), f"{label}: {int(bad.sum())} scores past "
+            f"the bound (max error {err})")
+    w = s_p.double()
+    gap = w[:, :-1] - w[:, 1:] - 2 * torch.maximum(tol[:, :-1], tol[:, 1:])
+    left = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                      gap[:, :k - 1]], 1)
+    ranks = (left > 0) & (gap[:, :k] > 0)
+    require(int(ranks.sum()) > 0, f"{label}: no rank is decided")
+    bad = ranks & (i_k != i_p[:, :k])
+    require(not bool(bad.any()), f"{label}: {int(bad.sum())} decided "
+            "ranks differ")
+    return err, int(ranks.sum())
+
+
+def rand_rows(n: int, dim: int, g, unit: bool):
+    x = torch.randn((n, dim), generator=g, device=g.device)
+    return x / x.norm(dim=1, keepdim=True) if unit else x
+
+
+def phase2_wide():
+    """nn_search and the four stage-2 entries at the trainer's width and
+    beyond (the module docstring's phase 2). Returns ({"k9": ..., "k32":
+    ...} of the makers' search, {entry: its D 4096 result})."""
+    kern = ops.LAUNCHERS["nn_search"]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    maker = {}
+    for dim, n, ks, unit in ((WIDE_DIM, TRAIN_NODES, MAKER_KS, True),
+                             (8192, 3000, (9, 32), False),
+                             (1544, 5000, (9, 32, 128), False)):
+        bank = rand_rows(n, dim, g, unit)
+        q = bank[torch.randint(0, n, (MAKER_B,), generator=g, device=dev)] \
+            + 0.01 * rand_rows(MAKER_B, dim, g, unit)
+        for k in ks:
+            s_k, i_k = kern(q, bank, k)
+            s_p, i_p = ref.nn_search_ref(q, bank, k + 1)
+            label = f"nn_search {MAKER_B} x {n} x {dim} k {k}"
+            err, ranks = check_wide(label, s_k, i_k, s_p, i_p, k,
+                                    wide_tol(q, bank, i_p, s_p, unit))
+            require_repeatable(label, kern, (q, bank, k), s_k, i_k)
+            ms = time_ms(lambda: kern(q, bank, k), 20)
+            r = dict(max_abs_err=err, ms=ms, library_ms=None,
+                     bound=bound((n + MAKER_B) * dim * 4 + MAKER_B * k * 12,
+                                 2.0 * MAKER_B * n * dim))
+            log(f"phase 2: {label} ({'unit-norm' if unit else 'N(0, 1)'} "
+                f"rows; plan {tile_plan(k, n)}): max_abs_err={err}, "
+                f"{ranks} decided ranks equal, a repeat bit-identical; "
+                f"{ms} ms, bound {r['bound'][0]} ms ({r['bound'][1]})")
+            if dim == WIDE_DIM:
+                r["plain_ms"] = time_ms(
+                    lambda: ref.nn_search_ref(q, bank, k), 20)
+                maker[f"k{k}"] = r
+        del bank, q
+    wbank = rand_rows(WIDE_IVF_ROWS, WIDE_DIM, g, True)
+    wq = wbank[torch.randint(0, WIDE_IVF_ROWS, (BATCH,), generator=g,
+                             device=dev)] + 0.01 * rand_rows(BATCH, WIDE_DIM,
+                                                             g, True)
+    tq = wbank[torch.randint(0, WIDE_IVF_ROWS, (WIDE_TILED_B,), generator=g,
+                             device=dev)] + 0.01 * rand_rows(
+                                 WIDE_TILED_B, WIDE_DIM, g, True)
+    stage2 = {}
+    for name, (sharded, int8, k, _) in STAGE2.items():
+        args, plain, rest = stage2_inputs(name, wbank, wq)
+        s_k, i_k = ops.LAUNCHERS[name](*args, k)
+        s_p, i_p = plain(*args, k + 1)
+        require_repeatable(f"{name} D {WIDE_DIM}", ops.LAUNCHERS[name],
+                           (*args, k), s_k, i_k)
+        flat = [x.reshape(-1, x.shape[-1]) for x in (s_k, i_k, s_p, i_p)]
+        err, ranks = check_wide(f"{name} D {WIDE_DIM}", *flat, k,
+                                wide_tol(None, None, None, flat[2], True))
+        occ, probes = args[-3], args[-1]
+        if sharded:
+            probes = global_probes(probes, occ.shape[0])
+        row_bytes = WIDE_DIM + 12 if int8 else 4 * WIDE_DIM + 4
+        r = dict(max_abs_err=err,
+                 ms=time_ms(lambda: ops.LAUNCHERS[name](*args, k), 20),
+                 plain_ms=time_ms(lambda: plain(*args, k), 3),
+                 library_ms=None,
+                 bound=ivf_bound(occ, probes, k * (SHARDS if sharded else 1),
+                                 row_bytes, WIDE_DIM))
+        stage2[name] = r
+        log(f"phase 2: {name} D {WIDE_DIM} ({WIDE_IVF_ROWS} unit-norm rows, "
+            f"{BATCH} queries, k = {k}): max_abs_err={err}, {ranks} decided "
+            f"ranks equal, a repeat bit-identical; {r['ms']} ms, plain "
+            f"{r['plain_ms']} ms, bound {r['bound'][0]} ms ({r['bound'][1]})")
+        targs = rest(tq)
+        label = f"{name} D {WIDE_DIM} {WIDE_TILED_B} queries"
+        s_k, i_k = ops.LAUNCHERS[name](*targs, k)
+        s_p, i_p = plain(*targs, k + 1)
+        require_repeatable(label, ops.LAUNCHERS[name], (*targs, k), s_k, i_k)
+        flat = [x.reshape(-1, x.shape[-1]) for x in (s_k, i_k, s_p, i_p)]
+        err, ranks = check_wide(label, *flat, k,
+                                wide_tol(None, None, None, flat[2], True))
+        log(f"phase 2: {label} (query tiles 0-{(WIDE_TILED_B - 1) // 32}, "
+            f"the last partial): max_abs_err={err}, {ranks} decided ranks "
+            f"equal, a repeat bit-identical; "
+            f"{time_ms(lambda: ops.LAUNCHERS[name](*targs, k), 20)} ms")
+        del args, targs
+    del wbank, wq, tq
+    torch.cuda.empty_cache()
+    return maker, stage2
 
 
 def owners_agree(vals, ids) -> bool:
@@ -1113,6 +1293,9 @@ def phase2_kernels():
     results.update(phase2_ivf(table, codes, qscale, qoffset, ids))
     del codes, qscale, qoffset, table
     torch.cuda.empty_cache()
+    results["nn_search"]["maker"], wide = phase2_wide()
+    for name, r in wide.items():
+        results[name]["wide"] = r
     results["flash_attention"] = phase2_flash()
     results["rwkv_wkv"] = phase2_wkv()
     results["mamba_scan"] = phase2_mamba()
@@ -1912,10 +2095,11 @@ def device_parts(prof):
                       for e in top))
 
 
-def profiled(fn):
+def profiled(fn, need=None):
     """Run ``fn`` under ``torch.profiler``; (wall ms, profile). A capture
-    that holds no device record lost them (CUPTI now and then delivers
-    none), so ``fn`` runs again under a new one, at most
+    that holds no device record, or fails ``need(profile)``, lost records
+    (CUPTI now and then delivers none, or drops a range's device-side
+    annotation), so ``fn`` runs again under a new one, at most
     ``PROFILE_CAPTURES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1927,9 +2111,10 @@ def profiled(fn):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()) \
+                and (need is None or need(prof)):
             return wall_ms, prof
-        log("torch.profiler recorded no device event; capturing again")
+        log("torch.profiler lost device records; capturing again")
     require(False, f"torch.profiler lost the device records of "
             f"{PROFILE_CAPTURES} captures in a row")
 
@@ -2169,6 +2354,18 @@ def phase8_reduced_parity() -> None:
         f"{total} entries (|grad| > {SIGN_T}); launches on the card {got}")
 
 
+# the training step's profiler ranges (repro_torch.core.trainer)
+TRAIN_RANGES = ("carls.lookup", "carls.kb_push", "carls.optimizer")
+
+
+def has_train_ranges(prof) -> bool:
+    """Whether each of TRAIN_RANGES shows as a device-side annotation."""
+    from torch.autograd import DeviceType
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    return all(n in names for n in TRAIN_RANGES)
+
+
 def train_parts(prof, wall_ms: float) -> str:
     """One profiled training step: device time, its split by part (GEMMs,
     the lookup kernel, the optimizer's kernels, the rest) and the busy
@@ -2197,8 +2394,7 @@ def train_parts(prof, wall_ms: float) -> str:
 
     gemm = named(dict(PROFILE_PARTS)["GEMMs"])
     lookup = named(("fused_lookup",))
-    ranges = {n: inside(n) for n in ("carls.lookup", "carls.kb_push",
-                                     "carls.optimizer")}
+    ranges = {n: inside(n) for n in TRAIN_RANGES}
     optim = ranges["carls.optimizer"]
     require(optim + gemm + lookup <= total * (1 + 1e-9),
             f"the profile's parts exceed its device time: {ranges}")
@@ -2259,7 +2455,7 @@ def phase8_train():
         f"{cfg.param_count()} parameters")
     res, counts = train_run("yi-6b full width run 1", cfg)
     losses1 = res["losses"]
-    wall_ms, prof = profiled(res["loop"].step)
+    wall_ms, prof = profiled(res["loop"].step, need=has_train_ranges)
     log(f"phase 8: profiled step {TRAIN_STEPS + 1}: "
         f"{train_parts(prof, wall_ms)}")
     del res, prof
@@ -2274,6 +2470,244 @@ def phase8_train():
     log(f"phase 8: the two full-width runs' losses bit-identical: "
         f"{losses1 == losses2}; largest relative gap {max(rel)}")
     return counts
+
+
+def phase9_quickstart() -> dict:
+    """(a) examples/quickstart.py's run on the card, its lines and its
+    three trends; returns the run's launch counts."""
+    cfg = get_config("yi-6b").reduced().replace(num_layers=2)
+    corpus = SyntheticGraphCorpus(
+        num_nodes=QS_NODES, vocab_size=cfg.vocab_size, seq_len=QS_SEQ,
+        num_clusters=QS_CLUSTERS, neighbors_per_node=cfg.carls.num_neighbors)
+    ops.reset_launch_counts()
+    res = run_async_training(build_model(cfg), corpus, steps=QS_STEPS,
+                             batch_size=QS_B, num_makers=QS_MAKERS,
+                             maker_batch=QS_MAKER_B, ckpt_period=QS_CKPT,
+                             lr=QS_LR, seed=0, kb_backend="cuda",
+                             device="cuda")
+    counts = ops.launch_counts()
+    loss0, loss1 = res.losses[0], float(np.mean(res.losses[-5:]))
+    reg0, reg1 = res.reg_losses[0], float(np.mean(res.reg_losses[-5:]))
+    m = res.server.metrics
+    tbl = res.server.table_snapshot()
+    same = np.einsum("id,id->i", tbl[corpus.neighbor_table[:, 0]], tbl)
+    rng = np.random.default_rng(0)
+    rand = np.einsum("id,id->i", tbl[rng.integers(0, corpus.num_nodes,
+                                                  corpus.num_nodes)], tbl)
+    for line in (
+            f"loss: {loss0:.4f} -> {loss1:.4f}",
+            f"graph-reg: {reg0:.4f} -> {reg1:.4f}",
+            f"maker refreshes (concurrent with training): "
+            f"{res.maker_refreshes}",
+            f"mean embedding staleness (trainer steps): "
+            f"{res.mean_staleness:.2f}",
+            f"mean trainer step: {np.mean(res.step_times[2:]) * 1e3:.1f} ms",
+            f"kb server: {m['requests']} requests -> {m['dispatches']} "
+            f"device dispatches (coalescing "
+            f"x{res.server.coalescing_factor:.1f}, longest merged run "
+            f"{m['max_run']})",
+            f"avg similarity to graph neighbor: {same.mean():.4f}  "
+            f"to random node: {rand.mean():.4f}",
+            f"launches {counts}"):
+        log(f"phase 9: quickstart: {line}")
+    require(loss1 < loss0 - 0.5, f"quickstart: the loss did not fall "
+            f"(~6.4 -> ~5.3): {loss0} -> {loss1}")
+    require(reg1 < 0.1, f"quickstart: graph-reg ends at {reg1}, not < 0.1")
+    require(same.mean() > 2 * rand.mean() and same.mean() - rand.mean() > 0.3,
+            f"quickstart: neighbour similarity {same.mean()} not well above "
+            f"random {rand.mean()}")
+    require(all(s["maker_steps"] > 0 and s["errors"] == 0
+                for s in res.maker_stats.values()),
+            f"quickstart: a maker failed or never stepped: {res.maker_stats}")
+    require(counts["kb_fused_lookup"] > 0, f"quickstart: no lookup kernel: "
+            f"{counts}")
+    return counts
+
+
+def contention_parts(prof, steps: int) -> str:
+    """Whose device work a contended triangle's steps 3-``steps`` held.
+    Every thread launches on the default stream, so the kernels run one
+    at a time and their durations sum to the device's busy time. The
+    profiler records the host ops of the thread that started it, the
+    trainer's, and of autograd's thread, which runs the trainer's
+    backward: the kernels tied to those ops are the trainer's, split by
+    the innermost trainer range (``carls.*``) around their op. The rest
+    of the busy time is the other threads', the makers' and the server
+    dispatcher's, split by kernel name (the search and lookup kernels,
+    then PROFILE_PARTS). The window runs
+    from the third train core's start to the last one's end (a sync), by
+    the host's clock."""
+    from torch.autograd import DeviceType
+    ev = prof.events()
+    cpu = [e for e in ev if e.device_type == DeviceType.CPU
+           and not e.is_async]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in cpu if e.name.startswith("carls."))
+    cores = [(a, b) for a, b, n in ranges if n == "carls.train_core"]
+    require(len(cores) == steps, f"the profile holds {len(cores)} train "
+            f"cores, not {steps}")
+    lo, hi = cores[2][0], cores[-1][1]
+    starts = [a for a, _, _ in ranges]
+    main = {e.thread for e in cpu if e.name == "carls.train_core"}
+
+    def innermost(t0):
+        """The latest-starting trainer range still open at ``t0`` (the
+        ranges nest), or None."""
+        i = bisect.bisect_right(starts, t0) - 1
+        while i >= 0 and ranges[i][1] <= t0:
+            i -= 1
+        return ranges[i][2] if i >= 0 else None
+
+    mine, mine_by_name = {}, {}
+    for e in cpu:
+        if not e.kernels or not lo <= e.time_range.start < hi:
+            continue
+        who = ((innermost(e.time_range.start) or "trainer, outside its "
+                "ranges") if e.thread in main
+               else "backward (autograd's thread)")
+        for k in e.kernels:
+            mine[who] = mine.get(who, 0.0) + k.duration / 1e3
+            mine_by_name[k.name] = mine_by_name.get(k.name, 0.0) \
+                + k.duration / 1e3
+    all_by_name = {}
+    for e in ev:
+        if e.device_type == DeviceType.CUDA and lo <= e.time_range.start < hi \
+                and not e.name.startswith("carls."):
+            all_by_name[e.name] = all_by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(all_by_name.values())
+    others = {}
+    parts = (("searches and lookups", ("nn_search", "fused_lookup")),
+             *PROFILE_PARTS)
+    for name, v in all_by_name.items():
+        rest = v - mine_by_name.get(name, 0.0)
+        part = next((p for p, pats in parts
+                     if any(x in name.lower() for x in pats)),
+                    "elementwise and other")
+        others[part] = others.get(part, 0.0) + rest
+    wall, n, trainer = (hi - lo) / 1e3, steps - 2, sum(mine.values())
+
+    def listed(d):
+        return "; ".join(f"{k} {v / n:.6g}" for k, v in
+                         sorted(d.items(), key=lambda kv: -kv[1]))
+    return (f"steps 3-{steps}: wall {wall / n} ms a step, device busy "
+            f"{busy / n} ms a step ({100 * busy / wall:.1f}%): the "
+            f"trainer's kernels {trainer / n} ms, the makers' and the "
+            f"server's {(busy - trainer) / n} ms; the trainer's by range "
+            f"(ms a step): {listed(mine)}; the others' by kernel (ms a "
+            f"step): {listed(others)}")
+
+
+def triangle_run(label: str, cfg, use_makers: bool, period: float = 0.0,
+                 steps: int = ASYNC_STEPS, profile: bool = False):
+    """(b) run_async_training at full width for ``steps`` steps, the
+    makers paced by ``period`` seconds, every kernel counter set to 0 just
+    before it and read just after; with ``profile``, under
+    ``torch.profiler``, its contention read by ``contention_parts``. With
+    makers, each of the four kinds must step and none may fail."""
+    corpus = SyntheticGraphCorpus(
+        num_nodes=TRAIN_NODES, vocab_size=cfg.vocab_size,
+        seq_len=TRAIN_SEQ + 1, neighbors_per_node=cfg.carls.num_neighbors,
+        num_clusters=4, labeled_frac=0.3, label_noise=0.3, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {}
+
+    def run():
+        out["res"] = run_async_training(
+            build_model(cfg), corpus, steps=steps, batch_size=TRAIN_B,
+            makers=list(MakerRuntime.MAKER_KINDS) if use_makers else None,
+            use_makers=use_makers, maker_batch=ASYNC_MAKER_B,
+            maker_period_s=period, ckpt_period=ASYNC_CKPT, lr=TRAIN_LR,
+            trainer_push=True, kb_backend="cuda", seed=0, device="cuda")
+    prof = profiled(run)[1] if profile else run()
+    res = out.pop("res")
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    core = float(np.median(res.step_times[2:]) * 1e3)
+    loop = float(np.median(res.loop_times[2:]) * 1e3)
+    m = res.server.metrics
+    log(f"phase 9: {label}: {steps} steps, losses {res.losses}; "
+        f"ms a step (median of steps 3-{steps}): train core {core}, "
+        f"whole loop step {loop}; each core "
+        f"{[round(t * 1e3, 3) for t in res.step_times]} ms; peak device "
+        f"memory {peak} bytes; kb server {m['requests']} requests -> "
+        f"{m['dispatches']} dispatches (coalescing "
+        f"x{res.server.coalescing_factor:.2f}); {wall:.1f} s with init; "
+        f"launches {counts}")
+    for line in format_maker_stats(res.maker_stats):
+        log(f"phase 9: {label}: {line}")
+    require(bool(np.isfinite(res.losses).all()), f"{label}: a loss is not "
+            f"finite: {res.losses}")
+    if use_makers:
+        st = res.maker_stats
+        require(sorted(s["kind"] for s in st.values())
+                == sorted(MakerRuntime.MAKER_KINDS)
+                and all(s["maker_steps"] > 0 and s["errors"] == 0
+                        for s in st.values()),
+                f"{label}: a maker kind is missing, never stepped or "
+                f"failed: {st}")
+    if profile:
+        log(f"phase 9: {label}: under torch.profiler, "
+            f"{contention_parts(prof, steps)}")
+        del prof
+    out = dict(counts=counts, core_ms=core, loop_ms=loop, peak=peak,
+               losses=res.losses)
+    del res
+    gc.collect()
+    return out
+
+
+def phase9_triangle() -> dict:
+    """(b) the full-width triangle, with the makers unpaced (the
+    launcher's default) and without them, then with them paced at
+    SERVE_MAKER_PERIOD s; returns the first run's launch counts."""
+    free_weights("phase 9", "yi-6b async training")
+    cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
+    with_m = triangle_run("yi-6b full width with all four makers", cfg, True)
+    without = triangle_run("yi-6b full width without makers", cfg, False)
+    paced = triangle_run(f"yi-6b full width with all four makers paced at "
+                         f"{SERVE_MAKER_PERIOD} s", cfg, True,
+                         SERVE_MAKER_PERIOD)
+    triangle_run("yi-6b full width with all four makers, profiled", cfg,
+                 True, steps=ASYNC_PROFILE_STEPS, profile=True)
+    c = with_m["counts"]
+    require(c["kb_fused_lookup"] > 0 and c["nn_search"] > 0,
+            f"the triangle did not reach both kernels at width "
+            f"{cfg.d_model}: {c}")
+    log(f"phase 9: ms a step with makers / without: train core "
+        f"{with_m['core_ms']} / {without['core_ms']}, whole loop step "
+        f"{with_m['loop_ms']} / {without['loop_ms']}; peak device memory "
+        f"{with_m['peak']} / {without['peak']} bytes; losses equal: "
+        f"{with_m['losses'] == without['losses']}; paced makers: train "
+        f"core {paced['core_ms']}, loop step {paced['loop_ms']}, peak "
+        f"{paced['peak']} bytes")
+    return c
+
+
+def phase9_serve_makers() -> dict:
+    """(c) phase 4's fp32 exact serve with the graph builder beside it."""
+    res, counts = serve_run("fp32 exact with --kb-makers graph_builder",
+                            ["--kb-makers", "graph_builder"], SERVE_ROUNDS)
+    st = res["maker_stats"]["graph_builder0"]
+    log(f"phase 9: serve with a maker: {st}")
+    require(st["rows_written"] > 0 and st["errors"] == 0,
+            f"the serving bank's graph builder wrote nothing: {st}")
+    require(counts["nn_search"] > 0, f"serve with a maker: {counts}")
+    return counts
+
+
+def phase9_makers() -> dict:
+    """Phase 9: the makers and their runtime; returns the launch counts of
+    its three paths."""
+    paths = {"quickstart": phase9_quickstart()}
+    paths["train_async"] = phase9_triangle()
+    paths["serve_makers"] = phase9_serve_makers()
+    return paths
 
 
 def main() -> int:
@@ -2304,6 +2738,9 @@ def main() -> int:
     t = time.perf_counter()
     paths["train"] = phase8_train()
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths.update(phase9_makers())
+    log(f"phase 9: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]
@@ -2340,6 +2777,22 @@ def main() -> int:
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": None}
+        if "maker" in r:        # nn_search on the makers' path, at 4096
+            record[-1]["maker"] = {
+                "launches": paths["train_async"][name],
+                "rows": TRAIN_NODES, "queries": MAKER_B, "dim": WIDE_DIM,
+                **{kk: {"k": int(kk[1:]), "max_abs_err": v["max_abs_err"],
+                        "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "bound_ms": v["bound"][0],
+                        "bound_by": v["bound"][1], "library_ms": None}
+                   for kk, v in r["maker"].items()}}
+        if "wide" in r:         # a stage-2 entry at D 4096
+            w = r["wide"]
+            record[-1]["wide"] = {
+                "dim": WIDE_DIM, "rows": WIDE_IVF_ROWS, "queries": BATCH,
+                "max_abs_err": w["max_abs_err"], "ms": w["ms"],
+                "plain_ms": w["plain_ms"], "bound_ms": w["bound"][0],
+                "bound_by": w["bound"][1], "library_ms": None}
     log("kernels: " + "; ".join(
         f"{k['name']} err={k['max_abs_err']:.3g} ms={k['ms']:.4g} "
         f"plain={k['plain_ms']:.4g} bound={k['bound_ms']:.4g} "

@@ -1,5 +1,6 @@
-"""Request-coalescing Knowledge-Bank server: the server side of
-``repro.core.async_runtime`` (``:84-680``).
+"""Asynchronous host runtime: the request-coalescing Knowledge-Bank
+server, the knowledge makers as paced background clients of it, and the
+trainer loop that drives both; the port of ``repro.core.async_runtime``.
 
 Concurrent callers do not each pay a locked device round-trip: every call
 enqueues an (op, ids, payload) request, and a dispatcher thread drains the
@@ -24,20 +25,58 @@ under the engine lock that the dispatcher holds for every op; on the
 sharded backend (pass ``backend=ShardedBackend(S)``) it rebuilds each
 shard's sub-index on its own clock.
 
-Not ported yet (ROADMAP Q1 items 2 and 3): the maker runtime and the row
-export/import of the wire fleet.
+``MakerRuntime`` and ``MakerJob`` run the paper's four knowledge makers
+(``embedding_refresh``, ``label_mining``, ``graph_agreement``,
+``graph_builder``) as independently paced threads, each a client of one
+server; label and graph knowledge lands in a lock-protected
+``SharedFeatureStore``. ``run_async_training`` is the trainer loop of the
+paper's Figure 1 on one device: each step it looks the neighbour rows up
+through the server, runs the train core, hands their gradient back to the
+server's lazy cache and, every ``ckpt_period`` steps, publishes a
+checkpoint for the makers.
+
+Differences of form from JAX: the trainer's AdamW updates the parameters
+in place, so a published checkpoint is a COPY (a maker must never read
+weights that change under it), and the jobs of one runtime share one
+cached checkpoint; every thread launches its kernels on the device's
+default stream, where they run in the order they were queued; the
+shared feature store lives on the host, where its numpy traffic is.
+
+Under ``torch.profiler`` the trainer's core runs in the range
+``carls.train_core`` and a checkpoint's copy in ``carls.publish``. The
+profiler records the host ops of the thread that started it (and of
+autograd's, which runs the backward); the makers' and the dispatcher's
+threads show only as their kernels.
+
+Not ported yet: the remote bank client (``kb_client``, ROADMAP Q1 item
+4) and the row export/import of the wire fleet (items 3 and 4).
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
+from repro_torch.checkpoint import MemoryCheckpointStore
 from repro_torch.core.ann_index import IVFRefresher
 from repro_torch.core.kb_engine import KBEngine
+from repro_torch.core.knowledge_bank import (feature_store_create,
+                                             fs_update_labels,
+                                             fs_update_neighbors)
+from repro_torch.core.knowledge_maker import vote_agreement_labels
+from repro_torch.core.trainer import (make_async_train_fns,
+                                      require_trainable_on_device)
+from repro_torch.data import SyntheticGraphCorpus
+from repro_torch.env import resolve_device
+from repro_torch.models.model import LM
+from repro_torch.optim import AdamW, constant_lr
+from repro_torch.tree import tree_map
 
 
 class KBServerClosedError(RuntimeError):
@@ -155,6 +194,7 @@ class KnowledgeBankServer:
         self._dispatcher = None
         self._ann_refresher = None
         self._ann_closed_counts = {"rebuilds": 0, "shard_rebuilds": 0}
+        self._maker_runtime = None
         if coalesce:
             self._dispatcher = threading.Thread(
                 target=self._dispatch_loop, daemon=True, name="kb-dispatch")
@@ -226,11 +266,35 @@ class KnowledgeBankServer:
         return self.metrics["staleness_sum"] / max(
             self.metrics["rows_served"], 1)
 
+    @property
+    def num_entries(self) -> int:
+        """The bank's rows (the engine's), part of the client surface."""
+        return self.engine.num_entries
+
+    @property
+    def dim(self) -> int:
+        return self.engine.dim
+
+    def attach_maker_runtime(self, runtime) -> None:
+        """Register the ``MakerRuntime`` that serves this bank, so that its
+        per-maker counters are read from the server (``maker_stats``).
+        Only for reading: the runtime's owner starts and stops it."""
+        self._maker_runtime = runtime
+
+    @property
+    def maker_stats(self) -> Dict[str, Dict]:
+        """Per-maker ``{name: {maker_steps, rows_written,
+        ckpt_version_lag, ...}}`` of the attached runtime ({} without
+        one)."""
+        if self._maker_runtime is None:
+            return {}
+        return self._maker_runtime.stats()
+
     def stats(self) -> dict:
         """Server metrics, the derived staleness and coalescing ratios, the
         engine's search counters and storage accounting, in the JAX
-        server's keys (``maker_stats`` stays empty: no maker runtime
-        yet), and the index maker's ``rebuilds`` (indexes published) and
+        server's keys, the attached maker runtime's ``maker_stats``, and
+        the index maker's ``rebuilds`` (indexes published) and
         ``shard_rebuilds`` (sub-indexes re-clustered), 0 without one."""
         with self._mlock:
             m = dict(self.metrics)
@@ -244,7 +308,7 @@ class KnowledgeBankServer:
                 "backend": self.engine.backend.name,
                 "num_entries": int(self.engine.num_entries),
                 "dim": int(self.engine.dim),
-                "storage": storage, "maker_stats": {},
+                "storage": storage, "maker_stats": self.maker_stats,
                 **self._ann_counts()}
 
     def _ann_counts(self) -> dict:
@@ -298,6 +362,12 @@ class KnowledgeBankServer:
                 f"KB dispatcher did not drain within {timeout_s}s "
                 f"({len(stranded)} stranded requests failed)")
         self._dispatcher = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # -- execution ---------------------------------------------------------
 
@@ -502,3 +572,541 @@ class KnowledgeBankServer:
         if self._row_cache:
             for g in np.unique(ids):
                 self._row_cache.pop(int(g), None)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class SharedFeatureStore:
+    """Host-side ``FeatureStore`` shared by concurrent maker jobs.
+
+    The fs ops stay the one source of label and graph semantics (the
+    confidence gate lives in ``fs_update_labels``); this wrapper adds a
+    lock around each read-modify-write and returns write counts, so that
+    makers report ``rows_written`` honestly (a label the gate rejects is
+    not a write). The store's tensors lie on the CPU and are updated in
+    place, so ``snapshot`` and ``labels`` return copies."""
+
+    def __init__(self, num_entries: int, max_neighbors: int = 8):
+        self._lock = threading.Lock()
+        self.fs = feature_store_create(num_entries, max_neighbors,
+                                       device="cpu")
+
+    def snapshot(self):
+        with self._lock:
+            return self.fs._replace(**{n: t.clone() for n, t in
+                                       self.fs._asdict().items()})
+
+    def labels(self) -> np.ndarray:
+        with self._lock:
+            return self.fs.labels.numpy().copy()
+
+    def labeled_ids(self, cap: Optional[int] = None) -> np.ndarray:
+        """The labeled node ids; ``cap`` takes an evenly strided subsample
+        of them, so that callers see a bounded batch."""
+        lab = np.flatnonzero(self.labels() >= 0)
+        if cap is not None and lab.size > cap:
+            lab = lab[np.linspace(0, lab.size - 1, cap).astype(np.int64)]
+        return lab
+
+    def update_labels(self, ids, labels, conf) -> int:
+        """Confidence-gated label write; returns how many labels the gate
+        accepted."""
+        ids = torch.as_tensor(np.asarray(ids)).long()
+        conf = torch.as_tensor(np.asarray(conf, np.float32))
+        with self._lock:
+            accepted = int((conf > self.fs.label_conf[ids]).sum())
+            fs_update_labels(self.fs, ids,
+                             torch.as_tensor(np.asarray(labels)), conf)
+            return accepted
+
+    def update_neighbors(self, ids, nbr_ids, nbr_weights) -> int:
+        ids = np.asarray(ids)
+        nbr_ids = np.asarray(nbr_ids)
+        nbr_weights = np.asarray(nbr_weights, np.float32)
+        width = int(self.fs.nbr_ids.shape[1])
+        if nbr_ids.shape[1] > width:
+            raise ValueError(f"{nbr_ids.shape[1]} neighbors per node won't "
+                             f"fit this store's width {width}")
+        if nbr_ids.shape[1] < width:    # a narrower writer pads with the
+            pad = width - nbr_ids.shape[1]      # store's missing marker
+            nbr_ids = np.concatenate(
+                [nbr_ids, np.full((len(ids), pad), -1, nbr_ids.dtype)], 1)
+            nbr_weights = np.concatenate(
+                [nbr_weights, np.zeros((len(ids), pad), np.float32)], 1)
+        with self._lock:
+            fs_update_neighbors(self.fs, torch.as_tensor(ids),
+                                torch.as_tensor(nbr_ids),
+                                torch.as_tensor(nbr_weights))
+            return int(ids.size)
+
+
+class MakerJob(threading.Thread):
+    """One independently paced knowledge maker: load the latest trainer
+    checkpoint, compute one batch of knowledge over a round-robin slice of
+    nodes, push it through the coalescing server, repeat.
+
+    Every push is tagged with the checkpoint step the job loaded
+    (``src_step``), so the server's staleness accounting, and this job's
+    ``ckpt_version_lag`` counters, measure data freshness per maker. A
+    failing step records ``last_error``, counts under ``errors`` (never
+    as a maker step) and keeps the thread alive."""
+
+    def __init__(self, runtime: "MakerRuntime", name: str, kind: str,
+                 step_fn: Callable, nodes: np.ndarray, *,
+                 batch_size: int = 64, min_period_s: float = 0.0,
+                 needs_ckpt: bool = True):
+        super().__init__(daemon=True, name=name)
+        self.runtime, self.kind, self.step_fn = runtime, kind, step_fn
+        self.nodes = np.asarray(nodes)
+        self.batch_size = batch_size
+        self.min_period_s = min_period_s
+        self.needs_ckpt = needs_ckpt
+        self.stop_event = threading.Event()
+        self.steps = 0
+        self.rows_written = 0
+        self.lag_sum = 0
+        self.last_lag = 0
+        self.errors = 0
+        # bounded: recent history is all that tests and diagnostics read
+        self.ckpt_steps_used: deque = deque(maxlen=4096)
+        self.last_error: Optional[BaseException] = None
+        self._cursor = 0
+
+    def _next_ids(self) -> np.ndarray:
+        ids = self.nodes[np.arange(self._cursor,
+                                   self._cursor + self.batch_size)
+                         % len(self.nodes)]
+        self._cursor = (self._cursor + self.batch_size) % len(self.nodes)
+        return ids
+
+    def run(self):
+        rt = self.runtime
+        # idle and error cycles keep the job's pacing floor too (never
+        # faster than a 5 ms poll): a crashing maker must not flood the
+        # server that the pacing protects
+        backoff = max(self.min_period_s, 0.005)
+        while not self.stop_event.is_set():
+            try:
+                step, params = rt.load_ckpt()
+                if self.needs_ckpt and params is None:
+                    self.stop_event.wait(backoff)   # nothing published yet
+                    continue
+                step = 0 if step is None else int(step)
+                rows = self.step_fn(params, step, self._next_ids())
+                self.last_error = None
+            except Exception as e:      # record, back off, stay alive
+                self.last_error = e
+                self.errors += 1
+                self.stop_event.wait(backoff)
+                continue
+            if rows is None:            # idle: preconditions not met
+                self.stop_event.wait(backoff)
+                continue
+            self.steps += 1
+            self.rows_written += int(rows)
+            # the trainer's clock less the checkpoint this batch used
+            lag = max(rt.trainer_step - step, 0)
+            self.last_lag = lag
+            self.lag_sum += lag
+            self.ckpt_steps_used.append(step)
+            if self.min_period_s:
+                self.stop_event.wait(self.min_period_s)
+
+    def stop(self, timeout_s: float = 30.0):
+        self.stop_event.set()
+        self.join(timeout=timeout_s)
+
+
+class MakerRuntime:
+    """Registry and lifecycle of the paper's knowledge makers, all clients
+    of ONE knowledge bank (a ``KnowledgeBankServer``).
+
+    ``register(kind)`` makes one of the four maker kinds a ``MakerJob``
+    with its own batch size, pacing (``min_period_s``) and node slice;
+    ``start()`` / ``stop()`` run the fleet. The runtime owns the
+    ``SharedFeatureStore`` the label and graph makers write, and the
+    trainer publishes its step on ``trainer_step`` so that every job's
+    ``ckpt_version_lag`` is measured against the live trainer clock.
+
+    - ``embedding_refresh``: re-encode node tokens with the latest
+      checkpoint and ``server.update`` the bank (needs ``ckpts`` and
+      ``embed_fn``).
+    - ``label_mining``: embed a node batch and classify it against
+      per-class centroids of the labeled bank rows (read back through
+      ``server.lookup``), then gate-write the labels.
+    - ``graph_agreement``: embed a node batch, fetch its nearest bank rows
+      through ``server.nn_search`` and gate-write the labeled neighbours'
+      weighted vote.
+    - ``graph_builder``: read rows through ``server.lookup``, find their
+      top-k neighbours through ``server.nn_search`` and write the graph.
+      It needs no checkpoint, so it also runs beside a serving bank.
+
+    The jobs share one cached checkpoint (``load_ckpt``), re-read only
+    when the published step moves. Node tokens go to ``device``, where
+    ``embed_fn`` runs."""
+
+    MAKER_KINDS = ("embedding_refresh", "label_mining", "graph_agreement",
+                   "graph_builder")
+
+    def __init__(self, server: KnowledgeBankServer,
+                 corpus: Optional[SyntheticGraphCorpus] = None, *,
+                 num_entries: Optional[int] = None,
+                 ckpts: Optional[MemoryCheckpointStore] = None,
+                 embed_fn: Optional[Callable] = None,
+                 feature_store: Optional[SharedFeatureStore] = None,
+                 num_classes: Optional[int] = None,
+                 conf_threshold: float = 0.6, label_temp: float = 20.0,
+                 agreement_k: int = 8, agreement_overfetch: int = 4,
+                 builder_k: int = 8, centroid_sample: int = 256,
+                 seed_labels: bool = True, seed_conf: float = 0.5,
+                 device="cuda"):
+        self.server, self.corpus = server, corpus
+        self.ckpts, self.embed_fn = ckpts, embed_fn
+        self.device = resolve_device(device)
+        if corpus is None and num_entries is None:
+            num_entries = getattr(server, "num_entries", None)
+        if corpus is None and num_entries is None:
+            raise ValueError("MakerRuntime needs a corpus or num_entries "
+                             "(trainer-less serving runs only the "
+                             "checkpoint-free makers)")
+        self.num_nodes = (corpus.num_nodes if corpus is not None
+                          else num_entries)
+        self.num_classes = (num_classes if num_classes is not None
+                            else corpus.num_clusters if corpus is not None
+                            else 1)
+        self.conf_threshold = conf_threshold
+        self.label_temp = label_temp
+        self.agreement_k = agreement_k
+        self.agreement_overfetch = agreement_overfetch
+        self.builder_k = builder_k
+        self.centroid_sample = centroid_sample
+        self.feature_store = feature_store or SharedFeatureStore(
+            self.num_nodes,
+            max(builder_k, corpus.neighbors_per_node
+                if corpus is not None else builder_k))
+        if seed_labels and feature_store is None and corpus is not None:
+            # the semi-supervised ground state (§4.2): the corpus's noisy
+            # labeled subset at a low confidence, which makers can out-vote
+            lab = np.asarray(corpus.labeled_ids)
+            if lab.size:
+                self.feature_store.update_labels(
+                    lab, corpus.noisy_labels[lab].astype(np.int32),
+                    np.full(lab.size, seed_conf, np.float32))
+        self.trainer_step = 0           # published by the trainer loop
+        self._ckpt_lock = threading.Lock()
+        self._ckpt_cache: Optional[tuple] = None     # (step, params)
+        # label_mining's per-class centroids, cached until the loaded
+        # checkpoint changes; the hit counter is the observability hook
+        self._centroid_cache: Optional[tuple] = None
+        self.centroid_cache_hits = 0
+        self.jobs: List[MakerJob] = []
+        server.attach_maker_runtime(self)
+
+    def load_ckpt(self):
+        """(step, params) of the latest checkpoint, (None, None) before
+        the first: one copy for every job, re-read only when the
+        published step moved."""
+        if self.ckpts is None:
+            return None, None
+        with self._ckpt_lock:
+            latest = self.ckpts.latest_step()
+            if latest is None:
+                return None, None
+            if self._ckpt_cache is None or self._ckpt_cache[0] != latest:
+                self._ckpt_cache = self.ckpts.load_latest()
+            return self._ckpt_cache
+
+    # -- the four maker steps: (params, ckpt_step, ids) -> rows -----------
+
+    def _node_tokens(self, ids: np.ndarray) -> torch.Tensor:
+        if self.corpus is None:
+            raise ValueError("this maker kind needs a corpus")
+        toks = self.corpus.node_tokens(ids)[:, :-1]
+        return torch.from_numpy(np.ascontiguousarray(toks)).to(self.device)
+
+    def _embed(self, params, ids: np.ndarray) -> np.ndarray:
+        if self.embed_fn is None:
+            raise ValueError("this maker kind needs embed_fn (and ckpts)")
+        return _host(self.embed_fn(params, self._node_tokens(ids)))
+
+    def _embedding_refresh_step(self, params, step: int, ids) -> int:
+        self.server.update(ids, self._embed(params, ids), src_step=step)
+        return ids.size
+
+    def _label_mining_step(self, params, step: int, ids) -> Optional[int]:
+        """§4.2.1 online label mining, asynchronous form: the class
+        read-out is the labeled-centroid classifier over the bank's rows,
+        fetched through the server. The centroids are cached and
+        recomputed only when the loaded checkpoint step changes: the
+        read-back is a ``centroid_sample``-row lookup, paid once per
+        published checkpoint (``centroid_cache_hits`` counts those
+        saved)."""
+        fs = self.feature_store
+        cached = self._centroid_cache
+        if cached is not None and cached[0] == step:
+            cent = cached[1]
+            self.centroid_cache_hits += 1
+        else:
+            lab = fs.labeled_ids(cap=self.centroid_sample)
+            if lab.size == 0:
+                return None             # idle: nothing to calibrate against
+            lab_emb = self.server.lookup(lab,
+                                         trainer_step=self.trainer_step)
+            lab_cls = fs.labels()[lab]
+            cent = np.zeros((self.num_classes, lab_emb.shape[1]),
+                            np.float32)
+            for c in range(self.num_classes):
+                m = lab_cls == c
+                if m.any():
+                    cent[c] = lab_emb[m].mean(0)
+            self._centroid_cache = (step, cent)
+        emb = self._embed(params, ids)
+        probs = torch.softmax(torch.from_numpy(
+            np.ascontiguousarray(emb @ cent.T * self.label_temp)),
+            dim=-1).numpy()
+        conf = probs.max(-1)
+        pred = probs.argmax(-1).astype(np.int32)
+        conf = np.where(conf >= self.conf_threshold, conf, 0.0)
+        return fs.update_labels(ids, pred, conf)
+
+    def _graph_agreement_step(self, params, step: int, ids
+                              ) -> Optional[int]:
+        """§4.2.2, asynchronous form: candidates from the server's
+        nn_search over the live bank (over-fetched, so that enough LABELED
+        ones survive the mask), the vote from the shared feature store."""
+        labels = self.feature_store.labels()    # one snapshot a step
+        if not (labels >= 0).any():
+            return None                 # idle: an unlabeled bank can't vote
+        emb = self._embed(params, ids)
+        kfetch = self.agreement_k * self.agreement_overfetch
+        scores, nids = self.server.nn_search(emb, k=kfetch)
+        nbr_labels = labels[np.maximum(nids, 0)]
+        ok = ((nids >= 0) & (nbr_labels >= 0)
+              & (nids != np.asarray(ids)[:, None]))
+        # the electorate: the agreement_k NEAREST labeled survivors (the
+        # lists are sorted); the over-fetch only buys labeled candidates
+        ok &= np.cumsum(ok, axis=1) <= self.agreement_k
+        pred, conf = vote_agreement_labels(
+            scores, nids, np.where(ok, nbr_labels, -1),
+            num_classes=self.num_classes)
+        return self.feature_store.update_labels(ids, _host(pred),
+                                                _host(conf))
+
+    def _graph_builder_step(self, params, step: int, ids) -> int:
+        """Dynamic graph discovery over the live bank; needs no
+        checkpoint. Self-exclusion rides the server's exclude_ids path."""
+        q = self.server.lookup(ids, trainer_step=self.trainer_step)
+        scores, nids = self.server.nn_search(
+            q, k=self.builder_k, exclude_ids=np.asarray(ids)[:, None])
+        return self.feature_store.update_neighbors(
+            ids, nids, np.maximum(scores, 0.0))
+
+    # -- registry and lifecycle --------------------------------------------
+
+    def register(self, kind: str, *, batch_size: int = 64,
+                 min_period_s: float = 0.0,
+                 node_slice: Optional[np.ndarray] = None,
+                 name: Optional[str] = None) -> MakerJob:
+        """One maker job (not started). ``node_slice`` splits a node range
+        across several jobs of one kind; ``min_period_s`` paces this job
+        on its own."""
+        if kind not in self.MAKER_KINDS:
+            raise ValueError(f"unknown maker kind {kind!r} "
+                             f"(want one of {self.MAKER_KINDS})")
+        step_fn = getattr(self, f"_{kind}_step")
+        needs_ckpt = kind != "graph_builder"
+        if needs_ckpt and (self.ckpts is None or self.embed_fn is None):
+            raise ValueError(f"maker {kind!r} needs ckpts and embed_fn")
+        nodes = (np.arange(self.num_nodes) if node_slice is None
+                 else np.asarray(node_slice))
+        if nodes.size == 0:
+            raise ValueError(f"maker {kind!r} got an empty node slice "
+                             "(more jobs than nodes?)")
+        job = MakerJob(self, name or f"{kind}{len(self.jobs)}", kind,
+                       step_fn, nodes, batch_size=batch_size,
+                       min_period_s=min_period_s, needs_ckpt=needs_ckpt)
+        self.jobs.append(job)
+        return job
+
+    def start(self) -> "MakerRuntime":
+        for j in self.jobs:
+            if not j.is_alive():
+                j.start()
+        return self
+
+    def stop(self, timeout_s: float = 30.0) -> None:
+        for j in self.jobs:
+            j.stop_event.set()
+        for j in self.jobs:
+            j.join(timeout=timeout_s)
+
+    def stats(self) -> Dict[str, Dict]:
+        """Per-maker counters by job name: ``maker_steps`` (batches
+        computed; crashed ones count under ``errors``), ``rows_written``
+        (writes the gate accepted), and the checkpoint staleness:
+        ``ckpt_version_lag`` (trainer steps of lag summed over the run),
+        ``ckpt_version_lag_last`` and ``last_ckpt_step``."""
+        out = {}
+        for j in self.jobs:
+            out[j.name] = {
+                "kind": j.kind,
+                "maker_steps": j.steps,
+                "rows_written": j.rows_written,
+                "ckpt_version_lag": j.lag_sum,
+                "ckpt_version_lag_last": j.last_lag,
+                "last_ckpt_step": (j.ckpt_steps_used[-1]
+                                   if j.ckpt_steps_used else -1),
+                "errors": j.errors,
+                "error": repr(j.last_error) if j.last_error else None,
+            }
+        return out
+
+
+def format_maker_stats(stats: Dict[str, Dict]) -> List[str]:
+    """One printable line per maker, the one formatter every entry point
+    shares, so that a crashing maker shows wherever its counters do."""
+    lines = []
+    for name, s in stats.items():
+        line = (f"maker {name}: steps={s['maker_steps']} "
+                f"rows_written={s['rows_written']} "
+                f"ckpt_version_lag={s['ckpt_version_lag']} "
+                f"(last={s['ckpt_version_lag_last']}, "
+                f"ckpt={s['last_ckpt_step']})")
+        if s.get("errors"):
+            line += f" ERRORS={s['errors']} last={s['error']}"
+        lines.append(line)
+    return lines
+
+
+@dataclass
+class AsyncRunResult:
+    """What ``run_async_training`` returns. ``step_times``: the train
+    core's seconds a step, ending in a device sync (JAX's);
+    ``loop_times``: each whole loop step's, the server's lookup, lazy
+    gradient and push included."""
+    losses: List[float]
+    reg_losses: List[float]
+    step_times: List[float]
+    maker_refreshes: int
+    mean_staleness: float
+    final_params: dict = field(repr=False, default=None)
+    server: KnowledgeBankServer = field(repr=False, default=None)
+    maker_stats: Dict[str, Dict] = field(default_factory=dict)
+    runtime: "MakerRuntime" = field(repr=False, default=None)
+    loop_times: List[float] = field(default_factory=list)
+
+
+def _publish(ckpts: MemoryCheckpointStore, step: int, params) -> None:
+    """Save a copy of ``params``: the optimizer updates them in place, and
+    a maker must read weights that do not change under it."""
+    ckpts.save(step, tree_map(lambda p: p.detach().clone(), params))
+
+
+def run_async_training(model: LM, corpus: SyntheticGraphCorpus, *,
+                       steps: int = 50, batch_size: int = 16,
+                       num_makers: int = 1, maker_batch: int = 64,
+                       ckpt_period: int = 5, lr: float = 1e-3,
+                       reg_weight: Optional[float] = None,
+                       lazy_update: bool = True,
+                       use_makers: bool = True,
+                       makers: Optional[Sequence[str]] = None,
+                       maker_period_s: float = 0.0,
+                       trainer_push: bool = False,
+                       kb_backend: str = "cuda",
+                       coalesce: bool = True,
+                       seed: int = 0, device="cuda") -> AsyncRunResult:
+    """Asynchronous CARLS training on one device: the trainer loop and a
+    ``MakerRuntime`` fleet, all clients of one coalescing server whose
+    bank (``corpus.num_nodes`` x d_model, zeros) runs on ``kb_backend``
+    (``cuda``, the kernels; ``dense``; ``sharded``, one logical shard).
+
+    ``makers`` selects maker kinds by name (each registered once, paced by
+    ``maker_period_s``); by default ``num_makers`` embedding-refresh jobs
+    over disjoint node slices. ``trainer_push=True`` also pushes the
+    trainer's pooled sample embeddings to the bank each step. Parameters
+    come from ``model.init`` on a generator seeded ``seed``; AdamW at a
+    constant ``lr``, no weight decay. Refuses up front, before any
+    parameter is built, a configuration the card cannot train
+    (``require_trainable_on_device``)."""
+    dev = resolve_device(device)
+    cfg = model.cfg
+    require_trainable_on_device(cfg, corpus.seq_len - 1, dev)
+    opt = AdamW(lr=constant_lr(lr), weight_decay=0.0)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt_state = opt.init(params)
+    train_core, embed_fn = make_async_train_fns(model, opt,
+                                                reg_weight=reg_weight)
+    server = KnowledgeBankServer(
+        corpus.num_nodes, cfg.d_model, backend=kb_backend,
+        lazy_lr=cfg.carls.lazy_lr, zmax=cfg.carls.outlier_zmax,
+        lazy_update=lazy_update, coalesce=coalesce, device=dev)
+    ckpts = MemoryCheckpointStore()
+    _publish(ckpts, 0, params)
+    runtime = None
+    if use_makers:
+        runtime = MakerRuntime(server, corpus, ckpts=ckpts,
+                               embed_fn=embed_fn, device=dev)
+        if makers is None:
+            for i, s in enumerate(np.array_split(
+                    np.arange(corpus.num_nodes), num_makers)):
+                runtime.register("embedding_refresh", batch_size=maker_batch,
+                                 node_slice=s, name=f"maker{i}",
+                                 min_period_s=maker_period_s)
+        else:
+            for kind in makers:
+                runtime.register(kind, batch_size=maker_batch,
+                                 min_period_s=maker_period_s)
+        runtime.start()
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    rng = np.random.default_rng(seed + 1)
+    losses, regs, times, loop_times = [], [], [], []
+    try:
+        for step in range(steps):
+            t_loop = time.perf_counter()
+            if runtime is not None:
+                runtime.trainer_step = step
+            batch = corpus.batch(rng, batch_size)
+            nbr_emb = server.lookup(batch["neighbor_ids"], trainer_step=step)
+            tb = {k: tensor(v) for k, v in batch.items()}
+            nbr = tensor(nbr_emb)
+            sync()
+            t0 = time.perf_counter()
+            with record_function("carls.train_core"):
+                params, opt_state, pooled, gn, metrics = train_core(
+                    params, opt_state, tb, nbr)
+                sync()
+            times.append(time.perf_counter() - t0)
+            server.lazy_grad(batch["neighbor_ids"], _host(gn))
+            if trainer_push:
+                server.update(batch["sample_ids"], _host(pooled),
+                              src_step=step)
+            losses.append(float(metrics["loss"]))
+            regs.append(float(metrics.get("graph_reg", 0.0)))
+            if (step + 1) % ckpt_period == 0:
+                with record_function("carls.publish"):
+                    _publish(ckpts, step + 1, params)
+            loop_times.append(time.perf_counter() - t_loop)
+    finally:        # a failed step must not leak maker or server threads
+        if runtime is not None:
+            runtime.stop(timeout_s=5.0)
+        server.close()
+    return AsyncRunResult(
+        losses=losses, reg_losses=regs, step_times=times,
+        maker_refreshes=(sum(j.steps for j in runtime.jobs)
+                         if runtime else 0),
+        mean_staleness=server.mean_staleness,
+        final_params=params, server=server,
+        maker_stats=runtime.stats() if runtime else {},
+        runtime=runtime, loop_times=loop_times)

@@ -3,7 +3,9 @@
 The fp32 ops of ``repro.core.knowledge_bank`` and their int8 twins: the
 shared ``KBState`` and the ops every backend of
 ``repro_torch.core.kb_engine`` must agree with. The formulas are the JAX
-package's, term for term.
+package's, term for term. The feature lookup (``FeatureStore``: neighbour
+ids and weights, labels and their confidence) and its ``fs_*`` ops are
+here too; the knowledge makers write it.
 
 One difference of form: the JAX functions return new arrays, while these
 **update the given state's tensors in place** and return the same state
@@ -45,6 +47,14 @@ class KBState(NamedTuple):
     step: torch.Tensor          # () int32: bank clock
 
 
+class FeatureStore(NamedTuple):
+    """The paper's feature lookup: per-instance features keyed by id."""
+    nbr_ids: torch.Tensor       # (N, K) int32, -1 = missing
+    nbr_weights: torch.Tensor   # (N, K) f32
+    labels: torch.Tensor        # (N,) int32, -1 = unlabeled
+    label_conf: torch.Tensor    # (N,) f32: confidence of (mined) labels
+
+
 def kb_create(num_entries: int, dim: int, *, device="cuda",
               generator: Optional[torch.Generator] = None) -> KBState:
     """A bank of zeros, or of N(0, 0.01²) rows drawn from ``generator``
@@ -65,6 +75,23 @@ def kb_create(num_entries: int, dim: int, *, device="cuda",
         grad_sqnorm=torch.zeros((num_entries,), **f32),
         norm_ema=torch.zeros((num_entries,), **f32),
         step=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def feature_store_create(num_entries: int, max_neighbors: int, *,
+                         device="cuda") -> FeatureStore:
+    """A store with no neighbours (-1, weight 0) and no labels (-1,
+    confidence 0)."""
+    device = resolve_device(device)
+    return FeatureStore(
+        nbr_ids=torch.full((num_entries, max_neighbors), -1,
+                           dtype=torch.int32, device=device),
+        nbr_weights=torch.zeros((num_entries, max_neighbors),
+                                dtype=torch.float32, device=device),
+        labels=torch.full((num_entries,), -1, dtype=torch.int32,
+                          device=device),
+        label_conf=torch.zeros((num_entries,), dtype=torch.float32,
+                               device=device),
     )
 
 
@@ -402,3 +429,35 @@ def kb_nn_search_q(kb: KBState, qscale, qoffset, queries, k: int, *,
     scores = _ban(quantized_scores(queries, kb.table, qscale, qoffset),
                   exclude_ids)
     return topk_lowest_id(scores, k)
+
+
+# ---------------------------------------------------------------------------
+# feature-store ops (in place, like the bank's)
+# ---------------------------------------------------------------------------
+
+def fs_lookup_neighbors(fs: FeatureStore, ids: torch.Tensor, k: int):
+    """ids: (B,) -> (nbr_ids (B, k), nbr_weights (B, k))."""
+    ids = ids.long()
+    return fs.nbr_ids[ids, :k], fs.nbr_weights[ids, :k]
+
+
+def fs_update_neighbors(fs: FeatureStore, ids, nbr_ids, nbr_weights
+                        ) -> FeatureStore:
+    """Overwrite the neighbour rows of ``ids``."""
+    ids = ids.long()
+    fs.nbr_ids[ids] = nbr_ids.to(fs.nbr_ids.dtype)
+    fs.nbr_weights[ids] = nbr_weights.to(fs.nbr_weights.dtype)
+    return fs
+
+
+def fs_update_labels(fs: FeatureStore, ids, labels, conf) -> FeatureStore:
+    """Confidence-gated label write (curriculum / label mining §4.2): a
+    label replaces the stored one only where its confidence is strictly
+    higher."""
+    ids = ids.long()
+    conf = conf.to(fs.label_conf.dtype)
+    better = conf > fs.label_conf[ids]
+    fs.labels[ids] = torch.where(better, labels.to(fs.labels.dtype),
+                                 fs.labels[ids])
+    fs.label_conf[ids] = torch.where(better, conf, fs.label_conf[ids])
+    return fs

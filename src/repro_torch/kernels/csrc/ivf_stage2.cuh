@@ -33,7 +33,13 @@
 //   2. ivf_partial_topk, persistent: two blocks an SM take items from a
 //      counter. For its item a block finds the tile's queries that probe
 //      the bucket (the last probe position, if one lists it twice), loads
-//      them transposed, [d][32], and streams the item's rows through a
+//      them transposed, [d][32] (where 32 queries of width D fit beside
+//      two stages; at a wider D the streamed instance, kSQ, loads instead
+//      the tile's 32 queries' DC dims of each stage by a second TMA box
+//      beside the rows, [32][DC], 2 KB fp32 or 4 KB int8, and a warp reads
+//      its chunk's 4 queries there by their row in the tile, one float4
+//      of 4 dims each: the same FMAs in the same order, and no shared
+//      memory that grows with D), and streams the item's rows through a
 //      ring of 2-4 stages of 32 KB: thread 0 issues TMA loads of a 2-d
 //      tensor map over the packed rows, stages - 1 ahead, on full
 //      mbarriers, and refills a stage once every warp has released it on
@@ -214,6 +220,7 @@ struct IvfGeom {
   static constexpr int BOXB = BOXR * ROWB;        // 4 KB
   static constexpr int TRMAX = IVF_WARPS * BOXR;  // 1024 int8, 512 fp32
   static constexpr int STAGE = TRMAX * ROWB;      // 32 KB
+  static constexpr int QS = IVF_QB * DC * 4;      // streamed queries' slice
   static constexpr int SIDEB = kInt8 ? 12 : 4;    // id (+ scale, offset)
 };
 
@@ -225,27 +232,55 @@ __host__ __device__ constexpr int ivf_side_slots(int D, int DC, int stages) {
 }
 
 // bytes of dynamic shared memory (the wrapper's smem_bytes mirrors this):
-// room to align the ring, the ring, the side buffers, the transposed
-// queries, their sums, the candidate counts and buffers, and the lists
+// room to align the ring, the ring (with the queries' slices, streamed),
+// the side buffers, the transposed queries (resident), their sums, the
+// candidate counts and buffers, and the lists
 template <bool kInt8>
-size_t ivf_smem_bytes(int D, int k, int stages) {
+size_t ivf_smem_bytes(int D, int k, int stages, bool streamed) {
   using G = IvfGeom<kInt8>;
-  return 1024 + static_cast<size_t>(stages) * G::STAGE +
+  return 1024 +
+         static_cast<size_t>(stages) * (G::STAGE + (streamed ? G::QS : 0)) +
          static_cast<size_t>(ivf_side_slots(D, G::DC, stages)) * G::TRMAX *
              G::SIDEB +
-         static_cast<size_t>(D) * IVF_QB * 4 + 2 * IVF_QB * 4 +
-         8 * IVF_QB * IVF_CAND + 8 * static_cast<size_t>(IVF_QB) * k;
+         (streamed ? 0 : static_cast<size_t>(D) * IVF_QB * 4) +
+         2 * IVF_QB * 4 + 8 * IVF_QB * IVF_CAND +
+         8 * static_cast<size_t>(IVF_QB) * k;
+}
+
+// The chunk's 4 queries at one dim: component e of the streamed float4s,
+// or the float4 at `at` of the transposed queries qt.
+template <bool kSQ>
+__device__ __forceinline__ void ivf_chunk_queries(float (&qa)[IVF_QA],
+                                                  const float4* qs,
+                                                  const float* qt, int at,
+                                                  int e) {
+  if constexpr (kSQ) {
+#pragma unroll
+    for (int a = 0; a < IVF_QA; ++a)
+      qa[a] = e == 0 ? qs[a].x : e == 1 ? qs[a].y : e == 2 ? qs[a].z
+                                                           : qs[a].w;
+  } else {
+    const float4 q = *reinterpret_cast<const float4*>(qt + at);
+    qa[0] = q.x;
+    qa[1] = q.y;
+    qa[2] = q.z;
+    qa[3] = q.w;
+  }
 }
 
 // acc[a][j] += query a of chunk qc . row j of this lane, over the DC dims
 // from d0 of one stage: rows lane + 32 j of the warp's box, 16-byte chunk
 // c of a row stored at chunk c ^ swizzle (the row bits that the 32- or
 // 64-byte swizzle mixes in). int8: each code converted to a float (I2F,
-// exact) once for the chunk's 4 queries.
-template <bool kInt8>
+// exact) once for the chunk's 4 queries. Streamed (kSQ): qt is the
+// stage's [32][DC] query slice and col the chunk's 4 queries' rows in it;
+// each query's 4 dims come as one float4, and the FMAs run in the same
+// order.
+template <bool kInt8, bool kSQ>
 __device__ __forceinline__ void ivf_stage_fma(
     float (&acc)[IVF_QA][IvfGeom<kInt8>::RB], const uint8_t* box,
-    const float* qt, int qc, int d0, int D, int lane) {
+    const float* qt, const int (&col)[IVF_QA], int qc, int d0, int D,
+    int lane) {
   using G = IvfGeom<kInt8>;
   constexpr int RB = G::RB;
   if constexpr (kInt8) {
@@ -261,6 +296,13 @@ __device__ __forceinline__ void ivf_stage_fma(
               box + (lane + 32 * j) * G::ROWB + ((h ^ swz) << 4));
 #pragma unroll
         for (int wd = 0; wd < 4; ++wd) {
+          float4 qs[kSQ ? IVF_QA : 1];   // streamed: query a's 4 dims
+          if constexpr (kSQ) {
+#pragma unroll
+            for (int a = 0; a < IVF_QA; ++a)
+              qs[a] = *reinterpret_cast<const float4*>(
+                  qt + col[a] * G::DC + 16 * h + 4 * wd);
+          }
           float f[RB][4];
 #pragma unroll
           for (int j = 0; j < RB; ++j) {
@@ -274,9 +316,9 @@ __device__ __forceinline__ void ivf_stage_fma(
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float4 q = *reinterpret_cast<const float4*>(
-                qt + (d16 + 4 * wd + e) * IVF_QB + IVF_QA * qc);
-            const float qa[4] = {q.x, q.y, q.z, q.w};
+            float qa[IVF_QA];
+            ivf_chunk_queries<kSQ>(
+                qa, qs, qt, (d16 + 4 * wd + e) * IVF_QB + IVF_QA * qc, e);
 #pragma unroll
             for (int a = 0; a < IVF_QA; ++a)
 #pragma unroll
@@ -297,11 +339,18 @@ __device__ __forceinline__ void ivf_stage_fma(
         for (int j = 0; j < RB; ++j)
           x[j] = *reinterpret_cast<const float4*>(
               box + (lane + 32 * j) * G::ROWB + ((c4 ^ swz) << 4));
+        float4 qs[kSQ ? IVF_QA : 1];     // streamed: query a's 4 dims
+        if constexpr (kSQ) {
+#pragma unroll
+          for (int a = 0; a < IVF_QA; ++a)
+            qs[a] = *reinterpret_cast<const float4*>(qt + col[a] * G::DC +
+                                                     4 * c4);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float4 q = *reinterpret_cast<const float4*>(
-              qt + (d4 + e) * IVF_QB + IVF_QA * qc);
-          const float qa[4] = {q.x, q.y, q.z, q.w};
+          float qa[IVF_QA];
+          ivf_chunk_queries<kSQ>(qa, qs, qt, (d4 + e) * IVF_QB + IVF_QA * qc,
+                                 e);
 #pragma unroll
           for (int j = 0; j < RB; ++j) {
             const float v = e == 0 ? x[j].x : e == 1 ? x[j].y
@@ -458,9 +507,10 @@ __global__ void __launch_bounds__(1024)
 // any list of that (query, group) so far, which no (score, id) of a lower
 // key can beat in the final top-k; each tile's filter starts from it, and
 // each full list raises it.
-template <bool kInt8, bool kProf>
+template <bool kInt8, bool kProf, bool kSQ>
 __global__ void __launch_bounds__(IVF_THREADS, 2)
     ivf_partial_topk(const __grid_constant__ CUtensorMap tm_rows,
+                     const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ packed_scale,
                      const float* __restrict__ packed_offset,
                      const int* __restrict__ packed_ids,
@@ -476,6 +526,7 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
                      unsigned long long* __restrict__ prof) {
   using G = IvfGeom<kInt8>;
   constexpr int RB = G::RB;
+  constexpr int STAGEB = G::STAGE + (kSQ ? G::QS : 0);   // a stage's bytes
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[IVF_MAX_STAGES], empty[IVF_MAX_STAGES];
   __shared__ int qidx[IVF_QB], qpos[IVF_QB];   // query, probe position
@@ -491,11 +542,11 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
   // periods
   uint8_t* const ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
                                     1023);
-  int* const side_id = reinterpret_cast<int*>(ring + stages * G::STAGE);
+  int* const side_id = reinterpret_cast<int*>(ring + stages * STAGEB);
   float* const side_sc = reinterpret_cast<float*>(side_id + sides * G::TRMAX);
   float* const side_of = side_sc + (kInt8 ? sides * G::TRMAX : 0);
   float* const qt = side_of + (kInt8 ? sides * G::TRMAX : 0);   // [D][QB]
-  float* const sumq = qt + static_cast<size_t>(D) * IVF_QB;     // [QB]
+  float* const sumq = qt + (kSQ ? 0 : static_cast<size_t>(D) * IVF_QB);
   int* const cnt = reinterpret_cast<int*>(sumq + IVF_QB);       // [QB]
   float* const cs = reinterpret_cast<float*>(cnt + IVF_QB);  // [QB][CAND]
   int* const ci = reinterpret_cast<int*>(cs + IVF_QB * IVF_CAND);
@@ -566,6 +617,7 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
     };
     auto issue = [&](int L) {   // stage L % chunks of tile L / chunks
       const int st = (done + L) % stages, t = L / chunks, ch = L % chunks;
+      uint8_t* const stage = ring + st * STAGEB;
       // the slot's last load has been used by every warp
       if (done + L >= stages)
         mbar_wait(&empty[st],
@@ -576,10 +628,13 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
       const bool last = ch == chunks - 1;
       const int nside = (rows + 3) & ~3;   // cap % 4 == 0: inside the bucket
       uint64_t* bar = &full[st];
-      mbar_expect_tx(bar, nbox * G::BOXB + (last ? nside * G::SIDEB : 0));
+      mbar_expect_tx(bar, nbox * G::BOXB + (last ? nside * G::SIDEB : 0) +
+                              (kSQ ? G::QS : 0));
       for (int b = 0; b < nbox; ++b)
-        tma_load_2d(ring + st * G::STAGE + b * G::BOXB, &tm_rows, bar,
-                    ch * G::DC, static_cast<int>(row0) + b * G::BOXR);
+        tma_load_2d(stage + b * G::BOXB, &tm_rows, bar, ch * G::DC,
+                    static_cast<int>(row0) + b * G::BOXR);
+      if constexpr (kSQ)      // the tile's 32 queries, [32][DC]
+        tma_load_2d(stage + G::STAGE, &tm_q, bar, ch * G::DC, q0);
       if (last) {
         const int sd = (t % sides) * G::TRMAX;
         bulk_load_1d(side_id + sd, packed_ids + row0, nside * 4, bar);
@@ -597,11 +652,13 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
     const int sq = tid % IVF_QB, sg = tid / IVF_QB;
     const float* qrow =
         queries + static_cast<int64_t>(sq < qn ? qidx[sq] : 0) * D;
-    for (int d = sg; d < D; d += IVF_WARPS) {
-      if (sq < qn)
-        __pipeline_memcpy_async(qt + d * IVF_QB + sq, qrow + d, 4);
-      else
-        qt[d * IVF_QB + sq] = 0.f;
+    if constexpr (!kSQ) {
+      for (int d = sg; d < D; d += IVF_WARPS) {
+        if (sq < qn)
+          __pipeline_memcpy_async(qt + d * IVF_QB + sq, qrow + d, 4);
+        else
+          qt[d * IVF_QB + sq] = 0.f;
+      }
     }
     __pipeline_commit();
     for (int e = tid; e < IVF_QB * k; e += IVF_THREADS) {
@@ -613,9 +670,10 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
     if (kInt8) {
       // sum(q): each thread its dims in order, then the 8 partial sums in
       // order (cs, empty until the first candidates, holds them)
-      float part = 0.f;
+      float part = 0.f;   // streamed: read where the queries lie
       for (int d = sg; d < D; d += IVF_WARPS)
-        part = __fadd_rn(part, qt[d * IVF_QB + sq]);
+        part = __fadd_rn(part, kSQ ? (sq < qn ? qrow[d] : 0.f)
+                                   : qt[d * IVF_QB + sq]);
       cs[sg * IVF_QB + sq] = part;
       __syncthreads();
       if (tid < IVF_QB) {
@@ -630,6 +688,10 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
 
     const int qc = warp / boxes, box = warp % boxes;
     const bool active = qc * IVF_QA < qn;
+    int col[IVF_QA];          // streamed: the chunk's queries in the tile
+#pragma unroll
+    for (int a = 0; a < IVF_QA; ++a)
+      col[a] = kSQ && IVF_QA * qc + a < qn ? qidx[IVF_QA * qc + a] - q0 : 0;
     // each of this warp's queries' bar so far, (score, id): the better of
     // its list's k-th and its shared bound as last read (both only ever
     // rise, so the better of the old bar and either one's new value is
@@ -656,8 +718,12 @@ __global__ void __launch_bounds__(IVF_THREADS, 2)
       const int rows = tile_rows(t);
       const bool mine = active && box * G::BOXR < rows;
       if (mine)
-        ivf_stage_fma<kInt8>(acc, ring + st * G::STAGE + box * G::BOXB, qt,
-                             qc, ch * G::DC, D, lane);
+        ivf_stage_fma<kInt8, kSQ>(
+            acc, ring + st * STAGEB + box * G::BOXB,
+            kSQ ? reinterpret_cast<const float*>(ring + st * STAGEB +
+                                                 G::STAGE)
+                : qt,
+            col, qc, ch * G::DC, D, lane);
       mark(IVF_P_FMA);
       if (ch == chunks - 1) {
         // the tile is scored: what passes the query's threshold goes to
@@ -883,9 +949,9 @@ cudaError_t ivf_rows_map(CUtensorMap* map, const void* packed,
 // The ring the partial pass runs with at this D and k, and how many of its
 // blocks fit an SM: of 2-4 stages, the one with the most bytes in flight
 // an SM (blocks x stages), ties to the fewer stages. The partial pass
-// runs per_sm x SMs persistent blocks.
-template <bool kInt8>
-cudaError_t ivf_plan(int D, int k, int* stages, int* per_sm, int* sms) {
+// runs per_sm x SMs persistent blocks. kSQ: the streamed instance.
+template <bool kInt8, bool kSQ>
+cudaError_t ivf_plan_form(int D, int k, int* stages, int* per_sm, int* sms) {
   if (k < 1 || k > TOPK_KMAX || D < 1) return cudaErrorInvalidValue;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -896,19 +962,19 @@ cudaError_t ivf_plan(int D, int k, int* stages, int* per_sm, int* sms) {
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, ivf_partial_topk<kInt8, false>);
+  err = cudaFuncGetAttributes(&attr, ivf_partial_topk<kInt8, false, kSQ>);
   if (err != cudaSuccess) return err;
   int best = 0;
   for (int st = 2; st <= IVF_MAX_STAGES; ++st) {
-    const size_t smem = ivf_smem_bytes<kInt8>(D, k, st);
+    const size_t smem = ivf_smem_bytes<kInt8>(D, k, st, kSQ);
     if (smem + attr.sharedSizeBytes > static_cast<size_t>(optin)) break;
-    err = cudaFuncSetAttribute(ivf_partial_topk<kInt8, false>,
+    err = cudaFuncSetAttribute(ivf_partial_topk<kInt8, false, kSQ>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, ivf_partial_topk<kInt8, false>, IVF_THREADS, smem);
+        &n, ivf_partial_topk<kInt8, false, kSQ>, IVF_THREADS, smem);
     if (err != cudaSuccess) return err;
     if (n * st > best) {
       best = n * st;
@@ -917,6 +983,15 @@ cudaError_t ivf_plan(int D, int k, int* stages, int* per_sm, int* sms) {
     }
   }
   return best > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// ivf_plan_form for the instance the wrapper chose: streamed != 0 where
+// 32 queries of width D and two stages do not fit (its smem_bytes).
+template <bool kInt8>
+cudaError_t ivf_plan(int D, int k, int streamed, int* stages, int* per_sm,
+                     int* sms) {
+  return streamed ? ivf_plan_form<kInt8, true>(D, k, stages, per_sm, sms)
+                  : ivf_plan_form<kInt8, false>(D, k, stages, per_sm, sms);
 }
 
 // Ints of the scratch the plan needs: the queries and slices of each
@@ -936,7 +1011,8 @@ __host__ __device__ constexpr int64_t ivf_scratch_ints(int64_t pairs,
 // `resident` persistent blocks, the merge. part_s / part_i: (B, nprobe,
 // slices, k) scratch, slices = ceil(cap / TRMAX), written only where an
 // item has rows (the merge reads nothing else); scratch:
-// ivf_scratch_ints(ceil(B / 32) * C, resident, B * groups) ints; out_s /
+// ivf_scratch_ints(ceil(B / 32) * C, resident, B * groups) ints; streamed:
+// the instance that streams the queries (ivf_plan's); out_s /
 // out_i: (B, groups, k); groups divides nprobe; cap % 4 == 0. With prof
 // (IVF_P_SLOTS counters), the partial pass runs its profiled
 // instantiation and both timed launches record their windows.
@@ -945,8 +1021,9 @@ cudaError_t ivf_stage2_run(const void* packed, const float* packed_scale,
                            const float* packed_offset, const int* packed_ids,
                            const int* bucket_occ, int C, long long cap,
                            const float* queries, const int* probes, int B,
-                           int nprobe, int D, int k, int stages, int resident,
-                           int slices, int* scratch, float* part_s,
+                           int nprobe, int D, int k, int stages, int streamed,
+                           int resident, int slices, int* scratch,
+                           float* part_s,
                            int* part_i, float* out_s, int64_t* out_i,
                            int groups, unsigned long long* prof,
                            cudaStream_t stream) {
@@ -968,18 +1045,25 @@ cudaError_t ivf_stage2_run(const void* packed, const float* packed_scale,
                                          bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  CUtensorMap map;
+  CUtensorMap map, qmap = {};
   err = ivf_rows_map<kInt8>(&map, packed, C * cap, D);
   if (err != cudaSuccess) return err;
-  const size_t smem = ivf_smem_bytes<kInt8>(D, k, stages);
-  auto kernel = prof ? ivf_partial_topk<kInt8, true>
-                     : ivf_partial_topk<kInt8, false>;
+  if (streamed) {   // (32 queries x DC dims) boxes of the fp32 queries
+    err = matrix_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, queries, B, D,
+                     4, G::DC, IVF_QB, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = ivf_smem_bytes<kInt8>(D, k, stages, streamed != 0);
+  auto kernel = streamed ? (prof ? ivf_partial_topk<kInt8, true, true>
+                                 : ivf_partial_topk<kInt8, false, true>)
+                         : (prof ? ivf_partial_topk<kInt8, true, false>
+                                 : ivf_partial_topk<kInt8, false, false>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<resident, IVF_THREADS, smem, stream>>>(
-      map, packed_scale, packed_offset, packed_ids, bucket_occ, queries,
+      map, qmap, packed_scale, packed_offset, packed_ids, bucket_occ, queries,
       probes, B, nprobe, D, k, stages, cap, slices, groups, items, counters,
       bound, part_s, part_i, prof);
   err = cudaGetLastError();

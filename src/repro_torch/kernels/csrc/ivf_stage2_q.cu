@@ -9,20 +9,20 @@
 
 REPRO_ERROR_STRING(ivf_stage2_q)
 
-extern "C" int ivf_stage2_q_plan(int D, int k, int* stages, int* per_sm,
-                                 int* sms) {
-  return ivf_plan<true>(D, k, stages, per_sm, sms);
+extern "C" int ivf_stage2_q_plan(int D, int k, int streamed,
+    int* stages, int* per_sm, int* sms) {
+  return ivf_plan<true>(D, k, streamed, stages, per_sm, sms);
 }
 
 extern "C" int ivf_stage2_q_launch(
     const int8_t* packed_codes, const float* packed_scale,
     const float* packed_offset, const int* packed_ids, const int* bucket_occ,
     int C, long long cap, const float* queries, const int* probes, int B,
-    int nprobe, int D, int k, int stages, int resident, int slices,
-    int* scratch, float* part_s, int* part_i, float* out_s, int64_t* out_i,
-    unsigned long long* prof, cudaStream_t stream) {
+    int nprobe, int D, int k, int stages, int streamed, int resident,
+    int slices, int* scratch, float* part_s, int* part_i, float* out_s,
+    int64_t* out_i, unsigned long long* prof, cudaStream_t stream) {
   return ivf_stage2_run<true>(
       packed_codes, packed_scale, packed_offset, packed_ids, bucket_occ, C,
-      cap, queries, probes, B, nprobe, D, k, stages, resident, slices,
-      scratch, part_s, part_i, out_s, out_i, 1, prof, stream);
+      cap, queries, probes, B, nprobe, D, k, stages, streamed, resident,
+      slices, scratch, part_s, part_i, out_s, out_i, 1, prof, stream);
 }

@@ -38,14 +38,14 @@
 
 REPRO_ERROR_STRING(ivf_stage2_sharded)
 
-extern "C" int ivf_stage2_sharded_plan(int D, int k, int* stages,
-                                       int* per_sm, int* sms) {
-  return ivf_plan<false>(D, k, stages, per_sm, sms);
+extern "C" int ivf_stage2_sharded_plan(int D, int k, int streamed,
+    int* stages, int* per_sm, int* sms) {
+  return ivf_plan<false>(D, k, streamed, stages, per_sm, sms);
 }
 
-extern "C" int ivf_stage2_sharded_q_plan(int D, int k, int* stages,
-                                         int* per_sm, int* sms) {
-  return ivf_plan<true>(D, k, stages, per_sm, sms);
+extern "C" int ivf_stage2_sharded_q_plan(int D, int k, int streamed,
+    int* stages, int* per_sm, int* sms) {
+  return ivf_plan<true>(D, k, streamed, stages, per_sm, sms);
 }
 
 // C and nprobe count every shard's buckets and probes (S * nlist and
@@ -54,13 +54,14 @@ extern "C" int ivf_stage2_sharded_q_plan(int D, int k, int* stages,
 extern "C" int ivf_stage2_sharded_launch(
     const float* packed_vecs, const int* packed_ids, const int* bucket_occ,
     int C, long long cap, const float* queries, const int* probes, int B,
-    int nprobe, int D, int k, int stages, int resident, int slices,
-    int* scratch, float* part_s, int* part_i, float* out_s, int64_t* out_i,
-    int shards, unsigned long long* prof, cudaStream_t stream) {
+    int nprobe, int D, int k, int stages, int streamed, int resident,
+    int slices, int* scratch, float* part_s, int* part_i, float* out_s,
+    int64_t* out_i, int shards, unsigned long long* prof,
+    cudaStream_t stream) {
   return ivf_stage2_run<false>(
       packed_vecs, nullptr, nullptr, packed_ids, bucket_occ, C, cap, queries,
-      probes, B, nprobe, D, k, stages, resident, slices, scratch, part_s,
-      part_i, out_s, out_i, shards, prof, stream);
+      probes, B, nprobe, D, k, stages, streamed, resident, slices, scratch,
+      part_s, part_i, out_s, out_i, shards, prof, stream);
 }
 
 // The same over int8 codes, scored scale * (q . c) + sum(q) * offset.
@@ -68,11 +69,12 @@ extern "C" int ivf_stage2_sharded_q_launch(
     const int8_t* packed_codes, const float* packed_scale,
     const float* packed_offset, const int* packed_ids, const int* bucket_occ,
     int C, long long cap, const float* queries, const int* probes, int B,
-    int nprobe, int D, int k, int stages, int resident, int slices,
-    int* scratch, float* part_s, int* part_i, float* out_s, int64_t* out_i,
-    int shards, unsigned long long* prof, cudaStream_t stream) {
+    int nprobe, int D, int k, int stages, int streamed, int resident,
+    int slices, int* scratch, float* part_s, int* part_i, float* out_s,
+    int64_t* out_i, int shards, unsigned long long* prof,
+    cudaStream_t stream) {
   return ivf_stage2_run<true>(
       packed_codes, packed_scale, packed_offset, packed_ids, bucket_occ, C,
-      cap, queries, probes, B, nprobe, D, k, stages, resident, slices,
-      scratch, part_s, part_i, out_s, out_i, shards, prof, stream);
+      cap, queries, probes, B, nprobe, D, k, stages, streamed, resident,
+      slices, scratch, part_s, part_i, out_s, out_i, shards, prof, stream);
 }

@@ -24,9 +24,16 @@
 //      4) full with TMA loads of (TR rows x 16 dims) boxes of a 2-d tensor
 //      map over the bank (64-byte swizzle, so the 8 rows a quarter-warp
 //      reads sit in 8 distinct bank groups; rows and dims past the bank
-//      read as zeros), NS - 1 chunks ahead of the compute. The queries sit
-//      in shared memory transposed, [d][32], so a lane's 8 queries at one
-//      d are two float4 loads. Each (query, row) sum runs in D order, so a
+//      read as zeros), NS - 1 chunks ahead of the compute. The block's 32
+//      queries ride the ring too: each stage also holds their 16 dims of
+//      the chunk, [32][16], by a second TMA box of a map over the queries
+//      (2 KB; queries past B read as zeros), and a lane reads each of its
+//      8 queries as one float4 of 4 dims, so that shared memory does not
+//      grow with D and any D % 4 == 0 runs. (Queries held whole in shared
+//      memory, transposed, [d][32], took 128 bytes a dim, and past
+//      ~1.3-1.6k dims no longer fit beside two stages; at D 128 they were
+//      2% slower than the ring's, with the same scores.) Each (query, row)
+//      sum runs in D order, so a
 //      pair's score does not depend on N or on the slice plan. After a
 //      tile's last chunk the scores meet a filter in registers: a score
 //      goes on only if it is at least its query's current k-th (a
@@ -76,23 +83,26 @@ constexpr int MAX_STAGES = 4;
 constexpr int KMAX = TOPK_KMAX;
 constexpr float NEG = TOPK_NEG;
 
-// bytes of dynamic shared memory: the ring, the transposed queries, the
-// candidate buffers and counts, the lists, and room to align the ring (the
-// wrapper's tile_plan mirrors this)
-size_t partial_smem_bytes(int D, int k, int tile_rows, int stages) {
-  return 1024 + static_cast<size_t>(stages) * tile_rows * DC * 4 +
-         static_cast<size_t>(D) * QB * 4 + 8 * QB * CAND + 4 * QB +
-         8 * QB * k;
+constexpr int QSLICE = QB * DC * 4;   // a stage's query slice: 2 KB
+
+// bytes of dynamic shared memory: the ring (bank rows and query slices),
+// the candidate buffers and counts, the lists, and room to align the ring
+// (the wrapper's tile_plan mirrors this)
+size_t partial_smem_bytes(int k, int tile_rows, int stages) {
+  return 1024 + static_cast<size_t>(stages) * (tile_rows * DC * 4 + QSLICE) +
+         8 * QB * CAND + 4 * QB + 8 * QB * k;
 }
 
 template <int RPL>
 __global__ void __launch_bounds__(THREADS, 1)
     nn_partial_topk(const __grid_constant__ CUtensorMap tm_bank,
-                    const float* __restrict__ queries, int B, int64_t N,
-                    int D, int k, int stages, int64_t rows_per_slice,
-                    float* __restrict__ part_s, int* __restrict__ part_i) {
+                    const __grid_constant__ CUtensorMap tm_q, int B,
+                    int64_t N, int D, int k, int stages,
+                    int64_t rows_per_slice, float* __restrict__ part_s,
+                    int* __restrict__ part_i) {
   constexpr int TR = 64 * RPL;                 // rows per tile
-  constexpr int STAGE = TR * DC * 4;           // bytes per stage
+  constexpr int BANKB = TR * DC * 4;           // a stage's bank rows
+  constexpr int STAGE = BANKB + QSLICE;        // bytes per stage
   constexpr int BOX = TR < BOX_ROWS ? TR : BOX_ROWS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[MAX_STAGES];
@@ -100,8 +110,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // 512-byte period
   uint8_t* const ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) &
                                     1023);
-  float* const qt = reinterpret_cast<float*>(ring + stages * STAGE);  // [D][QB]
-  float* const cs = qt + static_cast<size_t>(D) * QB;       // [QB][CAND]
+  float* const cs = reinterpret_cast<float*>(ring + stages * STAGE);  // [QB][CAND]
   int* const ci = reinterpret_cast<int*>(cs + QB * CAND);   // [QB][CAND]
   int* const cnt = ci + QB * CAND;                          // [QB]
   float* const ls = reinterpret_cast<float*>(cnt + QB);     // [QB][k]
@@ -123,16 +132,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int bx = 0; bx < TR / BOX; ++bx)
       tma_load_2d(ring + st * STAGE + bx * BOX * DC * 4, &tm_bank, bar,
                   (L % chunks) * DC, static_cast<int>(row) + bx * BOX);
+    // the block's queries, [32][16], beside them
+    tma_load_2d(ring + st * STAGE + BANKB, &tm_q, bar, (L % chunks) * DC, q0);
   };
 
   if (tid == 0) {
     for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
     mbar_fence_init();
     for (int L = 0; L < stages && L < loads; ++L) issue(L);
-  }
-  for (int e = tid; e < QB * D; e += THREADS) {
-    const int q = e % QB, d = e / QB;
-    qt[e] = q0 + q < B ? queries[static_cast<int64_t>(q0 + q) * D + d] : 0.f;
   }
   for (int e = tid; e < QB * k; e += THREADS) {
     ls[e] = NEG;
@@ -167,12 +174,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < RPL; ++j)
           x[j] = *reinterpret_cast<const float4*>(
               stage + (row_base + 8 * j) * 64 + ((c ^ swz) << 4));
+        float4 qs[QL];            // query a's 4 dims of chunk c
+#pragma unroll
+        for (int a = 0; a < QL; ++a)
+          qs[a] = *reinterpret_cast<const float4*>(
+              stage + BANKB + ((QL * qg + a) * DC + 4 * c) * 4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float* qd = qt + (d0 + 4 * c + e) * QB + QL * qg;
-          const float4 qa = *reinterpret_cast<const float4*>(qd);
-          const float4 qb = *reinterpret_cast<const float4*>(qd + 4);
-          const float q[QL] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+          float q[QL];
+#pragma unroll
+          for (int a = 0; a < QL; ++a)
+            q[a] = e == 0 ? qs[a].x : e == 1 ? qs[a].y
+                 : e == 2 ? qs[a].z : qs[a].w;
 #pragma unroll
           for (int j = 0; j < RPL; ++j) {
             const float v = e == 0 ? x[j].x : e == 1 ? x[j].y
@@ -260,10 +273,10 @@ cudaError_t bank_map(CUtensorMap* map, const float* bank, long long N, int D,
 }
 
 template <int RPL>
-cudaError_t plan_partial(long long N, int D, int k, int stages, int* slices,
+cudaError_t plan_partial(long long N, int k, int stages, int* slices,
                          long long* rows_per_slice) {
   constexpr int TR = 64 * RPL;
-  const size_t smem = partial_smem_bytes(D, k, TR, stages);
+  const size_t smem = partial_smem_bytes(k, TR, stages);
   cudaError_t err = cudaFuncSetAttribute(
       nn_partial_topk<RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -293,17 +306,21 @@ cudaError_t launch_partial(const float* queries, const float* bank, int B,
                            long long rows_per_slice, int slices,
                            float* part_s, int* part_i, cudaStream_t stream) {
   constexpr int TR = 64 * RPL;
-  CUtensorMap map;
+  CUtensorMap map, qmap;
   cudaError_t err = bank_map(&map, bank, N, D, TR < BOX_ROWS ? TR : BOX_ROWS);
   if (err != cudaSuccess) return err;
-  const size_t smem = partial_smem_bytes(D, k, TR, stages);
+  // the queries as (32 queries x 16 dims) boxes, unswizzled
+  err = matrix_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, queries, B, D, 4,
+                   DC, QB, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  const size_t smem = partial_smem_bytes(k, TR, stages);
   err = cudaFuncSetAttribute(
       nn_partial_topk<RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(slices, (B + QB - 1) / QB);
   nn_partial_topk<RPL><<<grid, THREADS, smem, stream>>>(
-      map, queries, B, N, D, k, stages, rows_per_slice, part_s, part_i);
+      map, qmap, B, N, D, k, stages, rows_per_slice, part_s, part_i);
   return cudaGetLastError();
 }
 
@@ -313,15 +330,14 @@ REPRO_ERROR_STRING(nn_search)
 
 // How pass 1 cuts the bank: the number of slices (blocks per query tile)
 // and the rows of each; the caller sizes the partial lists from them.
-extern "C" int nn_search_plan(long long N, int D, int k, int tile_rows,
-                              int stages, int* slices,
-                              long long* rows_per_slice) {
+extern "C" int nn_search_plan(long long N, int k, int tile_rows, int stages,
+                              int* slices, long long* rows_per_slice) {
   if (stages < 2 || stages > MAX_STAGES) return cudaErrorInvalidValue;
   switch (tile_rows) {
-    case 64: return plan_partial<1>(N, D, k, stages, slices, rows_per_slice);
-    case 128: return plan_partial<2>(N, D, k, stages, slices, rows_per_slice);
-    case 256: return plan_partial<4>(N, D, k, stages, slices, rows_per_slice);
-    case 512: return plan_partial<8>(N, D, k, stages, slices, rows_per_slice);
+    case 64: return plan_partial<1>(N, k, stages, slices, rows_per_slice);
+    case 128: return plan_partial<2>(N, k, stages, slices, rows_per_slice);
+    case 256: return plan_partial<4>(N, k, stages, slices, rows_per_slice);
+    case 512: return plan_partial<8>(N, k, stages, slices, rows_per_slice);
     default: return cudaErrorInvalidValue;
   }
 }

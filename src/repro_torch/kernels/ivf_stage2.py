@@ -15,7 +15,11 @@ codes converted once per 4 queries), and scores meet their query's
 bar in registers, in the lists' (score, id) order (its list's k-th, or
 a bound shared across items), before any reaches a list, so a zero query
 of a padded batch lets through only ids below its k-th's; a merge keeps
-each (query, group)'s k best. ``csrc/ivf_stage2.cuh`` says how, and
+each (query, group)'s k best. A block keeps its 32 queries in shared
+memory where they fit beside two stages (to ~1.1-1.2k dims, by k); at any
+wider D the streamed instance loads their slice of each stage beside the
+rows instead, with the same FMAs in the same order.
+``csrc/ivf_stage2.cuh`` says how, and
 ``ivf_stage2_cycles`` profiles where a launch's cycles go.
 """
 from __future__ import annotations
@@ -42,13 +46,13 @@ INT32_MAX = 2**31 - 1
 SMEM_BUDGET = SMEM_BYTES - 1024
 
 # after the row pointers: packed_ids, bucket_occ, C, cap, queries, probes,
-# B, nprobe, D, k, stages, resident blocks, slices, scratch, part_s,
-# part_i, out_s, out_i (then the shards, for the sharded entries, and the
-# profile)
+# B, nprobe, D, k, stages, streamed, resident blocks, slices, scratch,
+# part_s, part_i, out_s, out_i (then the shards, for the sharded entries,
+# and the profile)
 _TAIL_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p) + \
-    (ctypes.c_int,) * 7 + (ctypes.c_void_p,) * 5
-_PLAN_ARGTYPES = (ctypes.c_int, ctypes.c_int) + \
+    (ctypes.c_int,) * 8 + (ctypes.c_void_p,) * 5
+_PLAN_ARGTYPES = (ctypes.c_int,) * 3 + \
     (ctypes.POINTER(ctypes.c_int),) * 3
 # the partial pass's optional profile (ivf_stage2.cuh IvfProfSlot)
 PROFILE_SLOTS = ("setup", "data", "fma", "score", "filter", "offer", "sync",
@@ -70,17 +74,28 @@ def stage_dims(int8: bool) -> int:
     return 32 if int8 else 16
 
 
-def smem_bytes(dim: int, k: int, stages: int, int8: bool) -> int:
+def smem_bytes(dim: int, k: int, stages: int, int8: bool,
+               streamed: bool = False) -> int:
     """Dynamic shared memory of one partial-pass block (ivf_stage2.cuh
-    ivf_smem_bytes): room to align the ring, the ring, the side buffers of
-    ceil(stages / chunks) tiles (ids, and int8 scales and offsets), the 32
-    queries transposed and their sums, the candidate counts and buffers,
-    and the 32 lists of k."""
+    ivf_smem_bytes): room to align the ring, the ring (streamed: with the
+    32 queries' slice of each stage), the side buffers of ceil(stages /
+    chunks) tiles (ids, and int8 scales and offsets), the 32 queries
+    transposed (resident only) and their sums, the candidate counts and
+    buffers, and the 32 lists of k."""
     chunks = -(-dim // stage_dims(int8))
     sides = -(-stages // chunks)
-    return (1024 + stages * STAGE_BYTES
+    qslice = 4 * QB * stage_dims(int8) if streamed else 0
+    return (1024 + stages * (STAGE_BYTES + qslice)
             + sides * tile_rows(int8) * (12 if int8 else 4)
-            + 4 * QB * dim + 8 * QB + 8 * QB * CAND + 8 * QB * k)
+            + (0 if streamed else 4 * QB * dim) + 8 * QB + 8 * QB * CAND
+            + 8 * QB * k)
+
+
+def streams_queries(dim: int, k: int, int8: bool) -> bool:
+    """Whether the partial pass takes its streamed instance: where 32
+    queries of width ``dim`` beside two stages and the lists of ``k`` do
+    not fit one block's shared memory."""
+    return smem_bytes(dim, k, 2, int8) > SMEM_BUDGET
 
 
 def scratch_ints(pairs: int, resident: int, bounds: int) -> int:
@@ -93,14 +108,16 @@ def scratch_ints(pairs: int, resident: int, bounds: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(name: str, symbol: str, dim: int, k: int, device_index: int):
-    """(stages, blocks per SM, SMs) of the partial pass at this D and k on
-    this card (ivf_stage2.cuh ivf_plan)."""
+def _plan(name: str, symbol: str, dim: int, k: int, streamed: bool,
+          device_index: int):
+    """(stages, blocks per SM, SMs) of the partial pass's (streamed or
+    resident) instance at this D and k on this card (ivf_stage2.cuh
+    ivf_plan)."""
     fn = kernel_function(name, symbol, _PLAN_ARGTYPES)
     stages, per_sm, sms = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        code = fn(dim, k, ctypes.byref(stages), ctypes.byref(per_sm),
-                  ctypes.byref(sms))
+        code = fn(dim, k, int(streamed), ctypes.byref(stages),
+                  ctypes.byref(per_sm), ctypes.byref(sms))
     if code != 0:
         raise RuntimeError(f"{symbol} failed with CUDA error {code}")
     return stages.value, per_sm.value, sms.value
@@ -113,8 +130,10 @@ def check_stage2(name: str, rows: int, dim: int, C: int, k: int,
     16-byte row pieces); 16-byte aligned rows, ids, scales and offsets
     (TMA and bulk copies); a bucket capacity that is a multiple of 4 (a
     tile's ids, scales and offsets are copied 16 bytes at a time); fewer
-    than 2**31 packed rows (a TMA row coordinate is an int32); and a D
-    whose 32 queries leave room in shared memory for two stages."""
+    than 2**31 packed rows (a TMA row coordinate is an int32). Any D
+    plans: where 32 queries of width D leave no room for two stages, the
+    streamed instance, whose shared memory does not grow with D, takes it
+    (``streams_queries``)."""
     if not 1 <= k <= KMAX:
         raise ValueError(f"{name} kernel takes 1 <= k <= {KMAX}, got {k}")
     if dim % align or any(p % 16 for p in pointers):
@@ -125,10 +144,6 @@ def check_stage2(name: str, rows: int, dim: int, C: int, k: int,
         raise ValueError(f"{name} kernel needs a bucket capacity that is a "
                          f"multiple of 4 and fewer than 2**31 packed rows "
                          f"(cap={cap}, rows={rows})")
-    if smem_bytes(dim, k, 2, int8) > SMEM_BUDGET:
-        raise ValueError(f"{name} kernel: 32 queries of width {dim}, their "
-                         f"lists of {k} and two stages do not fit "
-                         f"{SMEM_BUDGET} bytes of shared memory")
 
 
 def stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
@@ -160,7 +175,8 @@ def stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
             "nprobe <= C, both divisible by the shards)")
     int8 = packed.dtype == torch.int8
     check_stage2(name, rows, D, C, k, align, int8,
-                 [t.data_ptr() for t in (packed, packed_ids, *extra)])
+                 [t.data_ptr() for t in (packed, packed_ids, queries,
+                                         *extra)])
     cap = rows // C
     shape = (B, groups, k) if groups else (B, k)
     out_s = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -168,8 +184,9 @@ def stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
     if B == 0:
         return out_s, out_i
     symbol = symbol or f"{name}_launch"
+    streamed = streams_queries(D, k, int8)
     stages, per_sm, sms = _plan(name, symbol.replace("_launch", "_plan"), D,
-                                k, dev.index)
+                                k, streamed, dev.index)
     resident = per_sm * sms
     # The device cuts each probed bucket into slices of whole tiles; an
     # item writes the slot (query, probe position, slice) of each query of
@@ -193,8 +210,8 @@ def stage2(name, packed, extra, packed_ids, bucket_occ, queries, probes,
            packed.data_ptr(), *(t.data_ptr() for t in extra),
            packed_ids.data_ptr(), bucket_occ.data_ptr(), C, cap,
            queries.data_ptr(), probes.data_ptr(), B, nprobe, D, k, stages,
-           resident, slices, scratch, part_s, part_i, out_s.data_ptr(),
-           out_i.data_ptr(), *grouped,
+           int(streamed), resident, slices, scratch, part_s, part_i,
+           out_s.data_ptr(), out_i.data_ptr(), *grouped,
            None if prof is None else prof.data_ptr())
     return out_s, out_i
 

@@ -57,6 +57,15 @@ budget, and the summary ends with one line per shard. ogbn-mag's
   PYTHONPATH=src python -m repro_torch.launch.serve --kb \
       --kb-backend sharded --kb-shards 3 --kb-search ivf
 
+``--kb-makers KIND[,KIND...]`` runs the checkpoint-free knowledge makers
+(``graph_builder``) beside the serving bank, as background clients of the
+same server paced by ``--kb-maker-period`` seconds (their traffic shares
+the server, so the timed req/s includes it); their counters print after
+the summary:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --kb --device cpu \
+      --kb-entries 300 --kb-dim 16 --gen 4 --kb-makers graph_builder
+
 The run is on the CUDA device unless ``--device cpu`` is given. Options of
 the JAX launcher that are not ported yet raise ``NotImplementedError``.
 """
@@ -70,7 +79,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core.async_runtime import KnowledgeBankServer
+from repro_torch.core.async_runtime import (KnowledgeBankServer,
+                                            MakerRuntime, format_maker_stats)
 from repro_torch.core.kb_engine import make_backend
 from repro_torch.env import resolve_device
 from repro_torch.kernels import ops
@@ -130,6 +140,16 @@ def serve_kb(args) -> dict:
         # stage-2 kernel is not timed (warmup built the others)
         server.nn_search(np.zeros((args.batch, args.kb_dim), np.float32),
                          k=NN_K)
+    runtime = None
+    if args.kb_makers:
+        # trainer-less serving hosts the checkpoint-free makers, paced:
+        # their traffic shares the server with the timed clients
+        runtime = MakerRuntime(server, num_entries=args.kb_entries,
+                               device=args.device)
+        for kind in args.kb_makers.split(","):
+            runtime.register(kind.strip(), batch_size=args.batch,
+                             min_period_s=args.kb_maker_period)
+        runtime.start()
 
     def client(t: int, n_calls: int):
         crng = np.random.default_rng(args.seed + 1 + t)
@@ -148,6 +168,10 @@ def serve_kb(args) -> dict:
         th.join()
     dt = time.perf_counter() - t0
     calls = args.clients * args.gen * 3
+    maker_stats = {}
+    if runtime is not None:
+        runtime.stop()
+        maker_stats = server.maker_stats
     stats = dict(server.engine.search_stats)
     rebuilds = refresher.rebuilds if refresher else 0
     shard_rebuilds = refresher.shard_rebuilds if refresher else 0
@@ -172,6 +196,8 @@ def serve_kb(args) -> dict:
           f"/{server.metrics['cache_misses']}, "
           f"tier faults/spills={sst['tier_faults']}/{sst['tier_spills']}",
           flush=True)
+    for line in format_maker_stats(maker_stats):
+        print(line, flush=True)
     if index is not None and hasattr(index, "shard_stats"):
         # headroom -> 0 marks the shard whose next rebuild forces a full
         # repack at a larger common capacity
@@ -192,7 +218,7 @@ def serve_kb(args) -> dict:
             "coalescing_factor": server.coalescing_factor,
             "search_stats": stats, "index_rebuilds": rebuilds,
             "shard_rebuilds": shard_rebuilds, "first_index_s": build_s,
-            "engine": server.engine}
+            "maker_stats": maker_stats, "engine": server.engine}
 
 
 def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -301,7 +327,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kb-join", default="", metavar="I/N",
                     help="not ported yet (ROADMAP Q1 item 4)")
     ap.add_argument("--kb-makers", default="",
-                    help="not ported yet (ROADMAP Q1 item 2)")
+                    help="comma list of checkpoint-free maker kinds (e.g. "
+                         "graph_builder) to run as background engine "
+                         "clients while serving; their counters print "
+                         "with the serve summary (their traffic shares "
+                         "the server, so the timed req/s includes the "
+                         "maker load)")
+    ap.add_argument("--kb-maker-period", type=float, default=0.05,
+                    help="pacing floor (s) for --kb-makers jobs; keeps "
+                         "background makers from saturating the timed "
+                         "serving window")
     return ap
 
 
@@ -311,10 +346,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--listen / --kb-join (the wire protocol and the fleet) are not "
             "ported yet (ROADMAP Q1 item 4)")
-    if args.kb_makers:
-        raise NotImplementedError(
-            "--kb-makers (the maker runtime) is not ported yet (ROADMAP Q1 "
-            "item 2)")
     if not args.kb:
         return serve_lm(get_config(args.arch).reduced(), batch=args.batch,
                         prompt_len=args.prompt_len, gen=args.gen,

@@ -18,12 +18,24 @@ embedding-refresh maker pass re-encodes ``--batch`` random nodes; with
 ``--ckpt-dir`` the parameters are saved as npz every ``--ckpt-every``
 steps (the JAX package's layout; either package loads them).
 
+``--makers KIND[,KIND...]`` switches to the asynchronous topology of the
+JAX launcher's ``run_async``: the trainer and a ``MakerRuntime`` of the
+named makers (``embedding_refresh``, ``label_mining``, ``graph_agreement``,
+``graph_builder``; ``--maker-batch`` nodes a batch, paced by
+``--maker-period`` seconds) as clients of one coalescing
+``KnowledgeBankServer`` on ``--kb-backend`` (``cuda``, the kernels;
+``dense``; ``sharded``), the trainer publishing a checkpoint every
+``--ckpt-period`` steps:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --makers label_mining,graph_agreement --steps 4 --batch 4 --nodes 128
+
 The run is on the CUDA device unless ``--device cpu`` is given. On the
 card a config whose training forward would reach a kernel without a
 backward (rwkv6 and Mamba mixers; attention over ``--seq`` >= 2048
 tokens, the flash branch) is refused before any parameter is built.
-``--makers`` (the asynchronous maker runtime) and ``--kb-connect`` (the
-wire) are not ported yet and raise, naming their ROADMAP items.
+``--kb-connect`` (the wire) is not ported yet and raises, naming its
+ROADMAP item.
 
 ``train_carls(cfg, ...)`` is the loop for any config of the ported archs,
 the full-width one included; it returns the losses and each step's time.
@@ -39,6 +51,8 @@ import torch
 
 from repro_torch.checkpoint import DiskCheckpointStore
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.async_runtime import (format_maker_stats,
+                                            run_async_training)
 from repro_torch.core.knowledge_bank import kb_create
 from repro_torch.core.knowledge_maker import make_embedding_refresh
 from repro_torch.core.trainer import (make_carls_train_step,
@@ -161,7 +175,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nodes", type=int, default=2048)
     ap.add_argument("--maker-every", type=int, default=10)
     ap.add_argument("--makers", default="",
-                    help="not ported yet (ROADMAP Q1 item 2)")
+                    help="comma list of async maker kinds (embedding_refresh"
+                         ",label_mining,graph_agreement,graph_builder); "
+                         "non-empty switches to the async trainer+"
+                         "MakerRuntime topology over one coalescing server")
+    ap.add_argument("--maker-batch", type=int, default=64)
+    ap.add_argument("--maker-period", type=float, default=0.0,
+                    help="per-maker pacing floor in seconds")
+    ap.add_argument("--ckpt-period", type=int, default=5,
+                    help="async mode: trainer steps between checkpoint "
+                         "publishes (the data-freshness axis)")
+    ap.add_argument("--kb-backend", choices=["cuda", "dense", "sharded"],
+                    default="cuda", help="async mode: bank engine backend")
     ap.add_argument("--kb-connect", default="", metavar="HOST:PORT",
                     help="not ported yet (ROADMAP Q1 item 4)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -197,15 +222,47 @@ def main(argv=None) -> Dict:
             "--kb-connect (the wire protocol) is not ported yet (ROADMAP Q1 "
             "item 4)")
     if args.makers:
-        raise NotImplementedError(
-            "--makers (the asynchronous maker runtime) is not ported yet "
-            "(ROADMAP Q1 item 2)")
+        return run_async(cfg, args, device)
     return train_carls(cfg, steps=args.steps, batch=args.batch,
                        seq=args.seq, nodes=args.nodes, lr=args.lr,
                        maker_every=args.maker_every, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every, seed=args.seed,
                        device=device,
                        log=lambda line: print(line, flush=True))
+
+
+def run_async(cfg, args, device) -> Dict:
+    """``--makers``: the trainer and a ``MakerRuntime`` concurrently
+    against one coalescing ``KnowledgeBankServer`` (the paper's Figure-1
+    triangle), with the JAX launcher's corpus and lines. Returns {"result":
+    the ``AsyncRunResult``, "seconds": the run's wall time}."""
+    makers = [m.strip() for m in args.makers.split(",") if m.strip()]
+    cfg = cfg.replace(carls=cfg.carls.__class__(
+        **{**cfg.carls.__dict__, "kb_entries": args.nodes}))
+    corpus = SyntheticGraphCorpus(
+        num_nodes=args.nodes, vocab_size=cfg.vocab_size,
+        seq_len=args.seq + 1, neighbors_per_node=cfg.carls.num_neighbors,
+        num_clusters=4, labeled_frac=0.3, label_noise=0.3,
+        seed=args.seed)
+    print(f"async CARLS: trainer + makers {makers} "
+          f"(kb backend: {args.kb_backend})", flush=True)
+    t0 = time.perf_counter()
+    res = run_async_training(
+        build_model(cfg), corpus, steps=args.steps, batch_size=args.batch,
+        makers=makers, maker_batch=args.maker_batch,
+        maker_period_s=args.maker_period, ckpt_period=args.ckpt_period,
+        lr=args.lr, trainer_push=True, kb_backend=args.kb_backend,
+        seed=args.seed, device=device)
+    dt = time.perf_counter() - t0
+    print(f"loss {res.losses[0]:.4f} -> {np.mean(res.losses[-5:]):.4f} "
+          f"over {args.steps} steps in {dt:.1f}s; "
+          f"mean row staleness {res.mean_staleness:.2f} trainer steps")
+    m = res.server.metrics
+    print(f"kb server: {m['requests']} requests -> {m['dispatches']} "
+          f"dispatches (coalescing x{res.server.coalescing_factor:.1f})")
+    for line in format_maker_stats(res.server.maker_stats):
+        print(line)
+    return {"result": res, "seconds": dt}
 
 
 if __name__ == "__main__":

@@ -527,9 +527,10 @@ def test_cuda_ivf_stage2_unwritten_slots_merge_as_padding():
 
 @pytest.mark.cuda
 def test_cuda_ivf_stage2_refuses_what_it_cannot_take():
-    """k outside [1, 128], D % 4, a bucket capacity that is no multiple of
-    4, packed ids off a 16-byte boundary and queries too wide for shared
-    memory are refused before any launch."""
+    """k outside [1, 128], D % 4 (also at a wide D), a bucket capacity
+    that is no multiple of 4 and packed ids off a 16-byte boundary are
+    refused before any launch; queries too wide to sit in shared memory
+    are taken (the streamed instance)."""
     dev = _require_card()
     kern = ops.LAUNCHERS["ivf_stage2"]
 
@@ -544,9 +545,11 @@ def test_cuda_ivf_stage2_refuses_what_it_cannot_take():
 
     call()
     for bad in (dict(k=0), dict(k=129), dict(D=66), dict(cap=6),
-                dict(ids_offset=1), dict(D=2048, k=128)):
+                dict(ids_offset=1), dict(D=2050, k=128)):
         with pytest.raises(ValueError):
             call(**bad)
+    s, i = call(D=2048, k=128)
+    assert s.shape == i.shape == (2, 128)
 
 
 @pytest.mark.cuda

@@ -491,13 +491,11 @@ def test_block_sizes_fit_shared_memory():
     assert env.fused_lookup_block(3, 128) == 2
     # two 16384-wide fp32 tiles a warp (128 KB) leave room for one row
     assert env.fused_lookup_block(1024, 16384) == 1
-    # nn_search: (bank rows per tile, stages in its ring)
-    assert tile_plan(128, 8) == (512, 4)
-    assert tile_plan(128, KMAX) == (512, 4)
-    assert tile_plan(512, KMAX) == (512, 3)
-    assert tile_plan(1024, 8) == (512, 2)
-    with pytest.raises(ValueError):
-        tile_plan(2048, 8)
+    # nn_search: (bank rows per tile, stages in its ring) at any D, the
+    # queries riding the ring; a small bank takes smaller tiles
+    assert tile_plan(8, n_rows=1_939_743) == (512, 4)
+    assert tile_plan(KMAX, n_rows=1_939_743) == (512, 4)
+    assert tile_plan(9, n_rows=2048) == (64, 4)
 
 
 def test_ivf_stage2_shared_memory():
@@ -523,7 +521,7 @@ def test_ivf_stage2_shared_memory():
     (dict(k=0), "k <= 128"), (dict(k=129), "k <= 128"),
     (dict(dim=66), "D % 4"), (dict(pointers=[16, 8]), "aligned"),
     (dict(rows=4 * 6), "multiple of 4"), (dict(rows=2**31), "2\\*\\*31"),
-    (dict(dim=2048, k=128), "shared memory")])
+    (dict(dim=2050, k=128), "D % 4")])
 def test_ivf_stage2_refusals(bad, match):
     """What every stage-2 entry refuses beyond device, type and shape."""
     from repro_torch.kernels.ivf_stage2 import check_stage2

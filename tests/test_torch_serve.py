@@ -205,8 +205,7 @@ def test_serve_on_the_cpu_when_asked(capsys):
 def test_serve_refuses_what_is_not_ported():
     for argv in (["--device", "cpu", "--arch", "internvl2-2b"],
                  ["--kb", "--device", "cpu", "--listen", "127.0.0.1:0"],
-                 ["--kb", "--device", "cpu", "--kb-join", "0/2"],
-                 ["--kb", "--device", "cpu", "--kb-makers", "graph_builder"]):
+                 ["--kb", "--device", "cpu", "--kb-join", "0/2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(argv)
 

@@ -7,7 +7,9 @@ on one card, in turns.
 
 NAME is flash_bf16, nn_search, ivf_stage2, ivf_stage2_q,
 ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv, mamba_scan,
-kb_fused_lookup, kb_fused_lookup_q, lookup_op or launch_floor. DIR is
+kb_fused_lookup, kb_fused_lookup_q, lookup_op, launch_floor, or one of
+the wide shapes nn_search_wide, ivf_stage2_wide, ivf_stage2_q_wide,
+ivf_stage2_sharded_wide and ivf_stage2_sharded_q_wide. DIR is
 another checkout of the repo (for example the parent commit, unpacked by
 ``git archive`` into an ignored directory, or a variant of ``src/``
 copied under one). Each round runs one process per checkout in the
@@ -39,7 +41,16 @@ queries and B 16 with 12, each checked against its
 plain version (``zero_rows_exact``: the zero queries' lists, all ties at
 0, equal the plain version's bit for bit). ``host_us`` is the host's
 time per call of the kernel's launcher, 20 calls queued without a
-synchronisation.
+synchronisation. Each search line carries ``digest``, a hash of the
+kernel's scores and ids on the serve inputs, so that two checkouts'
+lines show whether their results are bit-identical.
+
+The wide shapes are the trainer's width, 4096: nn_search_wide 64
+queries (rows of the bank, plus 0.01) over a 2048 x 4096 bank, the
+knowledge makers' (k 9 and 32, ``ms_k32``); the ``_wide`` stage-2
+entries an index of 64 buckets (3 shards of 64, sharded) over 61,440 x
+4096 rows, 32 queries probing 8, at their entries' k. A checkout whose
+kernel refuses that width prints ``refused`` with its message.
 
 kb_fused_lookup and kb_fused_lookup_q run on the ogbn-mag bank (fp32, or
 its int8 quantization) with a fifth of its rows holding pending
@@ -103,9 +114,22 @@ STAGE2 = {  # name: (sharded, int8, k, the other k)
     "ivf_stage2_sharded_q": (True, True, 32, 8),
 }
 LOOKUPS = ("kb_fused_lookup", "kb_fused_lookup_q")
+WIDE = ("nn_search_wide", *(f"{n}_wide" for n in STAGE2))
 KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan",
-           *LOOKUPS, "lookup_op", "launch_floor")
+           *LOOKUPS, "lookup_op", "launch_floor", *WIDE)
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
+WIDE_DIM = 4096                     # yi-6b's d_model: the trainer's bank
+MAKER_ROWS, MAKER_QUERIES = 2048, 64   # the makers' bank and batch
+WIDE_IVF_ROWS = 61_440              # 3 x 20,480: one index or 3 shards
+
+
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes: equal digests, equal results."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
 
 
@@ -149,8 +173,8 @@ def padded_check(fn, plain, q, real: int, rest, k: int) -> dict:
 
 def stage2_inputs(name: str, bank, queries):
     """(launcher args without k, plain version, the args for other
-    queries) of a stage-2 entry at the serve shapes, the index built by
-    the checkout's own ann_index."""
+    queries) of a stage-2 entry over ``bank`` (64 buckets, or 3 shards of
+    64), 8 probes, the index built by the checkout's own ann_index."""
     from repro_torch.core import ann_index
     from repro_torch.core import knowledge_bank as kbm
     from repro_torch.kernels import ref
@@ -371,7 +395,8 @@ def measure(root: Path, kernels) -> list:
     g = torch.Generator(device=dev).manual_seed(0)
     sources = {"flash_attention" if k == "flash_bf16" else
                "ivf_stage2_sharded" if k.startswith("ivf_stage2_sharded")
-               else k for k in kernels if k != "launch_floor"}
+               else k.removesuffix("_wide") for k in kernels
+               if k != "launch_floor"}
     if "lookup_op" in sources:
         sources = (sources - {"lookup_op"}) | set(LOOKUPS)
     _build.build(sorted(sources))
@@ -409,7 +434,8 @@ def measure(root: Path, kernels) -> list:
             err = (s - ws).abs().max().item()
             err = max(err, 0.0 if torch.equal(i, wi) else float("inf"))
             ms = time_ms(lambda: fn(queries, bank, 8), 20)
-            extra = {"host_us": host_us(lambda: fn(queries, bank, 8)),
+            extra = {"digest": digest(s, i),
+                     "host_us": host_us(lambda: fn(queries, bank, 8)),
                      "padded": {
                          label: padded_check(fn, ref.nn_search_ref, q, real,
                                              lambda q: (q, bank), 8)
@@ -423,7 +449,8 @@ def measure(root: Path, kernels) -> list:
             # ids are held by chip_smoke.py's gaps; here the largest score
             # error and the share of ids equal at their rank
             err = (s - ws).abs().max().item()
-            extra = {"ids_equal": (i == wi).float().mean().item(),
+            extra = {"digest": digest(s, i),
+                     "ids_equal": (i == wi).float().mean().item(),
                      "ms_other_k": time_ms(lambda: fn(*args, other), 20),
                      "host_us": host_us(lambda: fn(*args, k)),
                      "padded": {
@@ -489,12 +516,50 @@ def measure(root: Path, kernels) -> list:
                 del leaves
         elif kernel == "launch_floor":
             ms, err = time_ms(lambda: torch.cuda._sleep(0), 200), None
+        elif kernel in WIDE:
+            ms, err, extra = measure_wide(kernel, g)
         else:
             raise ValueError(f"unknown kernel {kernel!r}")
         out.append({"root": str(root), "kernel": kernel, "ms": ms,
                     "max_abs_err": err, **extra})
         torch.cuda.empty_cache()
     return out
+
+
+def measure_wide(kernel: str, g):
+    """(ms, max_abs_err, extra) of a search kernel at width 4096 (the
+    module docstring's wide shapes); a kernel that refuses the width gives
+    (None, None, {"refused": its message})."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g.manual_seed(1)
+    name = kernel.removesuffix("_wide")
+    rows, nq = ((MAKER_ROWS, MAKER_QUERIES) if name == "nn_search"
+                else (WIDE_IVF_ROWS, 32))
+    bank = torch.randn((rows, WIDE_DIM), generator=g, device=dev)
+    queries = bank[torch.randint(0, rows, (nq,), generator=g,
+                                 device=dev)] + 0.01
+    fn = ops.LAUNCHERS[name]
+    if name == "nn_search":
+        args, plain, ks = (queries, bank), ref.nn_search_ref, (9, 32)
+    else:
+        args, plain, _ = stage2_inputs(name, bank, queries)
+        ks = STAGE2[name][2:3]
+    try:
+        s, i = fn(*args, ks[0])
+    except ValueError as e:
+        return None, None, {"refused": str(e)}
+    ws, wi = plain(*args, ks[0])
+    err = (s - ws).abs().max().item()
+    extra = {"dim": WIDE_DIM, "rows": rows, "queries": nq, "k": ks[0],
+             "ids_equal": (i == wi).float().mean().item(),
+             "digest": digest(s, i),
+             "repeat_identical": all(torch.equal(a, b) for a, b in zip(
+                 (s, i), fn(*args, ks[0])))}
+    for k in ks[1:]:
+        extra[f"ms_k{k}"] = time_ms(lambda: fn(*args, k), 20)
+    return time_ms(lambda: fn(*args, ks[0]), 20), err, extra
 
 
 def main() -> int:
