@@ -89,11 +89,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the scan, flash, the MoE dispatch's gathers and sorts, elementwise),
    and one Mamba layer profiled alone (its GEMMs, scan and elementwise
    passes);
-8. training: the reduced yi-6b (2 layers, d 128, fp32) takes one
+8. training: the reduced yi-6b (2 layers, d 128, fp32), rwkv6-7b (2
+   layers) and jamba (one group of 8 layers) each take one
    ``make_carls_train_step`` step on the card and on the CPU from one set
    of parameters, one bank (a fifth of its rows pending) and one batch:
    loss and metrics, the neighbour gradient, the post-step parameters and
-   moments and every bank leaf compared at the CPU tests' bounds; then,
+   moments and every bank leaf compared at the CPU tests' bounds (on the
+   card rwkv6-7b's step launches the WKV kernel and its backward twice,
+   jamba's the scan and its backward 7 times); then,
    with jamba's weights freed, ``repro_torch.launch.train.train_carls`` at
    the full width of yi-6b cut to 16 of its 32 layers (d 4096, 32/4 heads
    of 128, d_ff 11008, vocab 64000, bf16 parameters, fp32 AdamW moments;
@@ -106,7 +109,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
    kernel, the optimizer, elementwise; and by the step's ranges); then the
    10 steps again from the same seed, whose losses must be within 1% of
    the first run's at every step (whether they are bit-identical is
-   printed);
+   printed); then the same two runs of ``train_carls`` at the full width
+   of rwkv6-7b cut to 12 of its 32 layers (d 4096, 64 WKV heads of 64,
+   d_ff 14336, vocab 65536; 3.66 B parameters) at 8 x 64, with 12 WKV
+   forward and 12 backward launches a step (and 12 forwards in the maker
+   pass), and of yi-6b's 16 layers at batch 2 x seq 2048, where each layer
+   takes the flash kernel forward and backward (16 each a step): ms a
+   step, peak device memory, losses finite and the two runs within 1%;
+   then one full-width jamba Mamba layer (d 8192, di 16384, ds 16, bf16)
+   forward and backward at 4 x 2048 with gradients on y and on the final
+   state, through the scan kernels and through the plain scan on the
+   card: every gradient within 1% of the plain one's norm, its time and
+   peak memory;
 9. the knowledge makers and their runtime (``run_async_training``):
    (a) the twin of examples/quickstart.py on the card (the reduced
    yi-6b of 2 layers, 1,024 nodes, seq 33, 8 clusters, 60 steps of batch
@@ -149,8 +163,14 @@ kernel's stage profile (the cycles its consumer warpgroups spend waiting
 for K and V, for their turn, issuing products, waiting for them, in the
 softmax and in the output) and whether it reaches SDPA's time in this
 run, and on seven smaller cases (window, soft cap, d 32 and 64, not
-causal, S no multiple of 128, H/KV 8), ``kb_fused_lookup`` at the
-trainer's shape (a 2048 x 4096 fp32 bank, a fifth of its rows pending,
+causal, S no multiple of 128, H/KV 8), the three backward kernels
+(``flash_attention_bwd``, ``rwkv_wkv_bwd``, ``mamba_scan_bwd``) at those
+full-width shapes and on FLASH_SMALL's, WKV_SMALL's and SCAN_SMALL's
+cases (each against its plain backward on the forward's own log-sum-exp
+or checkpoints, twice bit-identical, and its autograd Function against
+``torch.autograd`` of the plain forward; timed beside its bound, the
+plain backward and, for flash, SDPA's backward), ``kb_fused_lookup`` at
+the trainer's shape (a 2048 x 4096 fp32 bank, a fifth of its rows pending,
 and the 64 neighbour ids of the trainer's first batch of 8, duplicates
 included: rows against the plain version, versions exact, a repeat
 bit-identical, its time beside the bytes bound and the launch floor),
@@ -196,12 +216,14 @@ from repro_torch.core.kb_engine import (  # noqa: E402
     make_kb_ops)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_stage_cycles)
+    flash_attention_with_lse, flash_stage_cycles)
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cycles  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan_cycles  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    mamba_scan_checkpoints, mamba_scan_cycles, pad_channels)
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
-from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cycles  # noqa: E402
+from repro_torch.kernels.rwkv_wkv import (  # noqa: E402
+    rwkv_wkv_checkpoints, rwkv_wkv_cycles)
 from repro_torch.core.trainer import make_carls_train_step  # noqa: E402
 from repro_torch.data import SyntheticGraphCorpus  # noqa: E402
 from repro_torch.env import fused_lookup_block, stage_lookup_ids  # noqa: E402
@@ -288,8 +310,14 @@ KERNELS = {
     "rwkv_wkv": "src/repro/kernels/rwkv_wkv.py:54",
     "ivf_stage2_sharded": "src/repro/kernels/nn_search_ivf.py:381",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:55",
+    # the backward kernels: no Pallas kernel has one (JAX differentiates
+    # its plain paths)
+    "flash_attention_bwd":
+        "none; backward of src/repro/kernels/flash_attention.py:85",
+    "rwkv_wkv_bwd": "none; backward of src/repro/kernels/rwkv_wkv.py:54",
+    "mamba_scan_bwd": "none; backward of src/repro/kernels/mamba_scan.py:55",
 }
-# the path each kernel's launches are read from (phase 3, 4, 5, 6 or 7)
+# the path each kernel's launches are read from (phase 3, 4, 5, 6, 7 or 8)
 KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "kb_gather": "engine_immediate",
                "lazy_apply": "serve_exact", "nn_search": "serve_exact",
@@ -299,7 +327,10 @@ KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "flash_attention": "serve_lm",
                "rwkv_wkv": "serve_rwkv",
                "ivf_stage2_sharded": "serve_sharded_ivf",
-               "mamba_scan": "serve_jamba"}
+               "mamba_scan": "serve_jamba",
+               "flash_attention_bwd": "train_yi_2048",
+               "rwkv_wkv_bwd": "train_rwkv",
+               "mamba_scan_bwd": "train_jamba_layer"}
 # jamba-1.5-large-398b cut to one card: one 8-layer group (the least depth
 # the model's groups allow) and 8 of its 16 experts, every width as
 # published; 25.79 B parameters, 51.6 GB in bf16 (16 experts: 90.2 GB)
@@ -314,6 +345,31 @@ JAMBA_CUT = dict(num_layers=8, num_experts=8)
 # 12.06 to 14.07 by step 3 (a chip run of this script); 1e-4 is used.
 TRAIN_LAYERS, TRAIN_B, TRAIN_SEQ = 16, 8, 64
 TRAIN_NODES, TRAIN_STEPS, TRAIN_LR = 2048, 10, 1e-4
+# rwkv6-7b at full width cut to 12 of its 32 layers (3.66 B parameters as
+# the trainer builds them, 44.0 GB of parameters, gradients and fp32
+# moments at 12 bytes a parameter), at phase 8's batch,
+# seq and lr; yi-6b's 16 layers at batch 2 x seq 2048, where attention
+# takes the flash kernel forward and backward
+TRAIN_RWKV_LAYERS = 12
+TRAIN_LONG_B, TRAIN_LONG_SEQ = 2, 2048
+# the backward kernels against their plain backwards on the same inputs
+# (both fp32 arithmetic): atol 1e-4 plus 1e-4 of the largest entry of that
+# gradient. An entry is a sum over up to 2048 keys or 8192 (batch, step)
+# pairs taken in another order, with fused multiply-adds, so its rounding
+# follows the size of its partial sums, the tensor's scale, and not its
+# own value (du of the WKV recurrence: entries near 0 by cancellation). The
+# Functions against autograd of the plain forward: the same in fp32; a
+# gradient returned in bf16 (the inputs' dtype) is rounded to 8 bits of
+# mantissa and follows a bf16 forward output: atol 2e-2 + rtol 2e-2 of the
+# entry, the flash forward's bf16 bound
+ATOL_BWD = RTOL_BWD = 1e-4
+ATOL_BWD_BF16 = RTOL_BWD_BF16 = 2e-2
+# one full-width jamba Mamba layer (bf16) forward and backward through the
+# kernels against the same through the plain scan, on the card: each
+# gradient within 1% of the plain one's norm (bf16 activations and
+# parameters: an output that the two scans' last-bit differences round
+# the other way moves a gradient entry by a bf16 ulp)
+LAYER_REL = 1e-2
 # the reduced step, card against CPU: the CPU tests' bounds
 # (tests/test_torch_trainer.py): metrics atol 1e-5 + rtol 1e-5; bank
 # leaves, moments and gradients atol 1e-6; post-step parameters atol 1e-6
@@ -321,6 +377,10 @@ TRAIN_NODES, TRAIN_STEPS, TRAIN_LR = 2048, 10, 1e-4
 PARITY_LR, ADAM_B1 = 2e-3, 0.9
 ATOL_GRAD = 1e-6
 SIGN_T = 10 * ATOL_GRAD
+# the rwkv6-7b and jamba steps' gradients: ATOL_GRAD plus 1e-5 of the
+# value (tests/test_torch_backward.py's bound against jax.vjp: gradients of
+# up to tens summed over S steps in another order)
+RTOL_GRAD = 1e-5
 # the makers' search at the trainer's width: a maker batch of 64 queries
 # over the 2048-row bank of width 4096; graph_builder asks k + 1 = 9 (its
 # own row excluded), graph_agreement 8 x 4 over-fetched = 32
@@ -834,6 +894,306 @@ def phase2_mamba():
     return res
 
 
+# -- the backward kernels ----------------------------------------------------
+
+def grad_off(a, b, label: str) -> float:
+    """Max abs error of gradient ``a`` against ``b``; raises where an entry
+    is off by more than its bound (ATOL_BWD + RTOL_BWD max|b| for an fp32
+    gradient, ATOL_BWD_BF16 + RTOL_BWD_BF16 |b| for a bf16 one)."""
+    half = torch.bfloat16 in (a.dtype, b.dtype)
+    b32 = b.float()
+    err = (a.float() - b32).abs()
+    if a.numel() == 0:
+        return 0.0
+    if half:
+        tol = ATOL_BWD_BF16 + RTOL_BWD_BF16 * b32.abs()
+    else:
+        tol = ATOL_BWD + RTOL_BWD * float(b32.abs().max())
+    over = err > tol
+    require(not bool(over.any()), f"{label}: off at {int(over.sum())} "
+            f"entries, max abs err {float(err.max())}, largest entry "
+            f"{float(b32.abs().max())}")
+    return float(err.max())
+
+
+def bwd_err(got, want, label: str) -> float:
+    """Max abs error of a backward kernel's gradients against the plain
+    backward's on the same inputs (fp32 both)."""
+    return max(grad_off(a, b, f"{label}: gradient {i} against the plain "
+                        "backward") for i, (a, b) in enumerate(zip(got, want)))
+
+
+def autograd_err(leaves, plain, label: str) -> float:
+    """Max abs error of a Function's gradients (``leaves``' .grad) against
+    autograd's of the plain forward (``plain``'s); a gradient in bf16 is
+    held at the bf16 bound, an fp32 one at the fp32 bound."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(leaves, plain)):
+        require(a.grad is not None and a.grad.dtype == a.dtype
+                and a.grad.shape == a.shape,
+                f"{label}: gradient {i} missing or of the wrong dtype")
+        gb = torch.zeros_like(a.grad) if b.grad is None else b.grad
+        worst = max(worst, grad_off(a.grad, gb, f"{label}: gradient {i} "
+                                    "against autograd of the plain forward"))
+    return worst
+
+
+def fp32_leaves(tensors) -> list:
+    """fp32 copies of ``tensors`` that require grad, for autograd of a
+    plain forward."""
+    return [t.detach().clone().float().requires_grad_() for t in tensors]
+
+
+def repeat_equal(fn, got, label: str) -> None:
+    """Another run of ``fn`` gives ``got`` bit for bit."""
+    again = fn()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{label}: two runs of the backward kernel differ")
+
+
+def flash_bwd_case(q, k, v, dout, kw, label: str) -> dict:
+    """The flash backward kernel against the plain backward on the
+    forward's own output and log-sum-exp (twice, bit-identical), and the
+    Function against autograd of the plain forward."""
+    kern = ops.LAUNCHERS["flash_attention_bwd"]
+    out, lse = flash_attention_with_lse(q, k, v, **kw)
+    got = kern(q, k, v, out, lse, dout, **kw)
+    repeat_equal(lambda: kern(q, k, v, out, lse, dout, **kw), got, label)
+    res = {"max_abs_err": bwd_err(got, ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, **kw), label)}
+    del got
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.LAUNCHERS["flash_attention"](*leaves, **kw).backward(dout)
+    plain = fp32_leaves((q, k, v))
+    ref.flash_attention_ref(*plain, **kw).backward(dout.float())
+    res["autograd_err"] = autograd_err(leaves, plain, label)
+    return res
+
+
+def flash_bwd_bound(q, k, causal: bool, flop_per_s: float):
+    """q, k, v, out, dout and lse read once, dq, dk, dv (fp32) written
+    once; 10 d operations per (query, key) pair the mask keeps, per head:
+    five products of d (S, dP, dV, dK, dQ), 2.5x the forward's two."""
+    B, S, H, d = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    e = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * e + B * H * S * 4 + \
+        (q.numel() + 2 * k.numel()) * 4
+    return bound(nbytes, 10.0 * B * H * d * pairs, flop_per_s)
+
+
+def wkv_bwd_case(args, dy, ds, label: str) -> dict:
+    """The WKV backward kernel against the plain backward on the
+    forward's own checkpoints (twice, bit-identical), and the Function
+    against autograd of the plain forward, with gradients on y and on the
+    final state."""
+    kern = ops.LAUNCHERS["rwkv_wkv_bwd"]
+    _, _, ckpt = rwkv_wkv_checkpoints(*args)
+    got = kern(*args, ckpt, dy, ds)
+    repeat_equal(lambda: kern(*args, ckpt, dy, ds), got, label)
+    res = {"max_abs_err": bwd_err(got, ref.rwkv_wkv_bwd_ref(*args, dy, ds),
+                                  label)}
+    del got, ckpt
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, s_fin = ops.LAUNCHERS["rwkv_wkv"](*leaves)
+    ((y * dy).sum() + (s_fin * ds).sum()).backward()
+    plain = fp32_leaves(args)
+    y, s_fin = ref.rwkv_wkv_ref(*plain)
+    ((y * dy).sum() + (s_fin * ds).sum()).backward()
+    res["autograd_err"] = autograd_err(leaves, plain, label)
+    return res
+
+
+def scan_bwd_case(args, dy, dh, label: str) -> dict:
+    """The scan backward kernel against the plain backward on the
+    forward's own checkpoints, di padded as the Function pads it (twice,
+    bit-identical), and the Function against autograd of the plain
+    forward, with gradients on y and on the final state."""
+    kern = ops.LAUNCHERS["mamba_scan_bwd"]
+    delta, bm, cm, x, A = args
+    pd, px, pA = pad_channels(delta, x, A)
+    pad = pd.shape[-1] - delta.shape[-1]
+    pdy = torch.nn.functional.pad(dy, (0, pad))
+    pdh = torch.nn.functional.pad(dh, (0, 0, 0, pad))
+    padded = (pd, bm, cm, px, pA)
+    _, _, ckpt = mamba_scan_checkpoints(*padded)
+    got = kern(*padded, ckpt, pdy, pdh)
+    repeat_equal(lambda: kern(*padded, ckpt, pdy, pdh), got, label)
+    res = {"max_abs_err": bwd_err(got, ref.mamba_scan_bwd_ref(
+        *padded, pdy, pdh), label)}
+    del got, ckpt, padded, pd, px, pA
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h_fin = ops.LAUNCHERS["mamba_scan"](*leaves)
+    ((y * dy).sum() + (h_fin * dh).sum()).backward()
+    plain = fp32_leaves(args)
+    y, h_fin = ref.mamba_scan_ref(*plain)
+    ((y * dy).sum() + (h_fin * dh).sum()).backward()
+    res["autograd_err"] = autograd_err(leaves, plain, label)
+    return res
+
+
+def phase2_backward() -> dict:
+    """The three backward kernels at the full-width shapes of phase 2's
+    forwards (flash: B 4, S 2048, H 32, KV 4, d 128, causal, bf16 and
+    fp32; WKV: B 4, S 2048, H 64, d 64, r/k/v bf16; the scan: B 4, S
+    2048, di 16384, ds 16, x bf16), each against its plain backward and
+    its Function against autograd of the plain forward, two runs
+    bit-identical, timed beside its bound and the plain backward; then
+    at FLASH_SMALL's, WKV_SMALL's and SCAN_SMALL's cases."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    # -- flash ---------------------------------------------------------
+    cfg = get_config("yi-6b")
+    H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    kern = ops.LAUNCHERS["flash_attention_bwd"]
+    flash = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOP_PER_S),
+                        (torch.float32, FP32_FLOP_PER_S)):
+        q, k, v, dout = (torch.randn((LM_B, LM_PROMPT, n, d), generator=g,
+                                     device=dev).to(dtype)
+                         for n in (H, KV, KV, H))
+        kw = dict(causal=True)
+        res = flash_bwd_case(q, k, v, dout, kw, f"flash_attention_bwd "
+                             f"{dtype}")
+        o, lse = flash_attention_with_lse(q, k, v, **kw)
+        res["ms"] = time_ms(lambda: kern(q, k, v, o, lse, dout, **kw), 5)
+        res["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, dout, **kw), 1)
+        # SDPA's backward alone, on its own forward's graph
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o_s = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        do_t = dout.transpose(1, 2)
+        res["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            o_s, (qt, kt, vt), do_t, retain_graph=True), 5)
+        res["bound"] = flash_bwd_bound(q, k, True, peak)
+        log(f"phase 2: flash_attention_bwd {dtype} (B {LM_B}, S "
+            f"{LM_PROMPT}, H {H}, KV {KV}, d {d}, causal): {res}")
+        flash[dtype] = res
+        del q, k, v, dout, o, lse, qt, kt, vt, o_s, do_t
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H_, KV_, d_, causal, window, softcap in FLASH_SMALL:
+            q, k, v, dout = (torch.randn((B, S, n, d_), generator=g,
+                                         device=dev).to(dtype)
+                             for n in (H_, KV_, KV_, H_))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            res = flash_bwd_case(q, k, v, dout, kw,
+                                 f"flash_attention_bwd {dtype} B {B} S {S} "
+                                 f"H {H_} KV {KV_} d {d_} {kw}")
+            log(f"phase 2: flash_attention_bwd {dtype} B {B} S {S} H {H_} "
+                f"KV {KV_} d {d_} {kw}: {res}")
+    # the shape the yi-6b training run at TRAIN_LONG_B x TRAIN_LONG_SEQ
+    # gives the kernel (bf16, causal)
+    q, k, v, dout = (torch.randn((TRAIN_LONG_B, TRAIN_LONG_SEQ, n, d),
+                                 generator=g, device=dev).to(torch.bfloat16)
+                     for n in (H, KV, KV, H))
+    kw = dict(causal=True)
+    train_res = flash_bwd_case(q, k, v, dout, kw, "flash_attention_bwd bf16 "
+                               "at the training shape")
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    train_res["ms"] = time_ms(lambda: kern(q, k, v, o, lse, dout, **kw), 5)
+    log(f"phase 2: flash_attention_bwd bf16 at the training shape (B "
+        f"{TRAIN_LONG_B}, S {TRAIN_LONG_SEQ}, H {H}, KV {KV}, d {d}, "
+        f"causal): {train_res}")
+    del q, k, v, dout, o, lse
+    out["flash_attention_bwd"] = dict(flash[torch.bfloat16])
+    out["flash_attention_bwd"]["train_shape"] = train_res
+    f = flash[torch.float32]
+    out["flash_attention_bwd"]["fp32"] = {
+        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+        "plain_ms": f["plain_ms"], "library_ms": f["library_ms"],
+        "bound_ms": f["bound"][0], "bound_by": f["bound"][1]}
+    # -- WKV -----------------------------------------------------------
+    cfg = get_config("rwkv6-7b")
+    H, d = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    kern = ops.LAUNCHERS["rwkv_wkv_bwd"]
+    args = wkv_inputs(LM_B, LM_PROMPT, H, d, torch.bfloat16, g)
+    dy = torch.randn((LM_B, LM_PROMPT, H, d), generator=g, device=dev)
+    ds = torch.randn((LM_B, H, d, d), generator=g, device=dev)
+    res = wkv_bwd_case(args, dy, ds, "rwkv_wkv_bwd bf16")
+    _, _, ckpt = rwkv_wkv_checkpoints(*args)
+    res["ms"] = time_ms(lambda: kern(*args, ckpt, dy, ds), 10)
+    res["plain_ms"] = time_ms(lambda: ref.rwkv_wkv_bwd_ref(*args, dy, ds), 1)
+    res["library_ms"] = None
+    # r, k, v (bf16), w, u, the checkpoints, dy and dS_fin read once, the
+    # four (B, S, H, d) gradients and du written once; per (b, h, t, i, j)
+    # the state's recompute (3 flops) and the step back (10)
+    n = args[0].numel()
+    nbytes = 3 * n * 2 + n * 4 + args[4].numel() * 4 + ckpt.numel() * 4 + \
+        n * 4 + ds.numel() * 4 + 4 * n * 4 + args[4].numel() * 4
+    res["bound"] = bound(nbytes, 13.0 * LM_B * H * LM_PROMPT * d * d)
+    log(f"phase 2: rwkv_wkv_bwd bf16 (B {LM_B}, S {LM_PROMPT}, H {H}, d "
+        f"{d}): {res}")
+    out["rwkv_wkv_bwd"] = res
+    del args, dy, ds, ckpt
+    torch.cuda.empty_cache()
+    # the shape the rwkv6-7b training run gives the kernel (r/k/v bf16)
+    args = wkv_inputs(TRAIN_B, TRAIN_SEQ, H, d, torch.bfloat16, g)
+    dy = torch.randn((TRAIN_B, TRAIN_SEQ, H, d), generator=g, device=dev)
+    ds = torch.randn((TRAIN_B, H, d, d), generator=g, device=dev)
+    train_res = wkv_bwd_case(args, dy, ds, "rwkv_wkv_bwd bf16 at the "
+                             "training shape")
+    _, _, ckpt = rwkv_wkv_checkpoints(*args)
+    train_res["ms"] = time_ms(lambda: kern(*args, ckpt, dy, ds), 10)
+    log(f"phase 2: rwkv_wkv_bwd bf16 at the training shape (B {TRAIN_B}, S "
+        f"{TRAIN_SEQ}, H {H}, d {d}): {train_res}")
+    res["train_shape"] = train_res
+    del args, dy, ds, ckpt
+    for B, S, H_, d_, dtype, decays in WKV_SMALL:
+        args = wkv_inputs(B, S, H_, d_, dtype, g, decays)
+        dy = torch.randn((B, S, H_, d_), generator=g, device=dev)
+        ds = torch.randn((B, H_, d_, d_), generator=g, device=dev)
+        res = wkv_bwd_case(args, dy, ds, f"rwkv_wkv_bwd {dtype} B {B} S {S} "
+                           f"H {H_} d {d_} {decays}")
+        log(f"phase 2: rwkv_wkv_bwd {dtype} B {B} S {S} H {H_} d {d_} "
+            f"{decays} decays: {res}")
+    # -- the scan --------------------------------------------------------
+    cfg = get_config(JAMBA)
+    di, dstate = cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim
+    kern = ops.LAUNCHERS["mamba_scan_bwd"]
+    args = scan_inputs(LM_B, LM_PROMPT, di, dstate, torch.bfloat16, g)
+    dy = torch.randn((LM_B, LM_PROMPT, di), generator=g, device=dev)
+    dh = torch.randn((LM_B, di, dstate), generator=g, device=dev)
+    res = scan_bwd_case(args, dy, dh, "mamba_scan_bwd x bf16")
+    _, _, ckpt = mamba_scan_checkpoints(*args)
+    res["ms"] = time_ms(lambda: kern(*args, ckpt, dy, dh), 10)
+    res["plain_ms"] = time_ms(lambda: ref.mamba_scan_bwd_ref(*args, dy, dh),
+                              1)
+    res["library_ms"] = None
+    # delta, x (bf16), B, C, A, the checkpoints, dy and dh_fin read once,
+    # ddelta, dx, dB, dC and dA written once; per (b, t, channel, state)
+    # ~21 flops and one exp, a_t, which the function needs once (the
+    # kernel computes it twice, in the recompute and in the step back), at
+    # the forward's rate with the MUFU and FMA pipes balanced
+    n, steps = args[0].numel(), LM_B * LM_PROMPT * di * dstate
+    nbytes = (n * 4 + n * 2 + 2 * args[1].numel() * 4 + args[4].numel() * 4
+              + ckpt.numel() * 4 + n * 4 + dh.numel() * 4 + 2 * n * 4
+              + 2 * args[1].numel() * 4 + args[4].numel() * 4)
+    b_ms, b_by = bound(nbytes, 21.0 * steps)
+    exp_ms = steps * 8 * (1 - POLY_SHARE) / ISSUE_PER_S * 1e3
+    res["bound"] = (exp_ms, "operations") if exp_ms > b_ms else (b_ms, b_by)
+    log(f"phase 2: mamba_scan_bwd x bf16 (B {LM_B}, S {LM_PROMPT}, di {di},"
+        f" ds {dstate}): {res}; bytes {nbytes}, exps {steps}: MUFU and FMA "
+        f"pipes balanced {exp_ms:.4f} ms (the kernel's {2 * steps} on the "
+        f"MUFU alone {2 * steps / EXP_PER_S * 1e3:.4f} ms), bytes and flops "
+        f"{b_ms:.4f} ms ({b_by})")
+    out["mamba_scan_bwd"] = res
+    del args, dy, dh, ckpt
+    torch.cuda.empty_cache()
+    for B, S, di_, ds_, dtype, A_kind in SCAN_SMALL:
+        args = scan_inputs(B, S, di_, ds_, dtype, g, A_kind)
+        dy = torch.randn((B, S, di_), generator=g, device=dev)
+        dh = torch.randn((B, di_, ds_), generator=g, device=dev)
+        res = scan_bwd_case(args, dy, dh, f"mamba_scan_bwd x {dtype} B {B} "
+                            f"S {S} di {di_} ds {ds_} {A_kind} A")
+        log(f"phase 2: mamba_scan_bwd x {dtype} B {B} S {S} di {di_} ds "
+            f"{ds_} {A_kind} A: {res}")
+    return out
+
+
 def phase2_nn_cases(table, queries):
     """nn_search beyond the serve shape: k = 128 over the whole bank, a
     bank of 100,003 rows (no multiple of any tile), and a bank of 4,096
@@ -1299,6 +1659,7 @@ def phase2_kernels():
     results["flash_attention"] = phase2_flash()
     results["rwkv_wkv"] = phase2_wkv()
     results["mamba_scan"] = phase2_mamba()
+    results.update(phase2_backward())
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
@@ -2074,12 +2435,12 @@ PROFILE_PARTS = (("GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
 def device_parts(prof):
     """From a finished ``torch.profiler`` run: the device time in ms, its
     split by part of the model (PROFILE_PARTS) and its largest kernels.
-    Device-side events only: a CPU op's device time repeats that of the
-    kernels it launched."""
+    Device-side events only, the capture's lead (SPIN) left out: a CPU
+    op's device time repeats that of the kernels it launched."""
     from torch.autograd import DeviceType
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA
-          and e.self_device_time_total > 0]
+          and e.self_device_time_total > 0 and SPIN not in e.key]
     parts = {}
     for e in ev:
         key = e.key.lower()
@@ -2095,26 +2456,43 @@ def device_parts(prof):
                       for e in top))
 
 
+# A capture drops its first device records: none early in a process, a
+# dozen or more once a full-width model has trained for a while (the
+# training step's first copies, its lookup kernel and the lookup range's
+# device-side annotation, capture after capture). Padding the capture with
+# idle host time saves nothing; a lead of kernels does. Each capture starts
+# with PROFILE_LEAD sleep kernels (SPIN, which every reading skips) and a
+# sync, and is taken again when none of them survived, since the loss may
+# then have reached ``fn``'s own records.
+PROFILE_LEAD = 256
+SPIN = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
 def profiled(fn, need=None):
-    """Run ``fn`` under ``torch.profiler``; (wall ms, profile). A capture
-    that holds no device record, or fails ``need(profile)``, lost records
-    (CUPTI now and then delivers none, or drops a range's device-side
-    annotation), so ``fn`` runs again under a new one, at most
-    ``PROFILE_CAPTURES`` times."""
+    """Run ``fn`` under ``torch.profiler`` after PROFILE_LEAD sleep
+    kernels; (wall ms of ``fn``, profile). A capture that kept none of the
+    lead, or fails ``need(profile)``, lost records (CUPTI now and then
+    delivers none, or drops a range's device-side annotation), so ``fn``
+    runs again under a new one, at most ``PROFILE_CAPTURES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(PROFILE_CAPTURES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()) \
-                and (need is None or need(prof)):
+        lead = sum(SPIN in e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+        if lead and (need is None or need(prof)):
             return wall_ms, prof
-        log("torch.profiler lost device records; capturing again")
+        log(f"torch.profiler lost device records ({PROFILE_LEAD - lead} of "
+            f"the {PROFILE_LEAD} lead kernels); capturing again")
     require(False, f"torch.profiler lost the device records of "
             f"{PROFILE_CAPTURES} captures in a row")
 
@@ -2279,11 +2657,16 @@ def _one_step(model, params, leaves, batch, device):
     return params, st, kb, m, pushed[0], ops.launch_counts()
 
 
-def phase8_reduced_parity() -> None:
-    """The reduced yi-6b takes one CARLS step on the card and on the CPU
+def phase8_reduced_parity(arch: str, want: dict,
+                          grad_rtol: float = 0.0) -> dict:
+    """The reduced ``arch`` takes one CARLS step on the card and on the CPU
     from one set of parameters, one bank and one batch; everything the
-    step produces is compared at the CPU tests' bounds."""
-    cfg = get_config("yi-6b").reduced()
+    step produces is compared at the CPU tests' bounds (the gradients of
+    rwkv6-7b and jamba, whose card step runs the WKV or scan backward
+    kernel, at the CPU tests' atol plus ``grad_rtol`` of the value, as
+    tests/test_torch_backward.py holds the plain backwards). ``want``
+    gives the launches the card's step must make; returns them."""
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0))
     p_dev = _to(p_cpu, "cuda")
@@ -2327,7 +2710,7 @@ def phase8_reduced_parity() -> None:
             tree_items(d[0]), tree_items(c[0]), tree_items(d[1].mu),
             tree_items(c[1].mu)):
         g_c = mc / (1 - ADAM_B1)
-        close(md / (1 - ADAM_B1), g_c, f"grads {k}", ATOL_GRAD)
+        close(md / (1 - ADAM_B1), g_c, f"grads {k}", ATOL_GRAD, grad_rtol)
         sure = g_c.abs() > SIGN_T
         err = (pd.cpu() - pc).abs()
         require(float(err[sure].max()) <= ATOL_GRAD if sure.any() else True,
@@ -2342,16 +2725,16 @@ def phase8_reduced_parity() -> None:
                                    if (~sure).any() else 0.0)
         decided += int(sure.sum())
         total += sure.numel()
-    want = {"kb_fused_lookup": 1, "flash_attention": 0, "rwkv_wkv": 0,
-            "mamba_scan": 0}
     got = {k: d[5][k] for k in want}
     require(got == want, f"the card's step launched {got}, not {want}")
-    log(f"phase 8: reduced yi-6b ({cfg.num_layers} layers, d {cfg.d_model},"
-        f" fp32), one CARLS step, batch {TRAIN_B} x seq {TRAIN_SEQ}, "
+    log(f"phase 8: reduced {arch} ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, fp32), one CARLS step, batch {TRAIN_B} x seq "
+        f"{TRAIN_SEQ}, "
         f"{cfg.carls.kb_entries} x {cfg.d_model} bank: loss card "
         f"{float(d[3]['loss'])} CPU {float(c[3]['loss'])}; card vs CPU max "
         f"abs err {errs}; parameters held at {ATOL_GRAD} on {decided} of "
         f"{total} entries (|grad| > {SIGN_T}); launches on the card {got}")
+    return got
 
 
 # the training step's profiler ranges (repro_torch.core.trainer)
@@ -2375,7 +2758,8 @@ def train_parts(prof, wall_ms: float) -> str:
     inside its annotations (one stream, so no other kernel runs there).
     The forward and backward are the rest of the step."""
     from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and SPIN not in e.name]
     kernels = [e for e in dev if not e.name.startswith("carls.")]
     dur = {id(e): e.time_range.elapsed_us() / 1e3 for e in kernels}
     total = sum(dur.values())
@@ -2401,7 +2785,7 @@ def train_parts(prof, wall_ms: float) -> str:
     ranges["forward, backward and the rest"] = total - sum(ranges.values())
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     top = [e for e in top if e.device_type == DeviceType.CUDA
-           and not e.key.startswith("carls.")][:8]
+           and not e.key.startswith("carls.") and SPIN not in e.key][:8]
     return (f"wall {wall_ms} ms, device {total} ms "
             f"({100 * total / wall_ms:.1f}% busy under the profiler); by "
             f"part: GEMMs {gemm:.4g} ms, kb_fused_lookup {lookup:.4g} ms, "
@@ -2413,15 +2797,18 @@ def train_parts(prof, wall_ms: float) -> str:
                 f"{e.self_device_time_total / 1e3:.4g} ms" for e in top))
 
 
-def train_run(label: str, cfg):
-    """``train_carls`` at phase 8's configuration with every kernel
-    counter set to 0 just before it and read just after."""
+def train_run(label: str, cfg, want: dict, batch: int = TRAIN_B,
+              seq: int = TRAIN_SEQ):
+    """``train_carls`` at phase 8's configuration (or at ``batch`` x
+    ``seq``) with every kernel counter set to 0 just before it and read
+    just after; ``want`` gives the launches the run must make. The loss
+    must be finite and fall."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = train.train_carls(
-        cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_SEQ,
+        cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
         nodes=TRAIN_NODES, lr=TRAIN_LR, maker_every=TRAIN_STEPS, seed=0,
         device="cuda", log=lambda line: log(f"phase 8: {label}: {line}"))
     counts = ops.launch_counts()
@@ -2435,41 +2822,169 @@ def train_run(label: str, cfg):
         f"with init; launches {counts}")
     require(bool(np.isfinite(losses).all()), f"{label}: a loss is not "
             f"finite: {losses}")
-    require(np.mean(losses[-3:]) < losses[0],
+    require(bool(np.mean(losses[-3:]) < losses[0]),
             f"{label}: the loss did not fall: {losses}")
-    want = {"kb_fused_lookup": TRAIN_STEPS, "flash_attention": 0,
-            "rwkv_wkv": 0, "mamba_scan": 0}
+    log(f"phase 8: {label}: the loss fell (mean of the last 3 steps below "
+        f"the first)")
     got = {k: counts[k] for k in want}
     require(got == want, f"{label}: launches {got}, not {want}")
     return res, counts
 
 
-def phase8_train():
-    """The trainer: the reduced step card against CPU; then, jamba's
-    weights freed, ``train_carls`` at full width twice and one step
-    profiled."""
-    phase8_reduced_parity()
+# the sequence kernels, forward and backward, none of which the yi-6b step
+# at 8 x 64 launches
+SEQ_KERNELS = ("flash_attention", "rwkv_wkv", "mamba_scan",
+               "flash_attention_bwd", "rwkv_wkv_bwd", "mamba_scan_bwd")
+NONE_LAUNCHED = {k: 0 for k in SEQ_KERNELS}
+# the reduced jamba's Mamba layers: one group of 7 Mamba and 1 attention
+REDUCED_JAMBA_MAMBA = 7
+
+
+def compare_runs(label: str, losses1, losses2) -> None:
+    """Two runs from one seed: every step's loss within 1%."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
+    require(max(rel) <= 0.01, f"{label}: the two runs' losses differ by "
+            f"more than 1%: {losses1} vs {losses2}")
+    log(f"phase 8: {label}: the two full-width runs' losses bit-identical: "
+        f"{losses1 == losses2}; largest relative gap {max(rel)}")
+
+
+def train_twice(label: str, cfg, want: dict, **kw) -> dict:
+    """``train_run`` twice from one seed; the first run's launches."""
+    res, counts = train_run(f"{label} run 1", cfg, want, **kw)
+    losses1 = res["losses"]
+    del res
+    gc.collect()
+    res, _ = train_run(f"{label} run 2", cfg, want, **kw)
+    losses2 = res["losses"]
+    del res
+    gc.collect()
+    compare_runs(label, losses1, losses2)
+    return counts
+
+
+def phase8_jamba_layer() -> dict:
+    """One full-width jamba Mamba layer (JAMBA_CUT's widths, bf16) forward
+    and backward on a prefill's input (B 4, S 2048), with gradients on y
+    and on the final state: through the scan kernels (the Function), then
+    through the plain scan, both on the card; every gradient (x and each
+    parameter) within LAYER_REL of the plain one's norm. Returns the
+    launches of the kernel run."""
+    from repro_torch.models import ssm
+    cfg = get_config(JAMBA).replace(**JAMBA_CUT)
+    dev = torch.device("cuda")
+    params = ssm.mamba_init(torch.Generator(device=dev).manual_seed(0), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((LM_B, LM_PROMPT, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    di = cfg.ssm_expand * cfg.d_model
+    cot_h = torch.randn((LM_B, di, cfg.ssm_state_dim), generator=g,
+                        device=dev)
+
+    def grads() -> dict:
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        xl = x.clone().requires_grad_()
+        y, st = ssm.mamba_apply_state(leaves, xl, cfg)
+        ((y.float() * cot.float()).sum() + (st["h"] * cot_h).sum()
+         ).backward()
+        out = {"x": xl.grad, **{k: v.grad for k, v in leaves.items()}}
+        torch.cuda.synchronize()
+        return out
+
+    grads()                                      # a warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = grads()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**NONE_LAUNCHED, "mamba_scan": 1, "mamba_scan_bwd": 1}
+    require({k: counts[k] for k in want} == want,
+            f"the jamba layer's kernel run launched {counts}")
+    kernel_scan = ops.mamba_scan
+    ops.mamba_scan = ref.mamba_scan_ref          # the plain scan
+    t0 = time.perf_counter()
+    plain = grads()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ops.mamba_scan = kernel_scan
+    errs = {}
+    for k, gk in got.items():
+        gp = plain[k].float()
+        rel = float((gk.float() - gp).norm() / gp.norm().clamp_min(1e-30))
+        require(bool(torch.isfinite(gk).all()) and rel <= LAYER_REL,
+                f"the jamba layer's gradient of {k} is off the plain "
+                f"scan's by {rel} of its norm")
+        errs[k] = (rel, max_err(gk.float(), gp))
+    log(f"phase 8: one {JAMBA} Mamba layer at full width (d {cfg.d_model}, "
+        f"di {di}, ds {cfg.ssm_state_dim}, bf16), forward and backward at "
+        f"{LM_B} x {LM_PROMPT}: {ms} ms through the kernels, {plain_ms} ms "
+        f"through the plain scan; peak device memory {peak} bytes (the "
+        f"kernel run); gradients against the plain scan's (relative norm "
+        f"error, max abs error): {errs}; launches {counts}")
+    return counts
+
+
+def phase8_train() -> dict:
+    """The trainer: the reduced yi-6b, rwkv6-7b and jamba steps card
+    against CPU; then, jamba's weights freed, ``train_carls`` at full
+    width twice (yi-6b, 16 layers, 8 x 64) and one step profiled; then
+    rwkv6-7b at full width cut to 12 layers, 8 x 64, twice; yi-6b's 16
+    layers at 2 x 2048, twice; and one full-width jamba Mamba layer
+    forward and backward. Returns the launches of each path."""
+    paths = {}
+    phase8_reduced_parity("yi-6b", {**NONE_LAUNCHED, "kb_fused_lookup": 1})
+    phase8_reduced_parity("rwkv6-7b", {**NONE_LAUNCHED, "kb_fused_lookup": 1,
+                                       "rwkv_wkv": 2, "rwkv_wkv_bwd": 2},
+                          grad_rtol=RTOL_GRAD)
+    phase8_reduced_parity(JAMBA, {**NONE_LAUNCHED, "kb_fused_lookup": 1,
+                                  "mamba_scan": REDUCED_JAMBA_MAMBA,
+                                  "mamba_scan_bwd": REDUCED_JAMBA_MAMBA},
+                          grad_rtol=RTOL_GRAD)
     free_weights("phase 8", "yi-6b training")
     cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
     log(f"phase 8: yi-6b cut to {TRAIN_LAYERS} of 32 layers: "
         f"{cfg.param_count()} parameters")
-    res, counts = train_run("yi-6b full width run 1", cfg)
+    want = {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS}
+    res, paths["train"] = train_run("yi-6b full width run 1", cfg, want)
     losses1 = res["losses"]
     wall_ms, prof = profiled(res["loop"].step, need=has_train_ranges)
     log(f"phase 8: profiled step {TRAIN_STEPS + 1}: "
         f"{train_parts(prof, wall_ms)}")
     del res, prof
     gc.collect()
-    res, _ = train_run("yi-6b full width run 2", cfg)
+    res, _ = train_run("yi-6b full width run 2", cfg, want)
     losses2 = res["losses"]
     del res
     gc.collect()
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
-    require(max(rel) <= 0.01, f"the two runs' losses differ by more than "
-            f"1%: {losses1} vs {losses2}")
-    log(f"phase 8: the two full-width runs' losses bit-identical: "
-        f"{losses1 == losses2}; largest relative gap {max(rel)}")
-    return counts
+    compare_runs("yi-6b", losses1, losses2)
+    # rwkv6-7b: WKV forward and backward in each of the 12 layers a step,
+    # and the forward again in the maker pass on the last step
+    free_weights("phase 8", "rwkv6-7b training")
+    cfg = get_config("rwkv6-7b").replace(num_layers=TRAIN_RWKV_LAYERS)
+    log(f"phase 8: rwkv6-7b cut to {TRAIN_RWKV_LAYERS} of 32 layers: "
+        f"{cfg.param_count()} parameters")
+    n = TRAIN_RWKV_LAYERS
+    paths["train_rwkv"] = train_twice(
+        "rwkv6-7b full width", cfg,
+        {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
+         "rwkv_wkv": (TRAIN_STEPS + 1) * n, "rwkv_wkv_bwd": TRAIN_STEPS * n})
+    # yi-6b at 2 x 2048: flash forward and backward in each layer a step
+    free_weights("phase 8", "yi-6b training at seq 2048")
+    cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
+    n = TRAIN_LAYERS
+    paths["train_yi_2048"] = train_twice(
+        f"yi-6b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}", cfg,
+        {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
+         "flash_attention": (TRAIN_STEPS + 1) * n,
+         "flash_attention_bwd": TRAIN_STEPS * n},
+        batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
+    free_weights("phase 8", "the jamba Mamba layer")
+    paths["train_jamba_layer"] = phase8_jamba_layer()
+    return paths
 
 
 def phase9_quickstart() -> dict:
@@ -2736,7 +3251,7 @@ def main() -> int:
     paths["serve_jamba"] = phase7_jamba()
     log(f"phase 7: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    paths["train"] = phase8_train()
+    paths.update(phase8_train())
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     paths.update(phase9_makers())
@@ -2765,7 +3280,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("fp32", "launch_floor_ms", "ms_b1024",
-                                 "op_ms", "op_kernels") if k in r}})
+                                 "op_ms", "op_kernels", "autograd_err",
+                                 "train_shape")
+               if k in r}})
+        if KERNEL_PATH[name] in ("train_rwkv", "train_yi_2048"):
+            record[-1]["launches_per_step"] = launches // TRAIN_STEPS
         if "trainer" in r:      # kb_fused_lookup on the trainer's path
             t = r["trainer"]
             record[-1]["trainer"] = {

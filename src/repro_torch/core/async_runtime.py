@@ -70,8 +70,7 @@ from repro_torch.core.knowledge_bank import (feature_store_create,
                                              fs_update_labels,
                                              fs_update_neighbors)
 from repro_torch.core.knowledge_maker import vote_agreement_labels
-from repro_torch.core.trainer import (make_async_train_fns,
-                                      require_trainable_on_device)
+from repro_torch.core.trainer import make_async_train_fns
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
 from repro_torch.models.model import LM
@@ -1030,12 +1029,9 @@ def run_async_training(model: LM, corpus: SyntheticGraphCorpus, *,
     over disjoint node slices. ``trainer_push=True`` also pushes the
     trainer's pooled sample embeddings to the bank each step. Parameters
     come from ``model.init`` on a generator seeded ``seed``; AdamW at a
-    constant ``lr``, no weight decay. Refuses up front, before any
-    parameter is built, a configuration the card cannot train
-    (``require_trainable_on_device``)."""
+    constant ``lr``, no weight decay."""
     dev = resolve_device(device)
     cfg = model.cfg
-    require_trainable_on_device(cfg, corpus.seq_len - 1, dev)
     opt = AdamW(lr=constant_lr(lr), weight_decay=0.0)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     opt_state = opt.init(params)

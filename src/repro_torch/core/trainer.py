@@ -36,10 +36,10 @@ record_function`` ranges (``carls.lookup``, ``carls.kb_push``,
 forward and backward are the rest of the step (autograd runs the
 backward on a thread of its own, outside any range of the step's).
 
-On the card the model's forward under grad must not reach a kernel
-without a backward (flash, WKV, the Mamba scan):
-``require_trainable_on_device`` refuses such a configuration before any
-parameter is built.
+On the card the model's forward under grad reaches the sequence kernels
+(flash attention from seq² >= 2048², the WKV recurrence, the Mamba scan)
+through their ``autograd.Function``s, whose backwards are kernels too
+(``repro_torch.kernels.ops``), so every ported architecture trains there.
 """
 from __future__ import annotations
 
@@ -48,39 +48,12 @@ from typing import Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kb_engine import KBOps, make_kb_ops
-from repro_torch.models.layers import FLASH_MIN_PAIRS
 from repro_torch.models.losses import (chunked_xent, graph_reg_loss,
                                        masked_mean_pool)
 from repro_torch.models.model import LM
 from repro_torch.optim import AdamW
 from repro_torch.tree import tree_items, tree_map_with_path
-
-
-def require_trainable_on_device(cfg: ModelConfig, seq: int,
-                                device: torch.device) -> None:
-    """Raise on a CUDA device where a training forward of ``seq`` tokens
-    would reach a kernel that has no backward yet: an rwkv6 or Mamba
-    mixer, or attention over seq² >= 2048² pairs (the flash branch). On
-    the CPU every kernel wrapper runs its plain version, which autograd
-    follows, so nothing is refused there."""
-    if torch.device(device).type != "cuda":
-        return
-    mixers = {m for m, _ in LM(cfg).spec}
-    why = None
-    if mixers & {"rwkv6", "mamba"}:
-        why = (f"its {'/'.join(sorted(mixers & {'rwkv6', 'mamba'}))} "
-               "mixer runs the WKV or Mamba-scan kernel")
-    elif "attn" in mixers and seq * seq >= FLASH_MIN_PAIRS:
-        why = (f"attention over {seq} tokens takes the flash kernel "
-               f"(seq^2 >= 2048^2)")
-    if why:
-        raise NotImplementedError(
-            f"training {cfg.name} on the card is not ported yet: {why}, "
-            "which has no backward kernel (ROADMAP Q1 item 1, its backward "
-            "half); train it on the CPU (device='cpu') or below 2048 "
-            "tokens with an attention-only config")
 
 
 def model_loss(model: LM, params, batch, nbr_emb=None,

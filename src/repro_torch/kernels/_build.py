@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("kb_fused_lookup", "kb_gather", "lazy_apply", "nn_search",
            "kb_fused_lookup_q", "ivf_stage2", "ivf_stage2_q",
            "flash_attention", "rwkv_wkv", "ivf_stage2_sharded",
-           "mamba_scan")
+           "mamba_scan", "flash_attention_bwd", "rwkv_wkv_bwd",
+           "mamba_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -152,19 +153,24 @@ def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype,
                          f"{t.is_contiguous()})")
 
 
-def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would record a kernel that has no backward:
-    the launch writes its outputs through ctypes into fresh tensors, so
-    they would carry no history and the inputs' gradients would be lost
-    without a word. Under ``torch.no_grad()`` or ``torch.inference_mode()``
-    (the serve paths) nothing is recorded and the kernel runs."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: an input requires grad and grad mode is on, but the "
-            "CUDA kernel has no backward yet (ROADMAP Q1 item 1, the "
-            "trainer slice, gives it an autograd.Function); run it under "
-            "torch.no_grad() or torch.inference_mode(), or on the CPU, "
-            "whose plain version autograd follows")
+def stream_of(t: torch.Tensor):
+    """The handle of PyTorch's current stream on ``t``'s CUDA device (None
+    for a tensor elsewhere): what an autograd Function's forward launched
+    on."""
+    if t.device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_same_stream(saved, t: torch.Tensor, name: str) -> None:
+    """Raise unless the current stream on ``t``'s device is ``saved``, the
+    forward's: autograd runs a backward on a thread of its own, and
+    ``launch`` takes that thread's current stream, which autograd sets to
+    the forward's."""
+    now = stream_of(t)
+    if now != saved:
+        raise RuntimeError(f"{name}: the backward would launch on stream "
+                           f"{now}, not the forward's {saved}")
 
 
 def require_bank(table, grad_sum, grad_cnt, grad_sqnorm) -> None:

@@ -6,6 +6,7 @@
 
 #include <cfloat>
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,6 +25,50 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = __fadd_rn(v, __shfl_down_sync(FULL_MASK, v, off));
   return __shfl_sync(FULL_MASK, v, 0);
+}
+
+// Sums of N values a lane over the lanes that differ only in lane bits
+// LO .. 16, scattered over those lanes (the backward kernels' sums over
+// rows or channels): each level halves the values a lane holds, the lane
+// with the level's bit set keeping the upper half; once a lane holds one
+// value the remaining levels add the partner's copy. On return v[0 ..
+// max(N LO / 32, 1) - 1] hold the sums of values idx .. of the group, in a
+// fixed order; `writer` is false on every lane but one of those that hold
+// the same sums (IEEE addition commutes, so the copies agree bit for bit).
+template <int N, int O, int LO>
+__device__ __forceinline__ void reduce_scatter_level(float (&v)[N], int lane,
+                                                     int& idx, bool& writer) {
+  constexpr int n = N * O / 16;   // values a lane holds entering the level
+  if constexpr (n >= 2) {
+    constexpr int half = n / 2;
+    const bool up = lane & O;
+#pragma unroll
+    for (int x = 0; x < half; ++x) {
+      const float mine = up ? v[half + x] : v[x];
+      const float other = up ? v[x] : v[half + x];
+      v[x] = mine + __shfl_xor_sync(FULL_MASK, other, O);
+    }
+    if (up) idx += half;
+  } else {
+    v[0] += __shfl_xor_sync(FULL_MASK, v[0], O);
+    if (lane & O) writer = false;
+  }
+  if constexpr (O > LO) reduce_scatter_level<N, O / 2, LO>(v, lane, idx,
+                                                           writer);
+}
+
+template <int N, int LO>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int& idx,
+                                                    bool& writer) {
+  idx = 0;
+  writer = true;
+  reduce_scatter_level<N, 16, LO>(v, threadIdx.x & 31, idx, writer);
+}
+
+// A value of the model dtype as fp32
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
 // Max and min over the warp, returned to every lane (exact in any order).

@@ -58,6 +58,11 @@
 // about half their cycles, then their issue of products, which waits for
 // the other warpgroup's products to leave the tensor pipe.
 //
+// For the backward (flash_attention_bwd.cu) either kernel also writes each
+// query row's log-sum-exp of its scaled (and capped) scores, m + log(l) in
+// natural units, into lse (B, H, S) fp32 when given a pointer; given null
+// (the serve path) it writes nothing and computes what it did before.
+//
 // fp32 (flash_fp32): fp32 FMAs on the CUDA cores, q cast and scaled before
 // the product as in JAX. One block per (head, batch, 64-query tile), 256
 // threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4ty..4ty+3,
@@ -99,6 +104,7 @@ constexpr int TK = 128;          // keys per KV tile
 constexpr int STAGES = 2;        // K and V stages in the ring
 constexpr int BF16_THREADS = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // slots of the optional stage profile (summed cycles, flash_stage_cycles
 // in flash_attention.py): a consumer warpgroup's waits for K and V, for
 // its turn, its issue of products, its waits for them, its softmax, its
@@ -413,7 +419,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
            const __grid_constant__ CUtensorMap tm_v,
            __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
            int causal, int window, float softcap, float scale,
-           unsigned long long* __restrict__ prof) {
+           float* __restrict__ lse, unsigned long long* __restrict__ prof) {
   constexpr int SWB = swz_bytes<HD>(), SWE = swz_elems<HD>();
   constexpr int NCB = col_blocks<HD>();
   constexpr uint64_t LAYOUT = swz_layout<HD>();
@@ -646,6 +652,10 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
         const int qp = qp0 + 8 * r;
         if (qp >= S) continue;
         const float inv = __frcp_rn(fmaxf(l[r], 1e-30f));
+        // m and the scores are in log2 units: lse = ln 2 (m + log2 l)
+        if (lse != nullptr && (lane & 3) == 0)
+          lse[(static_cast<int64_t>(it.b) * H + it.h) * S + qp] =
+              (m[r] + log2f(l[r])) * LN2;
         __nv_bfloat16* orow = o + (static_cast<int64_t>(it.b) * S + qp) *
                                       qrow + it.h * HD + 2 * (lane & 3);
 #pragma unroll
@@ -725,7 +735,8 @@ template <int HD>
 __global__ void __launch_bounds__(F32_NT, 2)
 flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, int S, int H,
-           int KV, int causal, int window, float softcap, float scale) {
+           int KV, int causal, int window, float softcap, float scale,
+           float* __restrict__ lse) {
   constexpr int QS = f32_stride<HD>();
   constexpr int DPT = HD / 16;               // output dims per thread
   extern __shared__ __align__(16) float smem_f[];
@@ -840,6 +851,8 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
     const int qp = q0 + 4 * ty + i;
     if (qp < S) {
       const float den = fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<int64_t>(b) * H + h) * S + qp] = m[i] + logf(l[i]);
       float* orow = o + (static_cast<int64_t>(b) * S + qp) * qrow + h * HD;
 #pragma unroll
       for (int e = 0; e < DPT; ++e)
@@ -904,7 +917,8 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S,
 template <int HD>
 int launch_hd(int bf16, const void* q, const void* k, const void* v,
               void* o, int B, int S, int H, int KV, int causal, int window,
-              float softcap, float scale, void* prof, cudaStream_t stream) {
+              float softcap, float scale, float* lse, void* prof,
+              cudaStream_t stream) {
   cudaError_t err;
   if (bf16) {
     CUtensorMap mq, mk, mv;
@@ -926,7 +940,7 @@ int launch_hd(int bf16, const void* q, const void* k, const void* v,
     const int items = H * B * ((S + TQ - 1) / TQ);   // one block an SM
     kernel<<<min(items, sms), BF16_THREADS, smem, stream>>>(
         mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, causal,
-        window, softcap, scale, static_cast<unsigned long long*>(prof));
+        window, softcap, scale, lse, static_cast<unsigned long long*>(prof));
   } else {
     const size_t smem = f32_smem_bytes<HD>();
     err = cudaFuncSetAttribute(flash_fp32<HD>,
@@ -937,7 +951,7 @@ int launch_hd(int bf16, const void* q, const void* k, const void* v,
     flash_fp32<HD><<<grid, F32_NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), S, H, KV,
-        causal, window, softcap, scale);
+        causal, window, softcap, scale, lse);
   }
   return cudaGetLastError();
 }
@@ -946,25 +960,26 @@ int launch_hd(int bf16, const void* q, const void* k, const void* v,
 
 REPRO_ERROR_STRING(flash_attention)
 
-// prof: null, or PROF_SLOTS zeroed uint64 on the card that the bf16
-// kernel adds its stage cycles to
+// lse: null, or (B, H, S) fp32 for the rows' log-sum-exp; prof: null, or
+// PROF_SLOTS zeroed uint64 on the card that the bf16 kernel adds its stage
+// cycles to
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, int d, int bf16,
                                       int causal, int window, float softcap,
-                                      float scale, void* prof,
+                                      float scale, float* lse, void* prof,
                                       cudaStream_t stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   switch (d) {
     case 32:
       return launch_hd<32>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                           softcap, scale, prof, stream);
+                           softcap, scale, lse, prof, stream);
     case 64:
       return launch_hd<64>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                           softcap, scale, prof, stream);
+                           softcap, scale, lse, prof, stream);
     case 128:
       return launch_hd<128>(bf16, q, k, v, o, B, S, H, KV, causal, window,
-                            softcap, scale, prof, stream);
+                            softcap, scale, lse, prof, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -46,7 +46,13 @@
 // TMA instead held the stage a chunk longer and cost a barrier of the four
 // consumer warps a chunk: 0.660 ms against 0.639 (tools/kernel_ab.py).
 // h_fin goes out from registers at the end.
+//
+// For the backward (mamba_scan_bwd.cu), given a checkpoint buffer each
+// consumer thread also stores its channel's state at the start of every
+// chunk, before its steps, into ckpt (B, ceil(S / TC), di, ds) fp32 (a
+// template instance of its own, so the serve path's code is unchanged).
 #include "common.cuh"
+#include "mamba_scan.cuh"
 #include "tma.cuh"
 
 #include <cuda_bf16.h>
@@ -54,10 +60,8 @@
 namespace {
 
 constexpr int NC = 128;  // channels (consumer threads) a block
-constexpr int TC = 16;   // time steps a chunk
 constexpr int NS = 3;    // stages of the ring
 constexpr int THREADS = NC + 32;   // + the producer warp
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int DS>
 struct Smem {
@@ -70,18 +74,6 @@ struct Smem {
   static constexpr uint32_t TX = DELTA + X + 2 * BC;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// 2^x on the MUFU pipe
-__device__ __forceinline__ float exp2_mufu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Profile slots (mamba_scan.py's PROFILE_SLOTS): clock64 cycles summed
 // over the consumer warps (lane 0 of each) and over the producer threads,
 // then the number of each.
@@ -91,15 +83,16 @@ enum {
   P_PRODUCER_THREADS, P_SLOTS
 };
 
-template <typename T, int DS, bool kProf>
+template <typename T, int DS, bool kProf, bool kCkpt>
 __global__ void __launch_bounds__(THREADS, 4)
 scan_kernel(const __grid_constant__ CUtensorMap tm_delta,
             const __grid_constant__ CUtensorMap tm_x,
             const __grid_constant__ CUtensorMap tm_b,
             const __grid_constant__ CUtensorMap tm_c,
             float* __restrict__ y,
-            const float* __restrict__ A, float* __restrict__ h_fin, int S,
-            int di, unsigned long long* __restrict__ prof) {
+            const float* __restrict__ A, float* __restrict__ h_fin,
+            float* __restrict__ ckpt, int S, int di,
+            unsigned long long* __restrict__ prof) {
   using M = Smem<T, DS>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const sm = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
@@ -203,6 +196,15 @@ scan_kernel(const __grid_constant__ CUtensorMap tm_delta,
     const float* bt = sb(st);
     const float* ct = sc(st);
     float* yp = y + (static_cast<int64_t>(b) * S + c * TC) * di + i;
+    if constexpr (kCkpt) {
+      if (live) {
+        float4* cp = reinterpret_cast<float4*>(
+            ckpt + ((static_cast<int64_t>(b) * n_chunks + c) * di + i) * DS);
+#pragma unroll
+        for (int s = 0; s < DS; s += 4)
+          cp[s / 4] = make_float4(h[s], h[s + 1], h[s + 2], h[s + 3]);
+      }
+    }
     mbar_wait(&full[st], (c / NS) & 1);
     lap(P_CONSUMER_WAIT);
     if (steps == TC) {             // the chunk as one block of code
@@ -235,8 +237,8 @@ scan_kernel(const __grid_constant__ CUtensorMap tm_delta,
 template <typename T, int DS>
 int launch_typed(const float* delta, const float* bm, const float* cm,
                  const void* x, const float* A, float* y, float* h_fin,
-                 int B, int S, int di, unsigned long long* prof,
-                 cudaStream_t stream) {
+                 float* ckpt, int B, int S, int di,
+                 unsigned long long* prof, cudaStream_t stream) {
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   constexpr CUtensorMapDataType TX = sizeof(T) == 4
                                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -255,52 +257,57 @@ int launch_typed(const float* delta, const float* bm, const float* cm,
           cudaSuccess)
     return err;
   constexpr int smem = Smem<T, DS>::BYTES;
-  auto kernel = prof ? scan_kernel<T, DS, true> : scan_kernel<T, DS, false>;
+  auto kernel = prof   ? scan_kernel<T, DS, true, false>
+                : ckpt ? scan_kernel<T, DS, false, true>
+                       : scan_kernel<T, DS, false, false>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((di + NC - 1) / NC, B);
-  kernel<<<grid, THREADS, smem, stream>>>(md, mx, mb, mc, y, A, h_fin, S,
-                                          di, prof);
+  kernel<<<grid, THREADS, smem, stream>>>(md, mx, mb, mc, y, A, h_fin,
+                                          ckpt, S, di, prof);
   return cudaGetLastError();
 }
 
 template <int DS>
 int launch_ds(int bf16, const float* delta, const float* bm, const float* cm,
-              const void* x, const float* A, float* y, float* h_fin, int B,
-              int S, int di, unsigned long long* prof, cudaStream_t stream) {
+              const void* x, const float* A, float* y, float* h_fin,
+              float* ckpt, int B, int S, int di, unsigned long long* prof,
+              cudaStream_t stream) {
   if (bf16)
-    return launch_typed<__nv_bfloat16, DS>(delta, bm, cm, x, A, y, h_fin, B,
-                                           S, di, prof, stream);
-  return launch_typed<float, DS>(delta, bm, cm, x, A, y, h_fin, B, S, di,
-                                 prof, stream);
+    return launch_typed<__nv_bfloat16, DS>(delta, bm, cm, x, A, y, h_fin,
+                                           ckpt, B, S, di, prof, stream);
+  return launch_typed<float, DS>(delta, bm, cm, x, A, y, h_fin, ckpt, B, S,
+                                 di, prof, stream);
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING(mamba_scan)
 
-// prof: null, or P_SLOTS zeroed counters that a profiled launch adds to
+// ckpt: null, or (B, ceil(S / TC), di, ds) fp32 for the chunk-start
+// states; prof: null, or P_SLOTS zeroed counters that a profiled launch
+// adds to
 extern "C" int mamba_scan_launch(const float* delta, const float* bm,
                                  const float* cm, const void* x,
                                  const float* A, float* y, float* h_fin,
-                                 int B, int S, int di, int ds, int bf16,
-                                 unsigned long long* prof,
+                                 float* ckpt, int B, int S, int di, int ds,
+                                 int bf16, unsigned long long* prof,
                                  cudaStream_t stream) {
   if (B <= 0 || S <= 0 || di <= 0 || di % 8 || B > 65535)
     return cudaErrorInvalidValue;
   switch (ds) {
     case 4:
-      return launch_ds<4>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
+      return launch_ds<4>(bf16, delta, bm, cm, x, A, y, h_fin, ckpt, B, S, di,
                           prof, stream);
     case 8:
-      return launch_ds<8>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
+      return launch_ds<8>(bf16, delta, bm, cm, x, A, y, h_fin, ckpt, B, S, di,
                           prof, stream);
     case 16:
-      return launch_ds<16>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
+      return launch_ds<16>(bf16, delta, bm, cm, x, A, y, h_fin, ckpt, B, S, di,
                            prof, stream);
     case 32:
-      return launch_ds<32>(bf16, delta, bm, cm, x, A, y, h_fin, B, S, di,
+      return launch_ds<32>(bf16, delta, bm, cm, x, A, y, h_fin, ckpt, B, S, di,
                            prof, stream);
     default:
       return cudaErrorInvalidValue;

@@ -59,14 +59,19 @@
 // wait on that barrier and release the stage on its empty barrier. A
 // ragged last chunk is zero-filled by the tensor maps and its steps past S
 // are neither run nor stored. S_fin goes out from registers at the end.
+//
+// For the backward (rwkv_wkv_bwd.cu), given a checkpoint buffer the
+// consumers also store the state at the start of every chunk, before its
+// steps, into ckpt (B, H, ceil(S / TC), d, d) fp32, as they store S_fin (a
+// template instance of its own, so the serve path's code is unchanged).
 #include "common.cuh"
+#include "rwkv_wkv.cuh"
 #include "tma.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int TC = 16;   // time steps per chunk
 constexpr int NS = 4;    // stages of the ring
 constexpr int NP = 2;    // producer warps, TC / NP steps of a chunk each
 constexpr int YC = 16;   // columns a consumer warp holds
@@ -117,15 +122,16 @@ __device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
                      __uint_as_float(w.y & 0xffff0000u));
 }
 
-template <typename T, int D, bool kProf>
+template <typename T, int D, bool kProf, bool kCkpt>
 __global__ void __launch_bounds__(Layout<D>::THREADS)
 wkv_kernel(const __grid_constant__ CUtensorMap tm_r,
            const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v,
            const __grid_constant__ CUtensorMap tm_w,
            const __grid_constant__ CUtensorMap tm_y,
-           const float* __restrict__ u, float* __restrict__ s_fin, int S,
-           int H, unsigned long long* __restrict__ prof) {
+           const float* __restrict__ u, float* __restrict__ s_fin,
+           float* __restrict__ ckpt, int S, int H,
+           unsigned long long* __restrict__ prof) {
   using L = Layout<D>;
   using M = Smem<T, D>;
   constexpr int G = L::G, C = L::C, R = L::R, CW = L::CW, QP = M::QP;
@@ -316,8 +322,31 @@ wkv_kernel(const __grid_constant__ CUtensorMap tm_r,
                                        : (hi4 ? vv[1] : vv[0]), c_t, y);
   };
 
+  // the state in registers to (row, column) of a (D, D) block at `base`
+  auto store_state = [&](float* base) {
+    float* sf = base + hc + col0;
+#pragma unroll
+    for (int m = 0; m < R / 4; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 4 * (G * m + g) + e;
+        const float* sv = st_reg + (4 * m + e) * C;
+        if constexpr (C == 4) {
+          *reinterpret_cast<float2*>(sf + row * D + 2 * hi4) =
+              make_float2(sv[0], sv[1]);
+          *reinterpret_cast<float2*>(sf + row * D + 2 - 2 * hi4) =
+              make_float2(sv[2], sv[3]);
+        }
+        else
+          *reinterpret_cast<float2*>(sf + row * D) = make_float2(sv[0], sv[1]);
+      }
+  };
+
   for (int c = 0; c < n_chunks; ++c) {
     const int st = c % NS, steps = min(TC, S - c * TC);
+    if constexpr (kCkpt)
+      store_state(ckpt + ((static_cast<int64_t>(b) * H + h) * n_chunks + c) *
+                             D * D);
     const float* fr = tile(st, 0);
     const float* fk = tile(st, 1);
     const float* fv = tile(st, 2);
@@ -355,22 +384,7 @@ wkv_kernel(const __grid_constant__ CUtensorMap tm_r,
   }
   flush(P_CONSUMER_WAIT, P_CONSUMER_CHUNK_END, P_CONSUMER_WARPS);
   if (lane == 0) bulk_wait<0>();
-  float* sf = s_fin + (static_cast<int64_t>(b) * H + h) * D * D + hc + col0;
-#pragma unroll
-  for (int m = 0; m < R / 4; ++m)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = 4 * (G * m + g) + e;
-      const float* sv = st_reg + (4 * m + e) * C;
-      if constexpr (C == 4) {
-        *reinterpret_cast<float2*>(sf + row * D + 2 * hi4) =
-            make_float2(sv[0], sv[1]);
-        *reinterpret_cast<float2*>(sf + row * D + 2 - 2 * hi4) =
-            make_float2(sv[2], sv[3]);
-      }
-      else
-        *reinterpret_cast<float2*>(sf + row * D) = make_float2(sv[0], sv[1]);
-    }
+  store_state(s_fin + (static_cast<int64_t>(b) * H + h) * D * D);
 }
 
 // a (B, S, H d) tensor of `type` as a map of (cols, TC, 1) boxes
@@ -384,8 +398,9 @@ cudaError_t head_map(CUtensorMap* map, CUtensorMapDataType type,
 
 template <typename T, int D>
 int launch_typed(const void* r, const void* k, const void* v, const float* w,
-                 const float* u, float* y, float* s_fin, int B, int S, int H,
-                 unsigned long long* prof, cudaStream_t stream) {
+                 const float* u, float* y, float* s_fin, float* ckpt, int B,
+                 int S, int H, unsigned long long* prof,
+                 cudaStream_t stream) {
   constexpr CUtensorMapDataType TT = sizeof(T) == 4
                                          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -400,46 +415,53 @@ int launch_typed(const void* r, const void* k, const void* v, const float* w,
       (err = head_map(&my, F32, y, 4, B, S, H, D, YC)) != cudaSuccess)
     return err;
   constexpr int smem = Smem<T, D>::BYTES;
-  auto kernel = prof ? wkv_kernel<T, D, true> : wkv_kernel<T, D, false>;
+  auto kernel = prof   ? wkv_kernel<T, D, true, false>
+                : ckpt ? wkv_kernel<T, D, false, true>
+                       : wkv_kernel<T, D, false, false>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B * H, Layout<D>::THREADS, smem, stream>>>(mr, mk, mv, mw, my, u,
-                                                      s_fin, S, H, prof);
+                                                      s_fin, ckpt, S, H,
+                                                      prof);
   return cudaGetLastError();
 }
 
 template <int D>
 int launch_d(int bf16, const void* r, const void* k, const void* v,
-             const float* w, const float* u, float* y, float* s_fin, int B,
-             int S, int H, unsigned long long* prof, cudaStream_t stream) {
+             const float* w, const float* u, float* y, float* s_fin,
+             float* ckpt, int B, int S, int H, unsigned long long* prof,
+             cudaStream_t stream) {
   if (bf16)
-    return launch_typed<__nv_bfloat16, D>(r, k, v, w, u, y, s_fin, B, S, H,
-                                          prof, stream);
-  return launch_typed<float, D>(r, k, v, w, u, y, s_fin, B, S, H, prof,
-                                stream);
+    return launch_typed<__nv_bfloat16, D>(r, k, v, w, u, y, s_fin, ckpt, B,
+                                          S, H, prof, stream);
+  return launch_typed<float, D>(r, k, v, w, u, y, s_fin, ckpt, B, S, H,
+                                prof, stream);
 }
 
 }  // namespace
 
 REPRO_ERROR_STRING(rwkv_wkv)
 
-// prof: null, or P_SLOTS zeroed counters that a profiled launch adds to
+// ckpt: null, or (B, H, ceil(S / TC), d, d) fp32 for the chunk-start
+// states; prof: null, or P_SLOTS zeroed counters that a profiled launch
+// adds to
 extern "C" int rwkv_wkv_launch(const void* r, const void* k, const void* v,
                                const float* w, const float* u, float* y,
-                               float* s_fin, int B, int S, int H, int d,
-                               int bf16, unsigned long long* prof,
+                               float* s_fin, float* ckpt, int B, int S,
+                               int H, int d, int bf16,
+                               unsigned long long* prof,
                                cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return launch_d<16>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+      return launch_d<16>(bf16, r, k, v, w, u, y, s_fin, ckpt, B, S, H, prof,
                           stream);
     case 32:
-      return launch_d<32>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+      return launch_d<32>(bf16, r, k, v, w, u, y, s_fin, ckpt, B, S, H, prof,
                           stream);
     case 64:
-      return launch_d<64>(bf16, r, k, v, w, u, y, s_fin, B, S, H, prof,
+      return launch_d<64>(bf16, r, k, v, w, u, y, s_fin, ckpt, B, S, H, prof,
                           stream);
     default:
       return cudaErrorInvalidValue;

@@ -16,6 +16,13 @@ as wgmma products, with the softmax between them in registers. The
 products bound it (operations), so the loads overlap them. fp32 inputs
 take an FMA kernel on the CUDA cores. The source's header says how each
 works; ``flash_stage_cycles`` measures where the bf16 kernel's cycles go.
+
+Under autograd (grad mode on and an input that requires grad) the launcher
+runs ``FlashAttentionFn``: its forward is the same kernel, which then also
+writes each row's log-sum-exp; its backward is
+``csrc/flash_attention_bwd.cu`` (no Pallas counterpart: JAX differentiates
+``flash_attention_jax``), one source for bf16 and fp32 that recomputes P
+from the log-sum-exp.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import launch, require_cuda, require_no_grad
+from repro_torch.kernels._build import (launch, require_cuda,
+                                       require_same_stream, stream_of)
 
 KV_TILE = 32            # keys per KV tile of the fp32 kernel (F32_BK), the
 #                         tiles the plain version's fp32 arithmetic follows
@@ -32,11 +40,14 @@ BF16_Q_TILE = 128       # query rows per work item of the bf16 kernel (TQ)
 BF16_KV_TILE = 128      # keys per K and V tile of the bf16 kernel (TK)
 BF16_STAGES = 2         # K and V tiles in the bf16 kernel's ring (STAGES)
 TMA_MAX_STRIDE = 2 ** 40  # bytes: a tensor map's strides stay below this
+BWD_KEY_TILE = 128      # keys per tile of the plain backward (memory only)
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + \
-    (ctypes.c_float,) * 2 + (ctypes.c_void_p,)
+    (ctypes.c_float,) * 2 + (ctypes.c_void_p,) * 2
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + \
+    (ctypes.c_float,) * 2
 # the bf16 kernel's stage profile (flash_attention.cu PROF_*): cycles that
 # thread 0 of each consumer warpgroup spends in each stage, and the
 # producer thread's
@@ -60,17 +71,102 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
     """q: (B, S, H, d), k/v: (B, S, KV, d), one dtype (fp32 or bf16), on
     one CUDA device, contiguous, d in (32, 64, 128), H a multiple of KV ->
-    (B, S, H, d) in q's dtype."""
+    (B, S, H, d) in q's dtype. Where autograd would record the call, it
+    runs through ``FlashAttentionFn``, whose backward is the backward
+    kernel."""
     _check(q, k, v)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    _launch(q, k, v, out, causal, window, softcap, None)
-    flash_attention_cuda.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, False)[0]
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """One launch of the forward kernel that also writes the rows'
+    log-sum-exp: -> (out, lse (B, H, S) fp32), what
+    ``flash_attention_bwd_cuda`` takes."""
+    _check(q, k, v)
+    return _forward(q, k, v, causal, window, softcap, True)
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse: bool):
+    """One launch of the forward kernel on checked inputs -> (out, the
+    rows' log-sum-exp (B, H, S) fp32 where ``with_lse``, else None)."""
+    B, S, H, _ = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    _launch(q, k, v, out, causal, window, softcap, None, lse)
+    flash_attention_cuda.launches += 1
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the backward kernel as its backward: the
+    forward keeps q, k, v, the output and the rows' log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, softcap)
+        ctx.stream = stream_of(q)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        require_same_stream(ctx.stream, q, "flash_attention_bwd")
+        causal, window, softcap = ctx.opts
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            window=window, softcap=softcap)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """The backward kernel: q, k, v, the forward's ``out`` and ``dout``
+    (all in the forward's layout and dtype) and ``lse`` (B, H, S) fp32 ->
+    (dq, dk, dv) fp32 in the shapes of q, k and v. One call launches a
+    pre-pass for D = rowsum(dout * out), the dK/dV kernel and the dQ
+    kernel (csrc/flash_attention_bwd.cu)."""
+    _check(q, k, v)
+    B, S, H, d = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        require_cuda(t, name, q.dtype, 4)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must have q's shape "
+                             f"{tuple(q.shape)}")
+    require_cuda(lse, "lse", torch.float32, 3)
+    if lse.shape != (B, H, S):
+        raise ValueError(f"lse {tuple(lse.shape)} must be (B, H, S) = "
+                         f"({B}, {H}, {S})")
+    if len({q.device, out.device, dout.device, lse.device}) != 1:
+        raise ValueError("q, out, dout and lse lie on different devices")
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq, dk, dv
+    dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", "flash_attention_bwd_launch",
+           _BWD_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2],
+           d, int(q.dtype == torch.bfloat16), int(causal), int(window),
+           float(softcap), 1.0 / math.sqrt(d))
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
 
 
 def _check(q, k, v) -> None:
@@ -97,15 +193,15 @@ def _check(q, k, v) -> None:
     if q.dtype == torch.bfloat16:
         require_tma_strides("q", S, H, d)
         require_tma_strides("k and v", S, KV, d)
-    require_no_grad("flash_attention", q, k, v)
 
 
-def _launch(q, k, v, out, causal, window, softcap, prof) -> None:
+def _launch(q, k, v, out, causal, window, softcap, prof, lse=None) -> None:
     B, S, H, d = q.shape
     launch("flash_attention", "flash_attention_launch", _ARGTYPES, q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
            k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal),
            int(window), float(softcap), 1.0 / math.sqrt(d),
+           None if lse is None else lse.data_ptr(),
            None if prof is None else prof.data_ptr())
 
 

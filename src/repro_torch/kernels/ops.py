@@ -9,6 +9,12 @@ a kernel to its plain version.
 ``launch_counts`` reads the launch counter each launcher keeps: a run
 that resets the counters before a path and reads them after it shows
 which kernels that path went through.
+
+The three sequence kernels (flash attention, the WKV recurrence, the Mamba
+scan) have backward kernels: on a CUDA tensor under autograd their
+launchers run an ``autograd.Function`` whose backward launches
+``<name>_bwd``; on a CPU tensor the plain forward runs, which autograd
+follows.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import torch
 
 from repro_torch.core.knowledge_bank import topk_lowest_id
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cuda, ivf_stage2_q_cuda
 from repro_torch.kernels.ivf_stage2_sharded import (ivf_stage2_sharded_cuda,
                                                     ivf_stage2_sharded_q_cuda)
@@ -26,9 +33,10 @@ from repro_torch.kernels.kb_fused_lookup import kb_fused_lookup_cuda
 from repro_torch.kernels.kb_fused_lookup_q import kb_fused_lookup_q_cuda
 from repro_torch.kernels.kb_gather import kb_gather_cuda
 from repro_torch.kernels.lazy_apply import lazy_apply_cuda
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan import (mamba_scan_bwd_cuda,
+                                            mamba_scan_cuda)
 from repro_torch.kernels.nn_search import nn_search_cuda
-from repro_torch.kernels.rwkv_wkv import rwkv_wkv_cuda
+from repro_torch.kernels.rwkv_wkv import rwkv_wkv_bwd_cuda, rwkv_wkv_cuda
 
 LAUNCHERS = {
     "kb_fused_lookup": kb_fused_lookup_cuda,
@@ -43,6 +51,9 @@ LAUNCHERS = {
     "ivf_stage2_sharded": ivf_stage2_sharded_cuda,
     "ivf_stage2_sharded_q": ivf_stage2_sharded_q_cuda,
     "mamba_scan": mamba_scan_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
+    "rwkv_wkv_bwd": rwkv_wkv_bwd_cuda,
+    "mamba_scan_bwd": mamba_scan_bwd_cuda,
 }
 
 

@@ -15,10 +15,12 @@ import torch
 
 from repro_torch.core.knowledge_bank import (dequantize_rows, pending_delta,
                                              quantize_rows, topk_lowest_id)
-from repro_torch.kernels.flash_attention import KV_TILE
+from repro_torch.kernels.flash_attention import BWD_KEY_TILE, KV_TILE
+from repro_torch.kernels.mamba_scan import CHUNK as SCAN_CHUNK
 from repro_torch.kernels.nn_search_ivf import (IMAX, NEG, STAGE2_BLOCK,
                                                _chunk_rows, global_probes,
                                                ivf_chunk_plan)
+from repro_torch.kernels.rwkv_wkv import CHUNK as WKV_CHUNK
 
 
 def _valid(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -224,7 +226,7 @@ def ivf_stage2_sharded_q_ref(packed_codes, packed_scale, packed_offset,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
+                        softcap: float = 0.0, return_lse: bool = False):
     """Plain version of ``csrc/flash_attention.cu`` (the Pallas
     ``flash_attention_pallas``, and ``flash_attention_jax``), in the JAX
     layout: q (B, S, H, d), k/v (B, S, KV, d) -> (B, S, H, d) in q's
@@ -236,7 +238,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     Tiles that the kernel skips (above the causal diagonal, before the
     window) leave m, l and acc as they are here too, or are wiped by the
     first tile with a live score, so the two agree but for the order of
-    their fp32 sums (the bf16 kernel's differences: its source header)."""
+    their fp32 sums (the bf16 kernel's differences: its source header).
+    With ``return_lse`` it also returns each row's log-sum-exp of its
+    scaled (and capped) scores, m + log(l), as (B, H, S) fp32: what the
+    kernel writes for its backward."""
     B, S, H, d = q.shape
     KV = k.shape[2]
     if k.shape != (B, S, KV, d) or v.shape != k.shape:
@@ -268,7 +273,62 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
             "bkgqc,bckd->bkgqd", p, v[:, k0:k0 + KV_TILE].float())
         m = m_new
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(lsum)).reshape(B, H, S)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0):
+    """Plain version of ``csrc/flash_attention_bwd.cu``: the gradients of
+    ``flash_attention_ref`` with respect to q, k and v, given its output
+    ``out``, the rows' log-sum-exp ``lse`` (B, H, S) and the output's
+    gradient ``dout``, computed as FlashAttention-2 does: P recomputed as
+    exp(s - lse) from the scaled (and capped) scores s, masked pairs 0;
+    D = rowsum(dout * out); dP = dout . v; dS = P (dP - D), times
+    1 - tanh² of the capped score's argument under a soft cap; dq =
+    dS . k / sqrt(d), dk = dS^T . q / sqrt(d) and dv = P^T . dout, dk and
+    dv summed over the H / KV query heads of each KV head. Key tiles of
+    ``BWD_KEY_TILE``, all in fp32; -> (dq, dk, dv), fp32, in the shapes
+    of q, k and v."""
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().view(B, S, KV, H // KV, d)
+    do = dout.float().view(B, S, KV, H // KV, d)
+    dvec = (dout.float() * out.float()).sum(-1)              # (B, S, H)
+    dvec = dvec.view(B, S, KV, H // KV).permute(0, 2, 3, 1)  # (B, KV, G, S)
+    lse = lse.float().view(B, KV, H // KV, S)
+    dq = torch.zeros((B, KV, H // KV, S, d), device=q.device)
+    dk = torch.empty((B, S, KV, d), device=q.device)
+    dv = torch.empty((B, S, KV, d), device=q.device)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    for k0 in range(0, S, BWD_KEY_TILE):
+        kb = k[:, k0:k0 + BWD_KEY_TILE].float()          # (B, c, KV, d)
+        vb = v[:, k0:k0 + BWD_KEY_TILE].float()
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kb) * scale
+        if softcap:
+            th = torch.tanh(s / softcap)
+            s = th * softcap
+        kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
+        mask = torch.ones((S, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= qpos >= kpos
+        if window:
+            mask &= qpos - kpos < window
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bqkgd,bckd->bkgqc", do, vb)
+        ds = p * (dp - dvec[..., None])
+        if softcap:
+            ds = ds * (1.0 - th * th)
+        dv[:, k0:k0 + BWD_KEY_TILE] = torch.einsum("bkgqc,bqkgd->bckd", p,
+                                                   do)
+        dk[:, k0:k0 + BWD_KEY_TILE] = torch.einsum(
+            "bkgqc,bqkgd->bckd", ds, qf) * scale
+        dq += torch.einsum("bkgqc,bckd->bkgqd", ds, kb) * scale
+    return dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, d), dk, dv
 
 
 def rwkv_wkv_ref(r, k, v, w, u):
@@ -290,6 +350,58 @@ def rwkv_wkv_ref(r, k, v, w, u):
     return y, state
 
 
+def rwkv_wkv_bwd_ref(r, k, v, w, u, dy, dS_fin=None):
+    """Plain version of ``csrc/rwkv_wkv_bwd.cu``: the gradients of
+    ``rwkv_wkv_ref`` with respect to r, k, v, w and u, given the gradients
+    of its y (B, S, H, d) and of its final state (B, H, d, d; None is 0).
+    With S_t the state after step t and G the gradient of S_t (G starts at
+    dS_fin), time walks backward:
+    dr_t[i] = sum_j dy_t[j] (S_{t-1}[i, j] + u[i] k_t[i] v_t[j]),
+    dk_t[i] = r_t[i] u[i] (dy_t . v_t) + sum_j G[i, j] v_t[j],
+    dv_t[j] = dy_t[j] sum_i r_t[i] u[i] k_t[i] + sum_i G[i, j] k_t[i],
+    dw_t[i] = sum_j G[i, j] S_{t-1}[i, j],
+    du[i] += sum_b r_t[i] k_t[i] (dy_t . v_t), then
+    G <- diag(w_t) G + r_t dy_t^T. S_{t-1} is recomputed forward from the
+    states kept at the start of each chunk of ``WKV_CHUNK`` steps (never
+    by dividing by w_t, which can be ~0), as the kernel does. -> (dr, dk,
+    dv, dw, du), fp32."""
+    B, S, H, d = r.shape
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    u = u.float()[None]                                  # (1, H, d)
+    G = (torch.zeros((B, H, d, d), device=r.device) if dS_fin is None
+         else dS_fin.float().clone())
+
+    def advance(state, t):
+        return state * w[:, t, :, :, None] + k[:, t, :, :, None] * \
+            v[:, t, :, None, :]
+
+    starts, state = [], torch.zeros((B, H, d, d), device=r.device)
+    for t in range(S):
+        if t % WKV_CHUNK == 0:
+            starts.append(state)
+        state = advance(state, t)
+    dr, dk, dv, dw = (torch.empty((B, S, H, d), device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((H, d), device=r.device)
+    for c in reversed(range(len(starts))):
+        t0, t1 = c * WKV_CHUNK, min(S, (c + 1) * WKV_CHUNK)
+        prev = [starts[c]]                               # S_{t-1}, t in chunk
+        for t in range(t0, t1 - 1):
+            prev.append(advance(prev[-1], t))
+        for t in reversed(range(t0, t1)):
+            sp, rt, kt, vt, dyt = prev[t - t0], r[:, t], k[:, t], v[:, t], \
+                dy[:, t]
+            dyv = (dyt * vt).sum(-1, keepdim=True)       # (B, H, 1)
+            ct = (rt * u * kt).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhj,bhij->bhi", dyt, sp) + u * kt * dyv
+            dk[:, t] = rt * u * dyv + torch.einsum("bhij,bhj->bhi", G, vt)
+            dv[:, t] = dyt * ct + torch.einsum("bhij,bhi->bhj", G, kt)
+            dw[:, t] = (G * sp).sum(-1)
+            du += (rt * kt * dyv).sum(0)
+            G = G * w[:, t, :, :, None] + rt[..., :, None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du
+
+
 def mamba_scan_ref(delta, bm, cm, x, A):
     """The Mamba selective scan (``repro/kernels/ref.py:63``), one time
     step at a time in fp32: delta, x (B, S, di) and bm, cm (B, S, ds) in
@@ -307,3 +419,58 @@ def mamba_scan_ref(delta, bm, cm, x, A):
         h = a_t * h + (d_t * x[:, t])[..., None] * bm[:, t, None, :]
         y[:, t] = torch.einsum("bds,bs->bd", h, cm[:, t])
     return y, h
+
+
+def mamba_scan_bwd_ref(delta, bm, cm, x, A, dy, dh_fin=None):
+    """Plain version of ``csrc/mamba_scan_bwd.cu``: the gradients of
+    ``mamba_scan_ref`` with respect to delta, bm, cm, x and A, given the
+    gradients of its y (B, S, di) and of its final state (B, di, ds; None
+    is 0). With a_t = exp(delta_t A) and Gh the gradient of h_t (starting
+    at dh_fin), time walks backward: first Gh += dy_t C_t; then
+    dC_t = sum_c dy_t[c] h_t[c, :], dB_t = sum_c Gh[c, :] delta_t[c]
+    x_t[c], dx_t = delta_t sum_n Gh B_t, ddelta_t = x_t sum_n Gh B_t +
+    sum_n Gh h_{t-1} a_t A, dA += sum_b Gh h_{t-1} a_t delta_t; then
+    Gh <- a_t Gh. h_{t-1} is recomputed forward from the states kept at
+    the start of each chunk of ``SCAN_CHUNK`` steps (never by dividing by
+    a_t, which can be ~0), as the kernel does. -> (ddelta, dbm, dcm, dx,
+    dA), fp32."""
+    B, S, di = delta.shape
+    delta, bm, cm, x, A, dy = (t.float() for t in (delta, bm, cm, x, A, dy))
+    G = (torch.zeros((B, di, A.shape[-1]), device=delta.device)
+         if dh_fin is None else dh_fin.float().clone())
+
+    def decay(t):
+        return torch.exp(delta[:, t, :, None] * A[None])
+
+    def advance(h, t):
+        return decay(t) * h + (delta[:, t] * x[:, t])[..., None] * \
+            bm[:, t, None, :]
+
+    starts, h = [], torch.zeros_like(G)
+    for t in range(S):
+        if t % SCAN_CHUNK == 0:
+            starts.append(h)
+        h = advance(h, t)
+    ddelta, dx = (torch.empty((B, S, di), device=delta.device)
+                  for _ in range(2))
+    dbm, dcm = (torch.empty_like(bm) for _ in range(2))
+    dA = torch.zeros_like(A)
+    for c in reversed(range(len(starts))):
+        t0, t1 = c * SCAN_CHUNK, min(S, (c + 1) * SCAN_CHUNK)
+        prev = [starts[c]]                               # h_{t-1}, t in chunk
+        for t in range(t0, t1 - 1):
+            prev.append(advance(prev[-1], t))
+        for t in reversed(range(t0, t1)):
+            hp, d_t, a = prev[t - t0], delta[:, t], decay(t)
+            dxv = d_t * x[:, t]
+            ht = a * hp + dxv[..., None] * bm[:, t, None, :]
+            G = G + dy[:, t, :, None] * cm[:, t, None, :]
+            dcm[:, t] = torch.einsum("bd,bds->bs", dy[:, t], ht)
+            dbm[:, t] = torch.einsum("bds,bd->bs", G, dxv)
+            gb = torch.einsum("bds,bs->bd", G, bm[:, t])
+            gha = G * hp * a
+            dx[:, t] = d_t * gb
+            ddelta[:, t] = x[:, t] * gb + (gha * A[None]).sum(-1)
+            dA += (gha * d_t[..., None]).sum(0)
+            G = a * G
+    return ddelta, dbm, dcm, dx, dA

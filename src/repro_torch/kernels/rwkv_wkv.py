@@ -7,6 +7,12 @@ through ``repro_torch.models.ssm.rwkv6_apply_state``: one block per
 registers while a producer warp streams r, k, v and w in by TMA, and
 writes the state after the last step beside y, for the decode cache. The
 source's header says how.
+
+Under autograd the launcher runs ``RwkvWkvFn``: its forward is the same
+kernel, which then also writes the state at the start of every chunk of
+``CHUNK`` steps; its backward is ``csrc/rwkv_wkv_bwd.cu`` (no Pallas
+counterpart: JAX differentiates its checkpointed ``lax.scan``), which
+recomputes each chunk's states from its checkpoint and walks it backward.
 """
 from __future__ import annotations
 
@@ -14,12 +20,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import launch, require_cuda, require_no_grad
+from repro_torch.kernels._build import (launch, require_cuda,
+                                       require_same_stream, stream_of)
 
 HEAD_DIMS = (16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
 
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+CHUNK = 16          # steps between the forward's checkpoints (its TC)
+
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 5
 # the kernel's clock64 profile (csrc/rwkv_wkv.cu's P_* slots)
 PROFILE_SLOTS = ("consumer_wait", "consumer_steps", "consumer_chunk_end",
                  "producer_wait_loaded", "producer_widen", "producer_c_sum",
@@ -29,8 +39,81 @@ PROFILE_SLOTS = ("consumer_wait", "consumer_steps", "consumer_chunk_end",
 def rwkv_wkv_cuda(r, k, v, w, u):
     """r/k/v: (B, S, H, d) in one dtype (fp32 or bf16); w: (B, S, H, d)
     fp32; u: (H, d) fp32; all contiguous on one CUDA device, d in
-    (16, 32, 64) -> (y (B, S, H, d), S_fin (B, H, d, d)), both fp32."""
-    return _launch(r, k, v, w, u, None)
+    (16, 32, 64) -> (y (B, S, H, d), S_fin (B, H, d, d)), both fp32.
+    Where autograd would record the call, it runs through ``RwkvWkvFn``,
+    whose backward is the backward kernel."""
+    _check(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u)):
+        return RwkvWkvFn.apply(r, k, v, w, u)
+    return _launch(r, k, v, w, u, None)[:2]
+
+
+def rwkv_wkv_checkpoints(r, k, v, w, u):
+    """One launch of the forward kernel that also keeps its checkpoints:
+    -> (y, S_fin, the state before each chunk of CHUNK steps (B, H,
+    ceil(S / CHUNK), d, d) fp32), what ``rwkv_wkv_bwd_cuda`` takes."""
+    _check(r, k, v, w, u)
+    return _launch(r, k, v, w, u, None, checkpoints=True)
+
+
+class RwkvWkvFn(torch.autograd.Function):
+    """The WKV recurrence with the backward kernel as its backward: the
+    forward keeps its inputs and the chunk-start states; the backward
+    takes the gradients of y and of S_fin."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        y, s_fin, ckpt = _launch(r, k, v, w, u, None, checkpoints=True)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        ctx.stream = stream_of(r)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        r, k, v, w, u, ckpt = ctx.saved_tensors
+        require_same_stream(ctx.stream, r, "rwkv_wkv_bwd")
+        dr, dk, dv, dw, du = rwkv_wkv_bwd_cuda(
+            r, k, v, w, u, ckpt, dy.contiguous(), ds_fin.contiguous())
+        return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du
+
+
+def rwkv_wkv_bwd_cuda(r, k, v, w, u, ckpt, dy, ds_fin):
+    """The backward kernel: the forward's inputs, its checkpoints
+    (``rwkv_wkv_checkpoints``), the gradient of y (B, S, H, d) and of
+    S_fin (B, H, d, d), both fp32 -> (dr, dk, dv, dw (B, S, H, d), du
+    (H, d)), all fp32. One call launches the kernel, one block per
+    (batch, head) walking the chunks backward, and the pass that sums
+    du's per-batch partials in a fixed order."""
+    _check(r, k, v, w, u)
+    B, S, H, d = r.shape
+    require_cuda(ckpt, "ckpt", torch.float32, 5)
+    require_cuda(dy, "dy", torch.float32, 4)
+    require_cuda(ds_fin, "ds_fin", torch.float32, 4)
+    if ckpt.shape != (B, H, -(-S // CHUNK), d, d):
+        raise ValueError(f"ckpt {tuple(ckpt.shape)} must be (B, H, "
+                         f"ceil(S / {CHUNK}), d, d)")
+    if dy.shape != r.shape or ds_fin.shape != (B, H, d, d):
+        raise ValueError(f"dy {tuple(dy.shape)} and ds_fin "
+                         f"{tuple(ds_fin.shape)} must be (B, S, H, d) and "
+                         "(B, H, d, d)")
+    if len({r.device, ckpt.device, dy.device, ds_fin.device}) != 1:
+        raise ValueError("the inputs lie on different devices")
+    grads = [torch.empty((B, S, H, d), device=r.device) for _ in range(4)]
+    du = torch.zeros((H, d), device=r.device)
+    if B * S * H == 0:
+        return (*grads, du)
+    du_part = torch.empty((B, H, d), device=r.device)
+    launch("rwkv_wkv_bwd", "rwkv_wkv_bwd_launch", _BWD_ARGTYPES, r.device,
+           r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+           u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), ds_fin.data_ptr(),
+           *(g.data_ptr() for g in grads), du.data_ptr(), du_part.data_ptr(),
+           B, S, H, d, int(r.dtype == torch.bfloat16))
+    rwkv_wkv_bwd_cuda.launches += 1
+    return (*grads, du)
+
+
+rwkv_wkv_bwd_cuda.launches = 0
 
 
 def rwkv_wkv_cycles(r, k, v, w, u) -> dict:
@@ -41,6 +124,7 @@ def rwkv_wkv_cycles(r, k, v, w, u) -> dict:
     the sequence and averaged over the warps of that role. A measurement
     of the kernel, not a launch of the main path: the count does not
     move."""
+    _check(r, k, v, w, u)
     prof = torch.zeros(len(PROFILE_SLOTS), dtype=torch.int64,
                        device=r.device)
     _launch(r, k, v, w, u, prof)                 # a warm-up
@@ -55,7 +139,8 @@ def rwkv_wkv_cycles(r, k, v, w, u) -> dict:
     return out
 
 
-def _launch(r, k, v, w, u, prof):
+def _check(r, k, v, w, u) -> None:
+    """Raise on what the kernels do not take."""
     if r.dtype not in DTYPES:
         raise ValueError(f"the WKV kernel takes fp32 or bf16 r/k/v, got "
                          f"{r.dtype}")
@@ -80,19 +165,27 @@ def _launch(r, k, v, w, u, prof):
                          "reads it as float4s)")
     if len({r.device, k.device, v.device, w.device, u.device}) != 1:
         raise ValueError("r, k, v, w and u lie on different devices")
-    require_no_grad("rwkv_wkv", r, k, v, w, u)
+
+
+def _launch(r, k, v, w, u, prof, checkpoints: bool = False):
+    """One launch on checked inputs -> (y, S_fin, the chunk-start states
+    where ``checkpoints``, else None)."""
+    B, S, H, d = r.shape
     y = torch.empty((B, S, H, d), dtype=torch.float32, device=r.device)
+    ckpt = (torch.empty((B, H, -(-S // CHUNK), d, d), device=r.device)
+            if checkpoints else None)
     if B * S * H == 0:             # no step: the state stays at 0
-        return y, torch.zeros((B, H, d, d), device=r.device)
+        return y, torch.zeros((B, H, d, d), device=r.device), ckpt
     s_fin = torch.empty((B, H, d, d), dtype=torch.float32, device=r.device)
     launch("rwkv_wkv", "rwkv_wkv_launch", _ARGTYPES, r.device,
            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-           u.data_ptr(), y.data_ptr(), s_fin.data_ptr(), B, S, H, d,
+           u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+           None if ckpt is None else ckpt.data_ptr(), B, S, H, d,
            int(r.dtype == torch.bfloat16),
            None if prof is None else prof.data_ptr())
     if prof is None:               # a launch of the main path
         rwkv_wkv_cuda.launches += 1
-    return y, s_fin
+    return y, s_fin, ckpt
 
 
 rwkv_wkv_cuda.launches = 0

@@ -31,9 +31,10 @@ named makers (``embedding_refresh``, ``label_mining``, ``graph_agreement``,
       --makers label_mining,graph_agreement --steps 4 --batch 4 --nodes 128
 
 The run is on the CUDA device unless ``--device cpu`` is given. On the
-card a config whose training forward would reach a kernel without a
-backward (rwkv6 and Mamba mixers; attention over ``--seq`` >= 2048
-tokens, the flash branch) is refused before any parameter is built.
+card every ported arch trains: the flash, WKV and Mamba-scan kernels that
+its forward reaches (attention over ``--seq`` >= 2048 tokens takes flash)
+run under autograd through ``autograd.Function``s whose backwards are
+kernels too.
 ``--kb-connect`` (the wire) is not ported yet and raises, naming its
 ROADMAP item.
 
@@ -55,8 +56,7 @@ from repro_torch.core.async_runtime import (format_maker_stats,
                                             run_async_training)
 from repro_torch.core.knowledge_bank import kb_create
 from repro_torch.core.knowledge_maker import make_embedding_refresh
-from repro_torch.core.trainer import (make_carls_train_step,
-                                      require_trainable_on_device)
+from repro_torch.core.trainer import make_carls_train_step
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
 from repro_torch.models import build_model
@@ -75,7 +75,6 @@ class CarlsLoop:
                  lr: float, maker_every: int, ckpt_dir=None,
                  ckpt_every: int = 50, seed: int = 0, device="cuda"):
         self.dev = resolve_device(device)
-        require_trainable_on_device(cfg, seq, self.dev)
         self.cfg = cfg.replace(carls=cfg.carls.__class__(
             **{**cfg.carls.__dict__, "kb_entries": nodes}))
         self.batch, self.nodes = batch, nodes

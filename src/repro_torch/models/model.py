@@ -143,9 +143,10 @@ class LM:
         RWKV6 layer's final state ``{"S": (G, B, Hn, hd, hd), "x_prev":
         (G, B, D)}`` and a Mamba layer's ``{"h": (G, B, di, ds),
         "conv_buf": (G, B, w - 1, di)}``, under ``"pos{p}"``; else None.
-        Autograd follows the whole forward through the kernels' plain
-        versions; on the card the flash, WKV and scan kernels refuse grad
-        (``kernels._build.require_no_grad``)."""
+        Autograd follows the whole forward: on the CPU through the
+        kernels' plain versions, on the card through the flash, WKV and
+        scan kernels' ``autograd.Function``s, whose backwards are kernels
+        (``repro_torch.kernels.ops``)."""
         cfg = self.cfg
         h = params["embed"]["tok"][tokens.long()]
         positions = torch.arange(h.shape[1], device=h.device)

@@ -230,7 +230,8 @@ def test_lookup_blocks_stage_the_ids_where_they_fit():
 
 
 # ---------------------------------------------------------------------------
-# the sequence kernels refuse to run where autograd would record them
+# the sequence kernels under autograd run their Function, whose backward is
+# a kernel
 # ---------------------------------------------------------------------------
 
 def _sequence_inputs(kernel):
@@ -254,9 +255,12 @@ def _sequence_inputs(kernel):
 def test_sequence_kernels_refuse_what_autograd_would_record(kernel, mode,
                                                             monkeypatch):
     """With an input that requires grad and grad mode on, the launcher
-    raises, naming the trainer slice, and launches nothing; under
-    ``no_grad`` or ``inference_mode`` (the serve paths), or with no input
-    that requires grad, it launches once."""
+    runs its autograd Function: the output carries the Function's
+    ``grad_fn``, the forward launches once, and ``.backward()`` launches
+    the backward launcher once (where it once raised, the kernel having no
+    backward). Under ``no_grad`` or ``inference_mode`` (the serve paths),
+    or with no input that requires grad, it launches the forward once and
+    records nothing."""
     mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
     monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
     calls = []
@@ -264,14 +268,28 @@ def test_sequence_kernels_refuse_what_autograd_would_record(kernel, mode,
     args = _sequence_inputs(kernel)
     if mode != "no_input_requires_grad":
         args[0].requires_grad_(True)
-    before = ops.launch_counts()[kernel]
+    before = ops.launch_counts()
+    bwd = f"{kernel}_bwd"
     if mode == "grad":
-        with pytest.raises(RuntimeError, match="Q1 item 1"):
-            ops.LAUNCHERS[kernel](*args)
-        assert not calls and ops.launch_counts()[kernel] == before
+        out = ops.LAUNCHERS[kernel](*args)
+        out = out[0] if isinstance(out, tuple) else out
+        fn = {"flash_attention": "FlashAttentionFn", "rwkv_wkv": "RwkvWkvFn",
+              "mamba_scan": "MambaScanFn"}[kernel]
+        assert out.grad_fn._forward_cls is getattr(mod, fn)
+        assert [c[0] for c in calls] == [kernel]
+        assert ops.launch_counts()[kernel] == before[kernel] + 1
+        assert ops.launch_counts()[bwd] == before[bwd]
+        out.sum().backward()
+        assert [c[0] for c in calls] == [kernel, bwd]
+        assert ops.launch_counts()[bwd] == before[bwd] + 1
+        assert args[0].grad is not None
+        assert args[0].grad.shape == args[0].shape
         return
     ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
            "no_input_requires_grad": torch.enable_grad}[mode]
     with ctx():
-        ops.LAUNCHERS[kernel](*args)
-    assert len(calls) == 1 and ops.launch_counts()[kernel] == before + 1
+        out = ops.LAUNCHERS[kernel](*args)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is None
+    assert len(calls) == 1 and ops.launch_counts()[kernel] == \
+        before[kernel] + 1

@@ -1,8 +1,8 @@
 """The port's training launcher (repro_torch.launch.train) on the CPU: the
-JAX launcher's printed lines, its refusals, the device rule, and the
-up-front refusal on the card of configs whose training forward would
-reach a kernel that has no backward (the device check monkeypatched
-away, as the kernel wrappers' refusals are tested)."""
+JAX launcher's printed lines, its refusals, the device rule, and that on
+the card every ported arch reaches parameter building (the device check
+monkeypatched away, as the kernel wrappers' routes are tested): each
+sequence kernel its training forward reaches has a backward."""
 import os
 import re
 import subprocess
@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.checkpoint import DiskCheckpointStore
 from repro_torch.configs import get_config
-from repro_torch.core.trainer import require_trainable_on_device
+from repro_torch.core import trainer
+from repro_torch.kernels import ops
 from repro_torch.launch import train
 from repro_torch.models import build_model
 from repro_torch.models.model import LM
@@ -76,10 +77,14 @@ def test_unported_modes_raise_naming_their_items():
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """A CUDA device that the launcher believes in, and an LM.init that
-    fails the test if any parameter is built."""
+    """A CUDA device that the launcher believes in, a generator for it
+    (this torch has none for CUDA), and an LM.init that fails the test if
+    any parameter is built."""
     monkeypatch.setattr(train, "resolve_device",
                         lambda device="cuda": torch.device(device))
+    cpu_generator = torch.Generator
+    monkeypatch.setattr(torch, "Generator",
+                        lambda device=None: cpu_generator())
 
     def no_init(self, gen):
         raise AssertionError("parameters were built")
@@ -92,18 +97,28 @@ def fake_card(monkeypatch):
                                   ["--seq", "2048"]])
 def test_card_refuses_configs_without_a_backward_before_params(fake_card,
                                                                argv):
-    with pytest.raises(NotImplementedError, match="Q1 item 1"):
+    """The configs this test once saw refused (an rwkv6 or Mamba mixer,
+    attention over 2048 tokens) now reach parameter building on the card:
+    nothing refuses them up front."""
+    with pytest.raises(AssertionError, match="parameters were built"):
         train.main(argv + ["--steps", "1"])
 
 
+# the kernel each mixer's training forward reaches on the card
+MIXER_KERNEL = {"attn": "flash_attention", "rwkv6": "rwkv_wkv",
+                "mamba": "mamba_scan"}
+
+
 def test_trainable_rule():
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    """The rule that once refused configs on the card is gone: every mixer
+    of the ported archs reaches a kernel that has a backward launcher, and
+    the trainer keeps no refusal."""
+    assert not hasattr(trainer, "require_trainable_on_device")
+    mixers = set()
+    for arch in ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b"):
+        mixers |= {m for m, _ in build_model(get_config(arch).reduced()).spec}
+    assert mixers == set(MIXER_KERNEL)
+    for kernel in MIXER_KERNEL.values():
+        assert f"{kernel}_bwd" in ops.LAUNCHERS, kernel
     yi = get_config("yi-6b")
-    require_trainable_on_device(yi.replace(num_layers=16), 64, cuda)
-    require_trainable_on_device(yi.reduced(), 2047, cuda)
-    for cfg, seq in ((yi.reduced(), 2048),
-                     (get_config("rwkv6-7b").reduced(), 16)):
-        require_trainable_on_device(cfg, seq, cpu)
-        with pytest.raises(NotImplementedError, match="backward"):
-            require_trainable_on_device(cfg, seq, cuda)
     assert build_model(yi.reduced()).spec == [("attn", "swiglu")]

@@ -42,8 +42,10 @@ plain version (``zero_rows_exact``: the zero queries' lists, all ties at
 0, equal the plain version's bit for bit). ``host_us`` is the host's
 time per call of the kernel's launcher, 20 calls queued without a
 synchronisation. Each search line carries ``digest``, a hash of the
-kernel's scores and ids on the serve inputs, so that two checkouts'
-lines show whether their results are bit-identical.
+kernel's scores and ids on the serve inputs, and the flash_bf16,
+rwkv_wkv and mamba_scan lines one of their outputs (y and the final
+state), so that two checkouts' lines show whether their results are
+bit-identical.
 
 The wide shapes are the trainer's width, 4096: nn_search_wide 64
 queries (rows of the bank, plus 0.01) over a 2048 x 4096 bank, the
@@ -126,9 +128,13 @@ WIDE_IVF_ROWS = 61_440              # 3 x 20,480: one index or 3 shards
 def digest(*tensors) -> str:
     """A short hash of the tensors' bytes: equal digests, equal results."""
     import hashlib
+    import torch
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:   # numpy has no bf16: its bits
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 LAZY_LR, ZMAX = 0.1, 3.0            # the engine's defaults
 
@@ -423,10 +429,11 @@ def measure(root: Path, kernels) -> list:
             err = (got.float() - ref.flash_attention_ref(
                 q, k, v, causal=True).float()).abs().max().item()
             ms = time_ms(lambda: fn(q, k, v, causal=True), 20)
+            extra = {"digest": digest(got)}
             from repro_torch.kernels import flash_attention as fa
             if hasattr(fa, "flash_stage_cycles"):   # a checkout that has it
-                extra = {"stage_cycles": fa.flash_stage_cycles(
-                    q, k, v, causal=True)}
+                extra["stage_cycles"] = fa.flash_stage_cycles(
+                    q, k, v, causal=True)
         elif kernel == "nn_search":
             fn = ops.LAUNCHERS["nn_search"]
             s, i = fn(queries, bank, 8)
@@ -470,12 +477,13 @@ def measure(root: Path, kernels) -> list:
             fn = ops.LAUNCHERS[kernel]
             got, want = fn(*args), getattr(ref, f"{kernel}_ref")(*args)
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            extra = {"digest": digest(*got)}
             del got, want
             ms = time_ms(lambda: fn(*args), 20)
             mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
             if hasattr(mod, f"{kernel}_cycles"):    # a checkout that has it
-                extra = {"stage_cycles": getattr(mod, f"{kernel}_cycles")(
-                    *args)}
+                extra["stage_cycles"] = getattr(mod, f"{kernel}_cycles")(
+                    *args)
             del args
         elif kernel in LOOKUPS:
             int8 = kernel == "kb_fused_lookup_q"
