@@ -103,10 +103,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    3.29 B parameters) at batch 8 x seq 64, a 2048 x 4096 fp32 bank and 8
    neighbours a sample, lr 1e-4, 10 steps with the maker pass on step 10:
    losses
-   finite and falling, one ``kb_fused_lookup`` launch a step and no
-   flash, WKV or scan launch, ms a step (steps 3-10), peak device memory,
-   and one more step profiled (device time by part: GEMMs, the lookup
-   kernel, the optimizer, elementwise; and by the step's ranges); then the
+   finite and falling, one ``kb_fused_lookup`` and one ``adamw`` launch a
+   step and no flash, WKV or scan launch, ms a step (steps 3-10), peak
+   device memory, and one more step profiled (device time by part: GEMMs,
+   the lookup kernel, the optimizer and the AdamW kernel's launches within
+   it, elementwise; and by the step's ranges); then the
    10 steps again from the same seed, whose losses must be within 1% of
    the first run's at every step (whether they are bit-identical is
    printed); then the same two runs of ``train_carls`` at the full width
@@ -169,7 +170,15 @@ full-width shapes and on FLASH_SMALL's, WKV_SMALL's and SCAN_SMALL's
 cases (each against its plain backward on the forward's own log-sum-exp
 or checkpoints, twice bit-identical, and its autograd Function against
 ``torch.autograd`` of the plain forward; timed beside its bound, the
-plain backward and, for flash, SDPA's backward), ``kb_fused_lookup`` at
+plain backward and, for flash, SDPA's backward; the flash backward also
+at the yi-6b training run's B 2, with its bound and SDPA's, and split by
+device kernel under torch.profiler), the AdamW kernel at phase 8's leaves
+(the global norm within 1e-5 of the plain version's, every parameter and
+moment bit-identical to the plain update's given the kernel's clip scale,
+a second run bit-identical, one step without a host sync; timed beside
+its bytes bound, the plain version's eager passes and
+``torch.optim.AdamW(fused=True).step()`` as the library yardstick),
+``kb_fused_lookup`` at
 the trainer's shape (a 2048 x 4096 fp32 bank, a fifth of its rows pending,
 and the 64 neighbour ids of the trainer's first batch of 8, duplicates
 included: rows against the plain version, versions exact, a repeat
@@ -193,6 +202,7 @@ or of the JAX package.
 import bisect
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -230,7 +240,7 @@ from repro_torch.env import fused_lookup_block, stage_lookup_ids  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import AdamW, constant_lr  # noqa: E402
-from repro_torch.tree import tree_items  # noqa: E402
+from repro_torch.tree import tree_items, tree_leaves  # noqa: E402
 from repro_torch.kernels.nn_search import tile_plan  # noqa: E402
 from tools.kernel_ab import (  # noqa: E402
     PROFILE_CAPTURES, STAGE2, WIDE_IVF_ROWS, lookup_bank, lookup_ids,
@@ -316,6 +326,9 @@ KERNELS = {
         "none; backward of src/repro/kernels/flash_attention.py:85",
     "rwkv_wkv_bwd": "none; backward of src/repro/kernels/rwkv_wkv.py:54",
     "mamba_scan_bwd": "none; backward of src/repro/kernels/mamba_scan.py:55",
+    # no Pallas kernel: JAX's optimizer update is jnp that XLA fuses
+    "adamw": "none; the optimizer update of "
+             "src/repro/optim/optimizer.py:37-73",
 }
 # the path each kernel's launches are read from (phase 3, 4, 5, 6, 7 or 8)
 KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
@@ -330,7 +343,8 @@ KERNEL_PATH = {"kb_fused_lookup": "serve_exact",
                "mamba_scan": "serve_jamba",
                "flash_attention_bwd": "train_yi_2048",
                "rwkv_wkv_bwd": "train_rwkv",
-               "mamba_scan_bwd": "train_jamba_layer"}
+               "mamba_scan_bwd": "train_jamba_layer",
+               "adamw": "train"}
 # jamba-1.5-large-398b cut to one card: one 8-layer group (the least depth
 # the model's groups allow) and 8 of its 16 experts, every width as
 # published; 25.79 B parameters, 51.6 GB in bf16 (16 experts: 90.2 GB)
@@ -982,6 +996,52 @@ def flash_bwd_bound(q, k, causal: bool, flop_per_s: float):
     return bound(nbytes, 10.0 * B * H * d * pairs, flop_per_s)
 
 
+# the device kernels of csrc/flash_attention_bwd.cu (bf16: dkdv_wg,
+# sum_planes, dq_wg; fp32: dkdv, dq_kernel; both: dot_rows)
+FLASH_BWD_KERNELS = ("dot_rows", "dkdv_wg", "sum_planes", "dq_wg",
+                     "dq_kernel", "dkdv")
+
+
+def bwd_kernel_parts(kern, q, k, v, o, lse, dout, calls: int = 3) -> str:
+    """Device ms a call of each kernel the flash backward launches (the D
+    pre-pass, dK/dV, the planes' sum, dQ), under torch.profiler."""
+    from torch.autograd import DeviceType
+    _, prof = profiled(lambda: [kern(q, k, v, o, lse, dout, causal=True)
+                                for _ in range(calls)])
+    parts = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and SPIN not in e.key
+                and e.self_device_time_total > 0):
+            name = next((n for n in FLASH_BWD_KERNELS if n in e.key),
+                        "other")
+            parts[name] = parts.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / calls
+    return "; ".join(f"{n} {t:.4g} ms" for n, t in
+                     sorted(parts.items(), key=lambda kv: -kv[1]))
+
+
+def sdpa_bwd_ms(q, k, v, dout) -> float:
+    """SDPA's backward alone (causal, GQA), on its own forward's graph:
+    the flash backward's library yardstick."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o_s = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    do_t = dout.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(
+        o_s, (qt, kt, vt), do_t, retain_graph=True), 5)
+
+
+def wkv_bwd_bytes(args, ckpt, dy, ds) -> int:
+    """The WKV backward's bytes: r, k, v (bf16), w, u, the checkpoints, dy
+    and dS_fin read once, the four (B, S, H, d) gradients and du written
+    once."""
+    n = args[0].numel()
+    return (3 * n * args[0].element_size() + n * 4 + args[4].numel() * 4
+            + ckpt.numel() * 4 + dy.numel() * 4 + ds.numel() * 4
+            + 4 * n * 4 + args[4].numel() * 4)
+
+
 def wkv_bwd_case(args, dy, ds, label: str) -> dict:
     """The WKV backward kernel against the plain backward on the
     forward's own checkpoints (twice, bit-identical), and the Function
@@ -1060,19 +1120,14 @@ def phase2_backward() -> dict:
         res["ms"] = time_ms(lambda: kern(q, k, v, o, lse, dout, **kw), 5)
         res["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, o, lse, dout, **kw), 1)
-        # SDPA's backward alone, on its own forward's graph
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        o_s = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        do_t = dout.transpose(1, 2)
-        res["library_ms"] = time_ms(lambda: torch.autograd.grad(
-            o_s, (qt, kt, vt), do_t, retain_graph=True), 5)
+        res["library_ms"] = sdpa_bwd_ms(q, k, v, dout)
         res["bound"] = flash_bwd_bound(q, k, True, peak)
         log(f"phase 2: flash_attention_bwd {dtype} (B {LM_B}, S "
             f"{LM_PROMPT}, H {H}, KV {KV}, d {d}, causal): {res}")
+        log(f"phase 2: flash_attention_bwd {dtype} at B {LM_B}, device "
+            f"time by kernel: {bwd_kernel_parts(kern, q, k, v, o, lse, dout)}")
         flash[dtype] = res
-        del q, k, v, dout, o, lse, qt, kt, vt, o_s, do_t
+        del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, H_, KV_, d_, causal, window, softcap in FLASH_SMALL:
@@ -1095,9 +1150,13 @@ def phase2_backward() -> dict:
                                "at the training shape")
     o, lse = flash_attention_with_lse(q, k, v, **kw)
     train_res["ms"] = time_ms(lambda: kern(q, k, v, o, lse, dout, **kw), 5)
+    train_res["library_ms"] = sdpa_bwd_ms(q, k, v, dout)
+    train_res["bound"] = flash_bwd_bound(q, k, True, BF16_FLOP_PER_S)
     log(f"phase 2: flash_attention_bwd bf16 at the training shape (B "
         f"{TRAIN_LONG_B}, S {TRAIN_LONG_SEQ}, H {H}, KV {KV}, d {d}, "
         f"causal): {train_res}")
+    log(f"phase 2: flash_attention_bwd bf16 at B {TRAIN_LONG_B}, device "
+        f"time by kernel: {bwd_kernel_parts(kern, q, k, v, o, lse, dout)}")
     del q, k, v, dout, o, lse
     out["flash_attention_bwd"] = dict(flash[torch.bfloat16])
     out["flash_attention_bwd"]["train_shape"] = train_res
@@ -1118,13 +1177,10 @@ def phase2_backward() -> dict:
     res["ms"] = time_ms(lambda: kern(*args, ckpt, dy, ds), 10)
     res["plain_ms"] = time_ms(lambda: ref.rwkv_wkv_bwd_ref(*args, dy, ds), 1)
     res["library_ms"] = None
-    # r, k, v (bf16), w, u, the checkpoints, dy and dS_fin read once, the
-    # four (B, S, H, d) gradients and du written once; per (b, h, t, i, j)
-    # the state's recompute (3 flops) and the step back (10)
-    n = args[0].numel()
-    nbytes = 3 * n * 2 + n * 4 + args[4].numel() * 4 + ckpt.numel() * 4 + \
-        n * 4 + ds.numel() * 4 + 4 * n * 4 + args[4].numel() * 4
-    res["bound"] = bound(nbytes, 13.0 * LM_B * H * LM_PROMPT * d * d)
+    # per (b, h, t, i, j) the state's recompute (3 flops) and the step
+    # back (10)
+    res["bound"] = bound(wkv_bwd_bytes(args, ckpt, dy, ds),
+                         13.0 * LM_B * H * LM_PROMPT * d * d)
     log(f"phase 2: rwkv_wkv_bwd bf16 (B {LM_B}, S {LM_PROMPT}, H {H}, d "
         f"{d}): {res}")
     out["rwkv_wkv_bwd"] = res
@@ -1138,6 +1194,8 @@ def phase2_backward() -> dict:
                              "training shape")
     _, _, ckpt = rwkv_wkv_checkpoints(*args)
     train_res["ms"] = time_ms(lambda: kern(*args, ckpt, dy, ds), 10)
+    train_res["bound"] = bound(wkv_bwd_bytes(args, ckpt, dy, ds),
+                               13.0 * TRAIN_B * H * TRAIN_SEQ * d * d)
     log(f"phase 2: rwkv_wkv_bwd bf16 at the training shape (B {TRAIN_B}, S "
         f"{TRAIN_SEQ}, H {H}, d {d}): {train_res}")
     res["train_shape"] = train_res
@@ -1192,6 +1250,159 @@ def phase2_backward() -> dict:
         log(f"phase 2: mamba_scan_bwd x {dtype} B {B} S {S} di {di_} ds "
             f"{ds_} {A_kind} A: {res}")
     return out
+
+
+# -- the AdamW kernel ----------------------------------------------------
+
+# AdamW's hyperparameters in phase 8's run (train_carls: AdamW's defaults;
+# the schedule's lr at phase 8's lr), at a later count, so that the bias
+# corrections are not 1 - b
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                   clip_norm=1.0)
+ADAMW_COUNT = 3
+# the global norm against the plain one at full width: two fp32 sums over
+# 3.29 B squares, each in its own order (the kernel's in fp64)
+RTOL_GN_WIDE = 1e-5
+
+
+def adamw_specs(cfg):
+    """(shape, dtype) of each leaf of ``cfg``'s parameter tree, in the
+    tree's order, read from one initialisation on the card."""
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    specs = [(tuple(t.shape), t.dtype) for t in tree_leaves(params)]
+    del params
+    torch.cuda.empty_cache()
+    return specs
+
+
+def adamw_leaf(spec, i: int, out=None):
+    """Leaf i's (g, m, v, p) from its own seed, in ``out`` where given:
+    parameters N(0, 0.02^2) and gradients N(0, 1e-3^2) in the leaf's
+    dtype, moments fp32 N(0, 1e-4^2) and (N(0, 1e-3^2))^2."""
+    shape, dtype = spec
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    made = []
+    for scale, dt, square in ((1e-3, dtype, False),
+                              (1e-4, torch.float32, False),
+                              (1e-3, torch.float32, True),
+                              (0.02, dtype, False)):
+        x = torch.randn(shape, generator=g, device="cuda") * scale
+        made.append((x * x if square else x).to(dt))
+        del x
+    if out is None:
+        return made
+    for a, b in zip(out, made):
+        a.copy_(b)
+    return out
+
+
+def adamw_sums(tensors) -> list:
+    """Each tensor's bits added as integers: equal sums, (almost surely)
+    equal tensors, at no copy of the whole."""
+    return [int(t.view(torch.int16 if t.element_size() == 2
+                       else torch.int32).sum(dtype=torch.int64))
+            for t in tensors]
+
+
+def phase2_adamw() -> dict:
+    """The AdamW kernel at phase 8's leaves (yi-6b cut to TRAIN_LAYERS
+    layers: bf16 weights, fp32 norm scales, fp32 moments): the global norm
+    within RTOL_GN_WIDE of the plain version's; given the kernel's scale,
+    every leaf's parameter and moments bit-identical to the plain
+    version's (each leaf made again from its seed); a second run from the
+    same inputs bit-identical; one step under torch's sync debug mode
+    without a host sync. Timed beside its bytes bound, the plain version
+    (the eager passes the kernel replaces) and torch.optim.AdamW(fused=
+    True).step() on tensors of the same sizes."""
+    cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
+    specs = adamw_specs(cfg)
+    n_entries = sum(math.prod(s) for s, _ in specs)
+    dev = torch.device("cuda")
+    count = torch.tensor(ADAMW_COUNT, dtype=torch.int32, device=dev)
+    bc1 = 1 - ADAMW_HYPER["b1"] ** count
+    bc2 = 1 - ADAMW_HYPER["b2"] ** count
+    lr = torch.full((), TRAIN_LR, dtype=torch.float32, device=dev)
+    upd = {k: v for k, v in ADAMW_HYPER.items() if k != "clip_norm"}
+    kern = ops.LAUNCHERS["adamw"]
+    leaves = [adamw_leaf(spec, i) for i, spec in enumerate(specs)]
+    cols = [list(c) for c in zip(*leaves)]            # g, m, v, p
+    gn, scale = kern(*cols, bc1, bc2, lr, **ADAMW_HYPER)
+    gn, scale = gn.clone(), scale.clone()
+    sums = adamw_sums(t for leaf in leaves for t in leaf[1:])
+    # the plain version, leaf by leaf from the same seeds: its norm, and
+    # its update with the kernel's scale
+    sq = []
+    for i, spec in enumerate(specs):
+        g_, m_, v_, p_ = adamw_leaf(spec, i)
+        sq.append(sum(torch.sum(torch.square(c.float()))
+                      for c in g_.reshape(-1).split(1 << 24)))
+        ref.adamw_update_ref(g_, m_, v_, p_, scale, bc1, bc2, lr,
+                             chunk=1 << 24, **upd)
+        for name, a, b in (("m", leaves[i][1], m_), ("v", leaves[i][2], v_),
+                           ("p", leaves[i][3], p_)):
+            require(torch.equal(a, b), f"adamw: leaf {i} {spec}'s {name} "
+                    "differs from the plain version's")
+        del g_, m_, v_, p_
+    gn_plain = torch.sqrt(sum(sq))
+    rel = abs(float(gn) - float(gn_plain)) / float(gn_plain)
+    require(rel <= RTOL_GN_WIDE, f"adamw: gn {float(gn)} against the plain "
+            f"{float(gn_plain)}: relative gap {rel}")
+    plain_scale = torch.clamp(ADAMW_HYPER["clip_norm"] / torch.clamp(
+        gn, min=1e-12), max=1.0)
+    require(torch.equal(scale, plain_scale), "adamw: the kernel's scale is "
+            "not torch's of its gn")
+    # again from the same inputs, under the sync debug mode
+    for i, spec in enumerate(specs):
+        adamw_leaf(spec, i, leaves[i])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn2, scale2 = kern(*cols, bc1, bc2, lr, **ADAMW_HYPER)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(torch.equal(gn2, gn) and torch.equal(scale2, scale) and
+            adamw_sums(t for leaf in leaves for t in leaf[1:]) == sums,
+            "adamw: two runs from the same inputs differ")
+    res = {"max_abs_err": 0.0, "gn": float(gn), "gn_plain": float(gn_plain),
+           "gn_rel_err": rel, "leaves": len(specs), "entries": n_entries}
+    res["ms"] = time_ms(lambda: kern(*cols, bc1, bc2, lr, **ADAMW_HYPER), 5)
+    res["plain_ms"] = time_ms(lambda: ref.adamw_ref(
+        *cols, bc1, bc2, lr, chunk=1 << 24, **ADAMW_HYPER), 1)
+    # g read twice (the norm, the update), p, m and v read and written
+    nbytes = sum(2 * t.numel() * t.element_size() + 2 * sum(
+        x.numel() * x.element_size() for x in (m_, v_, p_))
+        for t, m_, v_, p_ in leaves)
+    # per entry ~17 fp32 operations (the square, five multiplies, four
+    # adds, two divisions, a square root...), far below the bytes
+    res["bound"] = bound(nbytes, 17.0 * n_entries)
+    del leaves, cols
+    torch.cuda.empty_cache()
+    # the library's fused AdamW: moments in the parameters' dtypes, bias
+    # correction on the step, no global-norm clip: a yardstick, not the
+    # same function
+    params = [torch.zeros(s, dtype=dt, device=dev) for s, dt in specs]
+    for p_ in params:
+        p_.grad = torch.full_like(p_, 1e-3)
+    opt = torch.optim.AdamW(params, lr=TRAIN_LR, betas=(0.9, 0.95),
+                            eps=1e-8, weight_decay=0.1, fused=True)
+    opt.step()                                   # makes its state
+    res["library_ms"] = time_ms(opt.step, 5)
+    res["library"] = ("torch.optim.AdamW(fused=True).step(), parameters, "
+                      "gradients and moments in the leaves' dtypes (bf16 "
+                      "weights, fp32 norm scales), no clip")
+    del opt, params
+    torch.cuda.empty_cache()
+    log(f"phase 2: adamw at phase 8's leaves ({len(specs)} leaves, "
+        f"{n_entries} entries; bf16 weights and gradients, fp32 norm "
+        f"scales, fp32 moments; count {ADAMW_COUNT}, clip "
+        f"{ADAMW_HYPER['clip_norm']}): gn {res['gn']} (plain "
+        f"{res['gn_plain']}, relative gap {rel}); p, m and v bit-identical "
+        f"to the plain version's given the kernel's scale, a second run "
+        f"bit-identical, no host sync; {res['ms']} ms, plain "
+        f"{res['plain_ms']} ms, fused torch AdamW {res['library_ms']} ms, "
+        f"bound {res['bound'][0]} ms ({res['bound'][1]}, {nbytes} bytes)")
+    return res
 
 
 def phase2_nn_cases(table, queries):
@@ -1660,6 +1871,7 @@ def phase2_kernels():
     results["rwkv_wkv"] = phase2_wkv()
     results["mamba_scan"] = phase2_mamba()
     results.update(phase2_backward())
+    results["adamw"] = phase2_adamw()
 
     for name, r in results.items():
         b_ms, b_by = r["bound"]
@@ -2739,6 +2951,8 @@ def phase8_reduced_parity(arch: str, want: dict,
 
 # the training step's profiler ranges (repro_torch.core.trainer)
 TRAIN_RANGES = ("carls.lookup", "carls.kb_push", "carls.optimizer")
+# the AdamW kernel's device kernels (csrc/adamw.cu)
+ADAMW_KERNELS = ("adamw_update", "sumsq_partials", "norm_finalize")
 
 
 def has_train_ranges(prof) -> bool:
@@ -2778,10 +2992,13 @@ def train_parts(prof, wall_ms: float) -> str:
 
     gemm = named(dict(PROFILE_PARTS)["GEMMs"])
     lookup = named(("fused_lookup",))
+    adamw = named(ADAMW_KERNELS)
     ranges = {n: inside(n) for n in TRAIN_RANGES}
     optim = ranges["carls.optimizer"]
     require(optim + gemm + lookup <= total * (1 + 1e-9),
             f"the profile's parts exceed its device time: {ranges}")
+    require(adamw <= optim * (1 + 1e-9), f"the AdamW kernel's launches "
+            f"({adamw} ms) lie outside the optimizer's range ({optim} ms)")
     ranges["forward, backward and the rest"] = total - sum(ranges.values())
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     top = [e for e in top if e.device_type == DeviceType.CUDA
@@ -2789,7 +3006,8 @@ def train_parts(prof, wall_ms: float) -> str:
     return (f"wall {wall_ms} ms, device {total} ms "
             f"({100 * total / wall_ms:.1f}% busy under the profiler); by "
             f"part: GEMMs {gemm:.4g} ms, kb_fused_lookup {lookup:.4g} ms, "
-            f"optimizer {optim:.4g} ms, elementwise and other "
+            f"the optimizer {optim:.4g} ms (the AdamW kernel's launches "
+            f"{adamw:.4g} ms), elementwise and other "
             f"{total - gemm - lookup - optim:.4g} ms; by range: "
             + "; ".join(f"{k} {v:.4g} ms" for k, v in ranges.items())
             + "; top: " + "; ".join(
@@ -2936,11 +3154,14 @@ def phase8_train() -> dict:
     layers at 2 x 2048, twice; and one full-width jamba Mamba layer
     forward and backward. Returns the launches of each path."""
     paths = {}
-    phase8_reduced_parity("yi-6b", {**NONE_LAUNCHED, "kb_fused_lookup": 1})
+    phase8_reduced_parity("yi-6b", {**NONE_LAUNCHED, "kb_fused_lookup": 1,
+                                    "adamw": 1})
     phase8_reduced_parity("rwkv6-7b", {**NONE_LAUNCHED, "kb_fused_lookup": 1,
-                                       "rwkv_wkv": 2, "rwkv_wkv_bwd": 2},
+                                       "adamw": 1, "rwkv_wkv": 2,
+                                       "rwkv_wkv_bwd": 2},
                           grad_rtol=RTOL_GRAD)
     phase8_reduced_parity(JAMBA, {**NONE_LAUNCHED, "kb_fused_lookup": 1,
+                                  "adamw": 1,
                                   "mamba_scan": REDUCED_JAMBA_MAMBA,
                                   "mamba_scan_bwd": REDUCED_JAMBA_MAMBA},
                           grad_rtol=RTOL_GRAD)
@@ -2948,7 +3169,9 @@ def phase8_train() -> dict:
     cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
     log(f"phase 8: yi-6b cut to {TRAIN_LAYERS} of 32 layers: "
         f"{cfg.param_count()} parameters")
-    want = {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS}
+    # one launch of the AdamW kernel a step
+    want = {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
+            "adamw": TRAIN_STEPS}
     res, paths["train"] = train_run("yi-6b full width run 1", cfg, want)
     losses1 = res["losses"]
     wall_ms, prof = profiled(res["loop"].step, need=has_train_ranges)
@@ -2971,7 +3194,8 @@ def phase8_train() -> dict:
     paths["train_rwkv"] = train_twice(
         "rwkv6-7b full width", cfg,
         {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
-         "rwkv_wkv": (TRAIN_STEPS + 1) * n, "rwkv_wkv_bwd": TRAIN_STEPS * n})
+         "adamw": TRAIN_STEPS, "rwkv_wkv": (TRAIN_STEPS + 1) * n,
+         "rwkv_wkv_bwd": TRAIN_STEPS * n})
     # yi-6b at 2 x 2048: flash forward and backward in each layer a step
     free_weights("phase 8", "yi-6b training at seq 2048")
     cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
@@ -2979,7 +3203,7 @@ def phase8_train() -> dict:
     paths["train_yi_2048"] = train_twice(
         f"yi-6b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}", cfg,
         {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
-         "flash_attention": (TRAIN_STEPS + 1) * n,
+         "adamw": TRAIN_STEPS, "flash_attention": (TRAIN_STEPS + 1) * n,
          "flash_attention_bwd": TRAIN_STEPS * n},
         batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
     free_weights("phase 8", "the jamba Mamba layer")
@@ -3281,9 +3505,10 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("fp32", "launch_floor_ms", "ms_b1024",
                                  "op_ms", "op_kernels", "autograd_err",
-                                 "train_shape")
+                                 "train_shape", "library", "gn_rel_err",
+                                 "leaves", "entries")
                if k in r}})
-        if KERNEL_PATH[name] in ("train_rwkv", "train_yi_2048"):
+        if KERNEL_PATH[name] in ("train", "train_rwkv", "train_yi_2048"):
             record[-1]["launches_per_step"] = launches // TRAIN_STEPS
         if "trainer" in r:      # kb_fused_lookup on the trainer's path
             t = r["trainer"]

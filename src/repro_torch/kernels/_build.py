@@ -26,7 +26,7 @@ SOURCES = ("kb_fused_lookup", "kb_gather", "lazy_apply", "nn_search",
            "kb_fused_lookup_q", "ivf_stage2", "ivf_stage2_q",
            "flash_attention", "rwkv_wkv", "ivf_stage2_sharded",
            "mamba_scan", "flash_attention_bwd", "rwkv_wkv_bwd",
-           "mamba_scan_bwd")
+           "mamba_scan_bwd", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \

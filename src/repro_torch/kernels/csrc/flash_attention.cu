@@ -71,8 +71,8 @@
 // a row), writes p to shared memory and accumulates output dims tx,
 // tx + 16, ... of its rows.
 #include "common.cuh"
+#include "wgmma.cuh"       // swizzle, descriptors, wgmma, TMA (tma.cuh)
 
-#include <cuda.h>          // CUtensorMap (the encoder is found at run time)
 #include <cuda_bf16.h>
 
 namespace {
@@ -115,20 +115,6 @@ enum {
   PROF_PRODUCER_BLOCKED = PROF_STAGES, PROF_PRODUCER, PROF_SLOTS
 };
 
-// bytes of one swizzled row of a tile (a row of d bf16 is split into
-// column blocks of this width: TMA's 128-byte swizzle spans 64 bf16)
-template <int HD>
-__host__ __device__ constexpr int swz_bytes() { return HD >= 64 ? 128 : 64; }
-template <int HD>
-__host__ __device__ constexpr int swz_elems() { return swz_bytes<HD>() / 2; }
-template <int HD>
-__host__ __device__ constexpr int col_blocks() { return HD / swz_elems<HD>(); }
-// the wgmma descriptors' layout type of that swizzle (1: 128 B, 2: 64 B)
-template <int HD>
-__host__ __device__ constexpr uint64_t swz_layout() {
-  return swz_bytes<HD>() == 128 ? 1 : 2;
-}
-
 template <int HD>
 __host__ __device__ constexpr int q_bytes() { return TQ * HD * 2; }
 template <int HD>
@@ -136,182 +122,6 @@ __host__ __device__ constexpr int kv_bytes() { return TK * HD * 2; }
 template <int HD>
 constexpr size_t bf16_smem_bytes() {
   return 1024 + 2 * q_bytes<HD>() + STAGES * 2 * kv_bytes<HD>();  // + align
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-}
-
-// one box of a 3-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle's layout type
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of products are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of the registers of an
-// asynchronous product across its issue or its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_F8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F16(i) WG_F8(i), WG_F8(i + 8)
-#define WG_F32(i) WG_F16(i), WG_F16(i + 16)
-
-// d = A . B (acc 0) or d += A . B (acc 1), m64n128k16: A and B bf16 in
-// shared memory, both K-major (descriptors da, db)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F32(0), WG_F32(32)
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d += A . B, m64n32k16: A bf16 in registers, B bf16 in shared memory
-// stored MN-major (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : WG_F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A . B, m64n64k16: A bf16 in registers, B bf16 in shared memory
-// stored MN-major (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A . B, m64n128k16: A bf16 in registers, B bf16 in shared memory
-// stored MN-major (the transpose bit)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F32(0), WG_F32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
-// 2^x by the special-function unit (2 ulp; 2^-huge is 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// (x, y) as two packed bf16 pairs: hi rounds them, lo rounds what hi
-// leaves (exact in fp32), so hi + lo holds x and y to ~2^-17 of them
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(
-      x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // One consumer warpgroup's softmax step on its 64 x TK scores, in place
@@ -362,19 +172,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[TK / 2],
     sum[r] += __shfl_xor_sync(FULL_MASK, sum[r], 2);
     l[r] = l[r] * corr[r] + sum[r];
   }
-}
-
-// p as P.V's A operand, in bf16 hi and lo parts: P's 16-key slice kk is
-// score tiles 2kk and 2kk + 1
-__device__ __forceinline__ void to_operand(const float (&p)[TK / 2],
-                                           uint32_t (&phi)[TK / 16][4],
-                                           uint32_t (&plo)[TK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < TK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1], phi[kk][r],
-                 plo[kk][r]);
 }
 
 // The two consumer warpgroups take turns at issuing their products, so
@@ -528,8 +325,8 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < TK / 16; ++kk) {
         const uint64_t dv = gmma_desc(v_addr + kk * 16 * SWB, TK * SWB,
                                       8 * SWB, LAYOUT);
-        wgmma_pv<HD>(acc, phi[kk], dv);
-        wgmma_pv<HD>(acc, plo[kk], dv);
+        wgmma_rs_d<HD>(acc, phi[kk], dv);
+        wgmma_rs_d<HD>(acc, plo[kk], dv);
       }
       wgmma_commit();
     };
@@ -594,7 +391,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
       mark(PROF_PRODUCTS);
       if (lane == 0) mbar_arrive(&k_empty[T % STAGES]);
       softmax(0);
-      to_operand(s, phi, plo);
+      to_operand<TK>(s, phi, plo);
       mark(PROF_SOFTMAX);
       for (int i = 1; i < it.tiles; ++i) {
         const int t = T + i;
@@ -623,7 +420,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
         if (lane == 0) mbar_arrive(&v_empty[(t - 1) % STAGES]);
 #pragma unroll
         for (int j = 0; j < HD / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
-        to_operand(s, phi, plo);
+        to_operand<TK>(s, phi, plo);
         mark(PROF_SOFTMAX);
       }
       T += it.tiles;
@@ -865,55 +662,6 @@ flash_fp32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
-// libcuda); null where it is missing
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (d * heads, S, B) bf16 map of a (B, S, heads, d) tensor, boxes of
-// `rows` rows x one swizzle width of columns; rows past S read as zeros.
-template <int HD>
-cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S,
-                     int heads, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD;
-  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {row * 2, row * 2 * S};   // bytes
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(swz_elems<HD>()),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swz_bytes<HD>() == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 int launch_hd(int bf16, const void* q, const void* k, const void* v,
               void* o, int B, int S, int H, int KV, int causal, int window,
@@ -922,9 +670,9 @@ int launch_hd(int bf16, const void* q, const void* k, const void* v,
   cudaError_t err;
   if (bf16) {
     CUtensorMap mq, mk, mv;
-    if ((err = make_map<HD>(&mq, q, B, S, H, TQ)) != cudaSuccess ||
-        (err = make_map<HD>(&mk, k, B, S, KV, TK)) != cudaSuccess ||
-        (err = make_map<HD>(&mv, v, B, S, KV, TK)) != cudaSuccess)
+    if ((err = head_map<HD>(&mq, q, B, S, H, TQ)) != cudaSuccess ||
+        (err = head_map<HD>(&mk, k, B, S, KV, TK)) != cudaSuccess ||
+        (err = head_map<HD>(&mv, v, B, S, KV, TK)) != cudaSuccess)
       return err;
     const size_t smem = bf16_smem_bytes<HD>();
     auto kernel = prof ? flash_bf16<HD, true> : flash_bf16<HD, false>;

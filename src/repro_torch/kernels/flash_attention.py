@@ -21,8 +21,12 @@ Under autograd (grad mode on and an input that requires grad) the launcher
 runs ``FlashAttentionFn``: its forward is the same kernel, which then also
 writes each row's log-sum-exp; its backward is
 ``csrc/flash_attention_bwd.cu`` (no Pallas counterpart: JAX differentiates
-``flash_attention_jax``), one source for bf16 and fp32 that recomputes P
-from the log-sum-exp.
+``flash_attention_jax``), which recomputes P from the log-sum-exp: for
+bf16 inputs two warp-specialised tensor-core kernels (dK and dV per 128
+keys of a KV head, dQ per 128 queries of a head; every product a wgmma on
+tiles that TMA streams, P and dS as bf16 hi and lo parts), for fp32 FMAs
+on the CUDA cores. The wgmma helpers both sources use are in
+``csrc/wgmma.cuh``.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + \
     (ctypes.c_float,) * 2 + (ctypes.c_void_p,) * 2
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 8 + \
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 10 + \
     (ctypes.c_float,) * 2
+BWD_BF16_ROWS = 128     # keys or queries a block of the bf16 backward owns
 # the bf16 kernel's stage profile (flash_attention.cu PROF_*): cycles that
 # thread 0 of each consumer warpgroup spends in each stage, and the
 # producer thread's
@@ -136,7 +141,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     (all in the forward's layout and dtype) and ``lse`` (B, H, S) fp32 ->
     (dq, dk, dv) fp32 in the shapes of q, k and v. One call launches a
     pre-pass for D = rowsum(dout * out), the dK/dV kernel and the dQ
-    kernel (csrc/flash_attention_bwd.cu)."""
+    kernel (csrc/flash_attention_bwd.cu): with bf16 inputs the
+    tensor-core kernels, which read q, k, v and dout by TMA."""
     _check(q, k, v)
     B, S, H, d = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -144,6 +150,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} must have q's shape "
                              f"{tuple(q.shape)}")
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must start on a 16-byte boundary (the "
+                         "kernel reads 16 bytes at a time)")
     require_cuda(lse, "lse", torch.float32, 3)
     if lse.shape != (B, H, S):
         raise ValueError(f"lse {tuple(lse.shape)} must be (B, H, S) = "
@@ -155,18 +164,51 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return dq, dk, dv
-    dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    KV = k.shape[2]
+    lse_pad = part = None
+    groups = 1
+    if bf16:
+        # D and a copy of lse in rows of SP entries, zeros past S
+        sp = -(-S // BWD_BF16_ROWS) * BWD_BF16_ROWS
+        dvec = torch.zeros((B, H, sp), dtype=torch.float32, device=q.device)
+        lse_pad = torch.zeros_like(dvec)
+        groups = heads_split(B, S, KV, H // KV, sm_count(q.device))
+        if groups > 1:
+            part = torch.empty((2, groups) + tuple(k.shape),
+                               dtype=torch.float32, device=q.device)
+    else:
+        sp = S
+        dvec = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     launch("flash_attention_bwd", "flash_attention_bwd_launch",
            _BWD_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2],
-           d, int(q.dtype == torch.bfloat16), int(causal), int(window),
-           float(softcap), 1.0 / math.sqrt(d))
+           ptr(lse_pad), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           ptr(part), B, S, sp, H, KV, groups, d, int(bf16), int(causal),
+           int(window), float(softcap), 1.0 / math.sqrt(d))
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``, a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def heads_split(B: int, S: int, KV: int, G: int, sms: int) -> int:
+    """The groups the bf16 dK/dV kernel splits each KV head's G query heads
+    into: the fewest (a divisor of G) that give at least two blocks an SM.
+    Its blocks own 128 keys of one KV head, so at a small batch there are
+    fewer of them than SMs, and the causal ones at the start of the
+    sequence carry the most work; a group's block writes its partial dK
+    and dV, which a second pass adds in the groups' order."""
+    blocks = -(-S // BWD_BF16_ROWS) * KV * B
+    return next(p for p in range(1, G + 1)
+                if G % p == 0 and (blocks * p >= 2 * sms or p == G))
 
 
 def _check(q, k, v) -> None:

@@ -15,6 +15,10 @@ scan) have backward kernels: on a CUDA tensor under autograd their
 launchers run an ``autograd.Function`` whose backward launches
 ``<name>_bwd``; on a CPU tensor the plain forward runs, which autograd
 follows.
+
+AdamW's step (``kernels/adamw.py``) has no Pallas twin: ``AdamW.update``
+calls its launcher for parameters on the card and its plain version
+(``ref.adamw_ref``) for parameters on the CPU.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.core.knowledge_bank import topk_lowest_id
 from repro_torch.kernels import ref
+from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cuda, ivf_stage2_q_cuda
@@ -54,6 +59,7 @@ LAUNCHERS = {
     "flash_attention_bwd": flash_attention_bwd_cuda,
     "rwkv_wkv_bwd": rwkv_wkv_bwd_cuda,
     "mamba_scan_bwd": mamba_scan_bwd_cuda,
+    "adamw": adamw_cuda,
 }
 
 

@@ -474,3 +474,55 @@ def mamba_scan_bwd_ref(delta, bm, cm, x, A, dy, dh_fin=None):
             dA += (gha * d_t[..., None]).sum(0)
             G = a * G
     return ddelta, dbm, dcm, dx, dA
+
+
+def global_norm_ref(leaves, chunk: int) -> torch.Tensor:
+    """sqrt of the sum over ``leaves`` (in their order) of each leaf's
+    fp32 sum of squares, a leaf's sum its ``chunk``-entry chunks' sums
+    added in order."""
+    return torch.sqrt(sum(
+        sum(torch.sum(torch.square(c.float()))
+            for c in leaf.reshape(-1).split(chunk))
+        for leaf in leaves))
+
+
+def adamw_update_ref(g, m, v, p, scale, bc1, bc2, lr, *, b1: float,
+                     b2: float, eps: float, weight_decay: float,
+                     chunk: int) -> None:
+    """One leaf's AdamW update in place, ``chunk`` entries at a time in
+    fp32: ``scale`` (a 0-d tensor, or None for no clip), ``bc1``, ``bc2``
+    and ``lr`` are given. Each entry's arithmetic does not depend on the
+    chunking; the new parameter and moments are rounded to their dtypes
+    (round to nearest even)."""
+    for gc, mc, vc, pc in zip(*(t.view(-1).split(chunk)
+                                for t in (g, m, v, p))):
+        g32 = gc.float()
+        if scale is not None:
+            g32 = g32 * scale
+        m32 = mc.float() * b1 + g32 * (1 - b1)
+        v32 = vc.float() * b2 + torch.square(g32) * (1 - b2)
+        del g32
+        step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+        if weight_decay:
+            step = step + weight_decay * pc.float()
+        pc.copy_(pc.float() - lr * step)
+        mc.copy_(m32)
+        vc.copy_(v32)
+
+
+def adamw_ref(grads, mus, nus, params, bc1, bc2, lr, *, b1: float,
+              b2: float, eps: float, weight_decay: float, clip_norm: float,
+              chunk: int):
+    """The AdamW kernel's contract (``kernels/adamw.py``) over lists of
+    leaves, in place: the global norm of the gradients, the clip scale
+    ``min(1, clip_norm / max(gn, 1e-12))`` where ``clip_norm`` > 0, and
+    each leaf's update. Returns (gn, scale), 0-d fp32 tensors (scale 1
+    where there is no clip)."""
+    gn = global_norm_ref(grads, chunk)
+    scale = None
+    if clip_norm and clip_norm > 0:
+        scale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    for g, m, v, p in zip(grads, mus, nus, params):
+        adamw_update_ref(g, m, v, p, scale, bc1, bc2, lr, b1=b1, b2=b2,
+                         eps=eps, weight_decay=weight_decay, chunk=chunk)
+    return gn, torch.ones_like(gn) if scale is None else scale

@@ -6,19 +6,24 @@ The update is the JAX function's, operation for operation: every gradient
 in fp32, clipped by one global scale, moments in fp32 and stored in
 ``moments_dtype``, bias correction and ``lr(count)`` at the incremented
 count, the new parameter rounded back to its dtype (round to nearest
-even, as ``astype`` rounds). Two differences of form:
+even, as ``astype`` rounds). On the card it is one call of the AdamW
+kernel (``kernels/adamw.py``: the global norm summed in a fixed order,
+then one fused pass a leaf); on the CPU, and only there, its plain
+version (``ref.adamw_ref``). Two differences of form from JAX:
 
-- **Chunk by chunk, in place.** JAX casts the whole gradient tree to
-  fp32 before it starts (at the full width of yi-6b a 13 GB copy). Here
-  each leaf is widened, used and dropped in turn under
-  ``torch.no_grad()``, ``CHUNK`` entries at a time (a layer-stacked leaf
-  of yi-6b holds up to 721 M entries, 2.9 GB in fp32), and the
-  parameters and moments are overwritten in place; ``update`` returns the
-  objects it was given. So a step's fp32 temporaries are a few of one
-  chunk's. Each entry's arithmetic is the same whatever the chunking.
-- ``global_norm`` adds the leaves' fp32 sums of squares in JAX's leaf
-  order (each dict's keys sorted); a leaf's sum is its chunks' sums
-  added in order.
+- **In place.** JAX casts the whole gradient tree to fp32 before it
+  starts (at the full width of yi-6b a 13 GB copy). Here the parameters
+  and moments are overwritten in place and ``update`` returns the objects
+  it was given. The kernel reads each entry once; the plain version
+  widens each leaf ``CHUNK`` entries at a time under ``torch.no_grad()``
+  (a layer-stacked leaf of yi-6b holds up to 721 M entries, 2.9 GB in
+  fp32), so its fp32 temporaries are a few of one chunk's. Each entry's
+  arithmetic is the same whatever the chunking, and the kernel's is the
+  plain version's.
+- The global norm adds the leaves' fp32 sums of squares in JAX's leaf
+  order (each dict's keys sorted); in the plain version a leaf's sum is
+  its chunks' sums added in order, in the kernel fixed partial sums in
+  fp64.
 
 ``count`` is a () int32 tensor on the parameters' device, and a schedule
 maps it to a () fp32 tensor there, so a step never waits on the card.
@@ -31,17 +36,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.tree import tree_items, tree_leaves, tree_map
+from repro_torch.kernels import ref
+from repro_torch.kernels.adamw import adamw_cuda
+from repro_torch.tree import tree_leaves, tree_map
 
 
-# entries of a leaf widened to fp32 at a time (64 MB a temporary)
+# entries of a leaf the plain version widens to fp32 at a time (64 MB a
+# temporary)
 CHUNK = 1 << 24
-
-
-def _chunks(t: torch.Tensor):
-    """Contiguous views of ``CHUNK`` entries (the last one shorter) that
-    write through to ``t``."""
-    return t.view(-1).split(CHUNK)
 
 
 class AdamWState(NamedTuple):
@@ -73,44 +75,34 @@ class AdamW:
     def update(self, grads, state: AdamWState, params):
         """One step from ``grads`` (a tree shaped like ``params``).
         Returns (params, state, global norm of the unclipped gradients),
-        ``params`` and ``state`` updated in place."""
-        gn = global_norm(grads)
-        scale = None
-        if self.clip_norm and self.clip_norm > 0:
-            scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-12),
-                                max=1.0)
+        ``params`` and ``state`` updated in place: by the AdamW kernel on
+        the card, by its plain version for parameters on the CPU."""
         state.count.add_(1)
         count = state.count
-        b1, b2 = self.b1, self.b2
-        bc1 = 1 - b1 ** count
-        bc2 = 1 - b2 ** count
+        bc1 = 1 - self.b1 ** count
+        bc2 = 1 - self.b2 ** count
         lr = self.lr(count)
-        for (_, g), (_, m), (_, v), (_, p) in zip(
-                tree_items(grads), tree_items(state.mu),
-                tree_items(state.nu), tree_items(params)):
-            for gc, mc, vc, pc in zip(_chunks(g), _chunks(m), _chunks(v),
-                                      _chunks(p)):
-                g32 = gc.float()
-                if scale is not None:
-                    g32 = g32 * scale
-                m32 = mc.float() * b1 + g32 * (1 - b1)
-                v32 = vc.float() * b2 + torch.square(g32) * (1 - b2)
-                del g32
-                step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-                if self.weight_decay:
-                    step = step + self.weight_decay * pc.float()
-                pc.copy_(pc.float() - lr * step)
-                mc.copy_(m32)
-                vc.copy_(v32)
+        leaves = [tree_leaves(t) for t in (grads, state.mu, state.nu,
+                                           params)]
+        kw = dict(b1=self.b1, b2=self.b2, eps=self.eps,
+                  weight_decay=self.weight_decay, clip_norm=self.clip_norm)
+        if leaves[3] and on_cpu(leaves[3][0]):
+            gn, _ = ref.adamw_ref(*leaves, bc1, bc2, lr, chunk=CHUNK, **kw)
+        else:
+            gn, _ = adamw_cuda(*leaves, bc1, bc2, lr.to(torch.float32),
+                               **kw)
         return params, state, gn
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether the update of ``t``'s tree takes the plain version."""
+    return t.device.type == "cpu"
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's fp32 sum
-    of squares."""
-    return torch.sqrt(sum(
-        sum(torch.sum(torch.square(c.float())) for c in _chunks(leaf))
-        for leaf in tree_leaves(tree)))
+    of squares (the plain version's, ``CHUNK`` entries at a time)."""
+    return ref.global_norm_ref(tree_leaves(tree), CHUNK)
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

@@ -9,7 +9,8 @@ NAME is flash_bf16, nn_search, ivf_stage2, ivf_stage2_q,
 ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv, mamba_scan,
 kb_fused_lookup, kb_fused_lookup_q, lookup_op, launch_floor, or one of
 the wide shapes nn_search_wide, ivf_stage2_wide, ivf_stage2_q_wide,
-ivf_stage2_sharded_wide and ivf_stage2_sharded_q_wide. DIR is
+ivf_stage2_sharded_wide and ivf_stage2_sharded_q_wide, or one of the
+training path's flash_bwd_bf16 and adamw. DIR is
 another checkout of the repo (for example the parent commit, unpacked by
 ``git archive`` into an ignored directory, or a variant of ``src/``
 copied under one). Each round runs one process per checkout in the
@@ -53,6 +54,15 @@ knowledge makers' (k 9 and 32, ``ms_k32``); the ``_wide`` stage-2
 entries an index of 64 buckets (3 shards of 64, sharded) over 61,440 x
 4096 rows, 32 queries probing 8, at their entries' k. A checkout whose
 kernel refuses that width prints ``refused`` with its message.
+
+flash_bwd_bf16 times the flash backward on the flash_bf16 inputs with
+N(0, 1) output gradients (B 4, and ``ms_b2`` at the yi-6b training run's
+B 2), with ``digest`` and ``repeat_identical`` of dq, dk and dv. adamw
+times ``AdamW.update`` on the leaves of yi-6b cut to 16 layers (the
+kernel on a checkout that has it, the eager passes on an older one), with
+gradients small enough that the global norm stays under the clip, so that
+``digest`` (of the new parameters and moments) is equal across
+checkouts whose updates are bit-identical.
 
 kb_fused_lookup and kb_fused_lookup_q run on the ogbn-mag bank (fp32, or
 its int8 quantization) with a fifth of its rows holding pending
@@ -118,7 +128,9 @@ STAGE2 = {  # name: (sharded, int8, k, the other k)
 LOOKUPS = ("kb_fused_lookup", "kb_fused_lookup_q")
 WIDE = ("nn_search_wide", *(f"{n}_wide" for n in STAGE2))
 KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan",
-           *LOOKUPS, "lookup_op", "launch_floor", *WIDE)
+           *LOOKUPS, "lookup_op", "launch_floor", *WIDE, "flash_bwd_bf16",
+           "adamw")
+ADAMW_LAYERS = 16                   # chip_smoke.py's TRAIN_LAYERS
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 WIDE_DIM = 4096                     # yi-6b's d_model: the trainer's bank
 MAKER_ROWS, MAKER_QUERIES = 2048, 64   # the makers' bank and batch
@@ -402,9 +414,13 @@ def measure(root: Path, kernels) -> list:
     sources = {"flash_attention" if k == "flash_bf16" else
                "ivf_stage2_sharded" if k.startswith("ivf_stage2_sharded")
                else k.removesuffix("_wide") for k in kernels
-               if k != "launch_floor"}
+               if k not in ("launch_floor", "flash_bwd_bf16")}
     if "lookup_op" in sources:
         sources = (sources - {"lookup_op"}) | set(LOOKUPS)
+    if "flash_bwd_bf16" in kernels:
+        sources |= {"flash_attention", "flash_attention_bwd"}
+    # a checkout older than the AdamW kernel runs the eager update
+    sources &= set(_build.SOURCES)
     _build.build(sorted(sources))
     bank = queries = lookups = None
     if any(k == "nn_search" or k in STAGE2 for k in kernels):
@@ -526,6 +542,10 @@ def measure(root: Path, kernels) -> list:
             ms, err = time_ms(lambda: torch.cuda._sleep(0), 200), None
         elif kernel in WIDE:
             ms, err, extra = measure_wide(kernel, g)
+        elif kernel == "flash_bwd_bf16":
+            ms, err, extra = measure_flash_bwd(g)
+        elif kernel == "adamw":
+            ms, err, extra = measure_adamw()
         else:
             raise ValueError(f"unknown kernel {kernel!r}")
         out.append({"root": str(root), "kernel": kernel, "ms": ms,
@@ -568,6 +588,83 @@ def measure_wide(kernel: str, g):
     for k in ks[1:]:
         extra[f"ms_k{k}"] = time_ms(lambda: fn(*args, k), 20)
     return time_ms(lambda: fn(*args, ks[0]), 20), err, extra
+
+
+def measure_flash_bwd(g):
+    """(ms, max_abs_err, extra) of the flash backward on the yi-6b
+    prefill's bf16 q, k, v (B 4, S 2048, H 32, KV 4, d 128, causal) with
+    N(0, 1) output gradients, on the forward's own output and
+    log-sum-exp; ``ms_b2`` at the training shape (B 2); ``digest`` of dq,
+    dk and dv at B 4."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    dev = torch.device("cuda")
+    kern = ops.LAUNCHERS["flash_attention_bwd"]
+    out = {}
+    for B in (4, 2):
+        g.manual_seed(0)
+        q, k, v, dout = (torch.randn((B, 2048, n, 128), generator=g,
+                                     device=dev).to(torch.bfloat16)
+                         for n in (32, 4, 4, 32))
+        o, lse = flash_attention_with_lse(q, k, v, causal=True)
+        got = kern(q, k, v, o, lse, dout, causal=True)
+        out[B] = time_ms(lambda: kern(q, k, v, o, lse, dout, causal=True),
+                         10)
+        if B == 4:
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                               causal=True)
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(got, want))
+            extra = {"digest": digest(*got), "repeat_identical": all(
+                torch.equal(a, b) for a, b in zip(
+                    got, kern(q, k, v, o, lse, dout, causal=True)))}
+            del want
+        del q, k, v, dout, o, lse, got
+        torch.cuda.empty_cache()
+    extra["ms_b2"] = out[2]
+    return out[4], err, extra
+
+
+def measure_adamw():
+    """(ms, None, extra) of ``AdamW.update`` (AdamW's defaults, lr 1e-4,
+    count 3) on the leaves of yi-6b cut to ADAMW_LAYERS layers (bf16
+    weights and gradients, fp32 norm scales and moments), whichever way the
+    checkout runs it; gradients N(0, 1e-5^2), so that the global norm
+    stays under the clip and the update's scale is 1 on every checkout:
+    ``digest`` hashes the integer sums of the new parameters' and
+    moments' bits after one update from the same inputs."""
+    import hashlib
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant_lr
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    cfg = get_config("yi-6b").replace(num_layers=ADAMW_LAYERS)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=constant_lr(1e-4))
+    state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda t, s: (torch.randn(t.shape, generator=gen, device=dev)
+                         * s).to(t.dtype)
+    grads = tree_map(lambda t: rand(t, 1e-5), params)
+    for leaf in tree_leaves(state.mu):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev) * 1e-6)
+    for leaf in tree_leaves(state.nu):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev) ** 2
+                   * 1e-10)
+    state.count.fill_(2)
+    _, state, gn = opt.update(grads, state, params)
+    sums = [int(t.view(torch.int16 if t.element_size() == 2
+                       else torch.int32).sum(dtype=torch.int64))
+            for tree in (params, state.mu, state.nu)
+            for t in tree_leaves(tree)]
+    extra = {"gn": float(gn), "digest": hashlib.sha256(
+        repr(sums).encode()).hexdigest()[:16],
+        "entries": sum(t.numel() for t in tree_leaves(params))}
+    ms = time_ms(lambda: opt.update(grads, state, params), 5)
+    return ms, None, extra
 
 
 def main() -> int:
