@@ -9,7 +9,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
 1. device and build: the card's name and power limit, the torch and CUDA
    versions, and the build of every kernel from src/repro_torch/kernels/csrc
-   (nvcc, sm_90a), with each kernel's registers and spills;
+   (nvcc, sm_90a), with each kernel's registers and spills, and each
+   instance of the WKV and scan backwards by name, none of the main
+   path's with a stack frame or spills;
 2. each kernel against its plain PyTorch version at the serve path's
    shapes: a 1,939,743 x 128 fp32 bank (ogbn-mag) with a fifth of its rows
    holding pending gradients, 32 ids (8 clients x batch 4) and 32 queries,
@@ -112,9 +114,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the first run's at every step (whether they are bit-identical is
    printed); then the same two runs of ``train_carls`` at the full width
    of rwkv6-7b cut to 12 of its 32 layers (d 4096, 64 WKV heads of 64,
-   d_ff 14336, vocab 65536; 3.66 B parameters) at 8 x 64, with 12 WKV
+   d_ff 14336, vocab 65536; 3.66 B parameters) at 8 x 64 and at 2 x 2048
+   (the WKV backward at the prefill's sequence length), each with 12 WKV
    forward and 12 backward launches a step (and 12 forwards in the maker
-   pass), and of yi-6b's 16 layers at batch 2 x seq 2048, where each layer
+   pass) and one more step profiled (the WKV kernels' device time and
+   share of the step's), and of yi-6b's 16 layers at batch 2 x seq 2048,
+   where each layer
    takes the flash kernel forward and backward (16 each a step): ms a
    step, peak device memory, losses finite and the two runs within 1%;
    then one full-width jamba Mamba layer (d 8192, di 16384, ds 16, bf16)
@@ -172,7 +177,9 @@ or checkpoints, twice bit-identical, and its autograd Function against
 ``torch.autograd`` of the plain forward; timed beside its bound, the
 plain backward and, for flash, SDPA's backward; the flash backward also
 at the yi-6b training run's B 2, with its bound and SDPA's, and split by
-device kernel under torch.profiler), the AdamW kernel at phase 8's leaves
+device kernel under torch.profiler; the WKV and scan backwards with their
+stage profiles, WKV's also at the rwkv6-7b training run's B 8 x S 64),
+the AdamW kernel at phase 8's leaves
 (the global norm within 1e-5 of the plain version's, every parameter and
 moment bit-identical to the plain update's given the kernel's clip scale,
 a second run bit-identical, one step without a host sync; timed beside
@@ -229,11 +236,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_with_lse, flash_stage_cycles)
 from repro_torch.kernels.ivf_stage2 import ivf_stage2_cycles  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
-    mamba_scan_checkpoints, mamba_scan_cycles, pad_channels)
+    mamba_scan_bwd_cycles, mamba_scan_checkpoints, mamba_scan_cycles,
+    pad_channels)
 from repro_torch.kernels.nn_search_ivf import (  # noqa: E402
     global_probes, ivf_probes, ivf_search_sharded_ref, sharded_probes)
 from repro_torch.kernels.rwkv_wkv import (  # noqa: E402
-    rwkv_wkv_checkpoints, rwkv_wkv_cycles)
+    rwkv_wkv_bwd_cycles, rwkv_wkv_checkpoints, rwkv_wkv_cycles)
 from repro_torch.core.trainer import make_carls_train_step  # noqa: E402
 from repro_torch.data import SyntheticGraphCorpus  # noqa: E402
 from repro_torch.env import fused_lookup_block, stage_lookup_ids  # noqa: E402
@@ -244,8 +252,8 @@ from repro_torch.tree import tree_items, tree_leaves  # noqa: E402
 from repro_torch.kernels.nn_search import tile_plan  # noqa: E402
 from tools.kernel_ab import (  # noqa: E402
     PROFILE_CAPTURES, STAGE2, WIDE_IVF_ROWS, lookup_bank, lookup_ids,
-    lookup_op, restorer, scan_inputs, spread_ids, stage2_inputs, time_ms,
-    wkv_inputs)
+    lookup_op, ptxas_report, restorer, scan_inputs, spread_ids,
+    stage2_inputs, time_ms, wkv_inputs)
 
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 SHARDS = 3                          # the smallest count that divides N_ROWS
@@ -458,6 +466,22 @@ def phase1_build():
         for line in _build.compiler_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the backward recurrences by instance: their chunk's states stay in
+    # registers, so no instance of the main path (the unprofiled ones,
+    # "false>" demangled, "Lb0E" not) has a stack frame or spills
+    for name, pats in (("rwkv_wkv_bwd", ("wkv_bwd<", "7wkv_bwdI")),
+                       ("mamba_scan_bwd", ("scan_bwd<", "8scan_bwdI"))):
+        report = {k: v for k, v in ptxas_report(
+            _build.compiler_log(name)).items() if any(p in k for p in pats)}
+        for fn, (regs, frame, st, ld) in report.items():
+            log(f"phase 1: ptxas {name} {fn}: {regs} registers, {frame} "
+                f"bytes stack frame, {st} bytes spill stores, {ld} bytes "
+                "spill loads")
+        main = {k: v for k, v in report.items()
+                if "false>" in k or "Lb0E" in k}
+        require(bool(main), f"no ptxas report for {name}'s kernels")
+        require(all(v[1:] == (0, 0, 0) for v in main.values()),
+                f"{name}: an instance keeps a stack frame or spills: {main}")
 
 
 def check_codes(got, want, before, rows, label) -> int:
@@ -784,6 +808,13 @@ WKV_SMALL = [  # (B, S, H, d, dtype, decays)
     (2, 1, 3, 32, torch.bfloat16, "model"),      # one step
     (2, 2048, 4, 64, torch.bfloat16, "extreme"),
     (1, 333, 3, 32, torch.float32, "extreme"),
+    # the backward's edges: S < 16 (one ragged chunk), S = 17 (a chunk and
+    # a step), S = 2048 at B H 4, d 16 (a cluster of one block); every d
+    # is a multiple of the backward's 16-column slices
+    (1, 7, 2, 64, torch.bfloat16, "model"),
+    (2, 17, 2, 64, torch.float32, "model"),
+    (1, 2048, 4, 64, torch.bfloat16, "extreme"),
+    (1, 9, 2, 16, torch.float32, "extreme"),
 ]
 
 
@@ -842,6 +873,14 @@ SCAN_SMALL = [  # (B, S, di, ds, x dtype, A)
     (1, 1000, 512, 8, torch.float32, "init"),
     (2, 333, 256, 16, torch.bfloat16, "trained"),
     (2, 50, 37, 8, torch.float32, "trained"),     # di no multiple of 8
+    # the backward's edges: S < 16, S = 17 with a block of 8 channels past
+    # 128, S = 2048, ds 4 (a lane a channel) and ds 32 (64 channels a
+    # block); every ds is a multiple of the backward's 4 states a lane
+    (1, 7, 128, 16, torch.bfloat16, "init"),
+    (2, 17, 136, 16, torch.float32, "trained"),
+    (1, 2048, 256, 16, torch.bfloat16, "trained"),
+    (2, 40, 200, 4, torch.float32, "init"),
+    (1, 50, 72, 32, torch.bfloat16, "trained"),
 ]
 
 
@@ -1183,6 +1222,8 @@ def phase2_backward() -> dict:
                          13.0 * LM_B * H * LM_PROMPT * d * d)
     log(f"phase 2: rwkv_wkv_bwd bf16 (B {LM_B}, S {LM_PROMPT}, H {H}, d "
         f"{d}): {res}")
+    log(f"phase 2: rwkv_wkv_bwd profile (cycles a warp, over the sequence): "
+        f"{rwkv_wkv_bwd_cycles(*args, ckpt, dy, ds)}")
     out["rwkv_wkv_bwd"] = res
     del args, dy, ds, ckpt
     torch.cuda.empty_cache()
@@ -1198,6 +1239,9 @@ def phase2_backward() -> dict:
                                13.0 * TRAIN_B * H * TRAIN_SEQ * d * d)
     log(f"phase 2: rwkv_wkv_bwd bf16 at the training shape (B {TRAIN_B}, S "
         f"{TRAIN_SEQ}, H {H}, d {d}): {train_res}")
+    log(f"phase 2: rwkv_wkv_bwd profile at the training shape (cycles a "
+        f"warp, over the sequence): "
+        f"{rwkv_wkv_bwd_cycles(*args, ckpt, dy, ds)}")
     res["train_shape"] = train_res
     del args, dy, ds, ckpt
     for B, S, H_, d_, dtype, decays in WKV_SMALL:
@@ -1224,8 +1268,8 @@ def phase2_backward() -> dict:
     # delta, x (bf16), B, C, A, the checkpoints, dy and dh_fin read once,
     # ddelta, dx, dB, dC and dA written once; per (b, t, channel, state)
     # ~21 flops and one exp, a_t, which the function needs once (the
-    # kernel computes it twice, in the recompute and in the step back), at
-    # the forward's rate with the MUFU and FMA pipes balanced
+    # kernel takes 1.75: its two-level recompute), at the forward's rate
+    # with the MUFU and FMA pipes balanced
     n, steps = args[0].numel(), LM_B * LM_PROMPT * di * dstate
     nbytes = (n * 4 + n * 2 + 2 * args[1].numel() * 4 + args[4].numel() * 4
               + ckpt.numel() * 4 + n * 4 + dh.numel() * 4 + 2 * n * 4
@@ -1235,9 +1279,12 @@ def phase2_backward() -> dict:
     res["bound"] = (exp_ms, "operations") if exp_ms > b_ms else (b_ms, b_by)
     log(f"phase 2: mamba_scan_bwd x bf16 (B {LM_B}, S {LM_PROMPT}, di {di},"
         f" ds {dstate}): {res}; bytes {nbytes}, exps {steps}: MUFU and FMA "
-        f"pipes balanced {exp_ms:.4f} ms (the kernel's {2 * steps} on the "
-        f"MUFU alone {2 * steps / EXP_PER_S * 1e3:.4f} ms), bytes and flops "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"pipes balanced {exp_ms:.4f} ms (the kernel's {7 * steps // 4} on "
+        f"the MUFU alone {7 * steps / 4 / EXP_PER_S * 1e3:.4f} ms), bytes "
+        f"and flops {b_ms:.4f} ms ({b_by})")
+    log(f"phase 2: mamba_scan_bwd profile (cycles a consumer warp or "
+        f"producer thread, over the sequence): "
+        f"{mamba_scan_bwd_cycles(*args, ckpt, dy, dh)}")
     out["mamba_scan_bwd"] = res
     del args, dy, dh, ckpt
     torch.cuda.empty_cache()
@@ -3056,6 +3103,9 @@ SEQ_KERNELS = ("flash_attention", "rwkv_wkv", "mamba_scan",
 NONE_LAUNCHED = {k: 0 for k in SEQ_KERNELS}
 # the reduced jamba's Mamba layers: one group of 7 Mamba and 1 attention
 REDUCED_JAMBA_MAMBA = 7
+# the WKV kernels' device functions, read from a profiled rwkv6-7b step
+WKV_PROFILE = {"rwkv_wkv_bwd": ("wkv_bwd", "du_sum"),
+               "rwkv_wkv": ("wkv_kernel",)}
 
 
 def compare_runs(label: str, losses1, losses2) -> None:
@@ -3067,10 +3117,34 @@ def compare_runs(label: str, losses1, losses2) -> None:
         f"{losses1 == losses2}; largest relative gap {max(rel)}")
 
 
-def train_twice(label: str, cfg, want: dict, **kw) -> dict:
-    """``train_run`` twice from one seed; the first run's launches."""
+def kernel_ms(prof, pats) -> float:
+    """Device ms of the profiled kernels whose names hold one of
+    ``pats``."""
+    from torch.autograd import DeviceType
+    return sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and any(p in e.name for p in pats))
+
+
+def train_twice(label: str, cfg, want: dict, profile_kernels=None,
+                **kw) -> dict:
+    """``train_run`` twice from one seed; the first run's launches. With
+    ``profile_kernels`` ({label: name patterns}), one more step of the
+    first run under ``torch.profiler``: its parts and each named kernel's
+    device time and share of the step's."""
     res, counts = train_run(f"{label} run 1", cfg, want, **kw)
     losses1 = res["losses"]
+    if profile_kernels:
+        wall_ms, prof = profiled(res["loop"].step, need=has_train_ranges)
+        log(f"phase 8: {label}: profiled step {TRAIN_STEPS + 1}: "
+            f"{train_parts(prof, wall_ms)}")
+        total = kernel_ms(prof, ("",)) - kernel_ms(prof, (SPIN, "carls."))
+        log(f"phase 8: {label}: profiled step {TRAIN_STEPS + 1}, device "
+            "time by kernel: " + "; ".join(
+                f"{k} {kernel_ms(prof, pats):.4g} ms "
+                f"({100 * kernel_ms(prof, pats) / total:.2f}% of {total:.4g})"
+                for k, pats in profile_kernels.items()))
+        del prof
     del res
     gc.collect()
     res, _ = train_run(f"{label} run 2", cfg, want, **kw)
@@ -3191,11 +3265,17 @@ def phase8_train() -> dict:
     log(f"phase 8: rwkv6-7b cut to {TRAIN_RWKV_LAYERS} of 32 layers: "
         f"{cfg.param_count()} parameters")
     n = TRAIN_RWKV_LAYERS
-    paths["train_rwkv"] = train_twice(
-        "rwkv6-7b full width", cfg,
-        {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
-         "adamw": TRAIN_STEPS, "rwkv_wkv": (TRAIN_STEPS + 1) * n,
-         "rwkv_wkv_bwd": TRAIN_STEPS * n})
+    rwkv_want = {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
+                 "adamw": TRAIN_STEPS, "rwkv_wkv": (TRAIN_STEPS + 1) * n,
+                 "rwkv_wkv_bwd": TRAIN_STEPS * n}
+    paths["train_rwkv"] = train_twice("rwkv6-7b full width", cfg, rwkv_want,
+                                      profile_kernels=WKV_PROFILE)
+    # the same at 2 x 2048, where the WKV backward runs at the prefill's
+    # sequence length
+    free_weights("phase 8", f"rwkv6-7b training at seq {TRAIN_LONG_SEQ}")
+    paths["train_rwkv_2048"] = train_twice(
+        f"rwkv6-7b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}", cfg, rwkv_want,
+        profile_kernels=WKV_PROFILE, batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
     # yi-6b at 2 x 2048: flash forward and backward in each layer a step
     free_weights("phase 8", "yi-6b training at seq 2048")
     cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)

@@ -28,17 +28,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sums of N values a lane over the lanes that differ only in lane bits
-// LO .. 16, scattered over those lanes (the backward kernels' sums over
-// rows or channels): each level halves the values a lane holds, the lane
-// with the level's bit set keeping the upper half; once a lane holds one
-// value the remaining levels add the partner's copy. On return v[0 ..
-// max(N LO / 32, 1) - 1] hold the sums of values idx .. of the group, in a
-// fixed order; `writer` is false on every lane but one of those that hold
-// the same sums (IEEE addition commutes, so the copies agree bit for bit).
-template <int N, int O, int LO>
+// LO .. TOP, scattered over those lanes (the backward kernels' sums over
+// rows, columns, channels or a step's quads): each level halves the
+// values a lane holds, the lane with the level's bit set keeping the upper
+// half; once a lane holds one value the remaining levels add the partner's
+// copy. On return v[0 .. max(N LO / (2 TOP), 1) - 1] hold the sums of
+// values idx .. of the group, in a fixed order; `writer` is false on every
+// lane but one of those that hold the same sums (IEEE addition commutes,
+// so the copies agree bit for bit).
+template <int N, int TOP, int O, int LO>
 __device__ __forceinline__ void reduce_scatter_level(float (&v)[N], int lane,
                                                      int& idx, bool& writer) {
-  constexpr int n = N * O / 16;   // values a lane holds entering the level
+  constexpr int n = N * O / TOP;  // values a lane holds entering the level
   if constexpr (n >= 2) {
     constexpr int half = n / 2;
     const bool up = lane & O;
@@ -53,16 +54,16 @@ __device__ __forceinline__ void reduce_scatter_level(float (&v)[N], int lane,
     v[0] += __shfl_xor_sync(FULL_MASK, v[0], O);
     if (lane & O) writer = false;
   }
-  if constexpr (O > LO) reduce_scatter_level<N, O / 2, LO>(v, lane, idx,
-                                                           writer);
+  if constexpr (O > LO) reduce_scatter_level<N, TOP, O / 2, LO>(v, lane, idx,
+                                                                writer);
 }
 
-template <int N, int LO>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int& idx,
+template <int N, int TOP, int LO>
+__device__ __forceinline__ void lane_reduce_scatter(float (&v)[N], int& idx,
                                                     bool& writer) {
   idx = 0;
   writer = true;
-  reduce_scatter_level<N, 16, LO>(v, threadIdx.x & 31, idx, writer);
+  reduce_scatter_level<N, TOP, TOP, LO>(v, threadIdx.x & 31, idx, writer);
 }
 
 // A value of the model dtype as fp32

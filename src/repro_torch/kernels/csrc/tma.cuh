@@ -1,6 +1,6 @@
 // Hopper's asynchronous copies, shared by the kernels that stream rows
 // through a ring of shared-memory stages (nn_search.cu, ivf_stage2.cuh,
-// rwkv_wkv.cu, mamba_scan.cu): mbarriers, TMA loads of 2-d and 3-d
+// rwkv_wkv.cu, mamba_scan.cu and their backwards): mbarriers, TMA loads of 2-d and 3-d
 // tensor-map boxes and TMA stores of 3-d ones, 1-d bulk copies, and the
 // tensor-map encoder, found through the CUDA runtime so that no library
 // links against libcuda.

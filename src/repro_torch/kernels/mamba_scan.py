@@ -13,8 +13,9 @@ Under autograd the launcher runs ``MambaScanFn``: its forward is the same
 kernel, which then also writes each channel's state at the start of every
 chunk of ``CHUNK`` steps; its backward is ``csrc/mamba_scan_bwd.cu`` (no
 Pallas counterpart: JAX differentiates its checkpointed ``lax.scan``),
-which recomputes each chunk's states from its checkpoint with the
-forward's own exp2 and walks it backward.
+which recomputes each chunk's states and decays from its checkpoint in
+registers with the forward's own exp2 and walks it backward, ds / 4 lanes
+a channel.
 """
 from __future__ import annotations
 
@@ -31,14 +32,21 @@ X_DTYPES = (torch.float32, torch.bfloat16)
 DI_MULTIPLE = 8     # the kernel takes di in multiples of it (pad_channels)
 
 CHUNK = 16          # steps between the forward's checkpoints (its TC)
-CHANNELS = 128      # channels a block of the backward kernel (its NC)
+# channels a block of the backward kernel (its Cfg::NCH) by state dim: a
+# block sums dB and dC over them before it writes a partial
+BWD_CHANNELS = {4: 128, 8: 128, 16: 128, 32: 32}
 
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 5
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 15 + (ctypes.c_int,) * 5 + \
+    (ctypes.c_void_p,)
 # the kernel's clock64 profile (csrc/mamba_scan.cu's P_* slots)
 PROFILE_SLOTS = ("consumer_wait", "consumer_steps", "consumer_chunk_end",
                  "producer_wait_empty", "producer_issue", "consumer_warps",
                  "producer_threads")
+# the backward's (csrc/mamba_scan_bwd.cu's P_* slots)
+BWD_PROFILE_SLOTS = ("consumer_wait", "consumer_level1", "consumer_walk",
+                     "consumer_sync", "consumer_sum", "producer_wait_empty",
+                     "producer_issue", "consumer_warps", "producer_threads")
 
 
 def mamba_scan_cuda(delta, bm, cm, x, A):
@@ -105,10 +113,44 @@ def mamba_scan_bwd_cuda(delta, bm, cm, x, A, ckpt, dy, dh_fin):
     DI_MULTIPLE), its checkpoints (``mamba_scan_checkpoints``), the
     gradient of y (B, S, di) and of h_fin (B, di, ds), both fp32 ->
     (ddelta, dbm, dcm, dx, dA), fp32 in the shapes of delta, bm, cm, x
-    and A. One call launches the kernel, one thread per (batch, channel)
+    and A. One call launches the kernel, ds / 4 lanes a (batch, channel)
     walking the chunks backward, which writes dB and dC as sums over each
-    warp's 32 channels and dA per batch, and the pass that sums those
-    partials in a fixed order."""
+    block's ``BWD_CHANNELS[ds]`` channels and dA per batch, and the pass
+    that sums those partials in a fixed order."""
+    grads = _launch_bwd(delta, bm, cm, x, A, ckpt, dy, dh_fin, None)
+    if delta.numel():
+        mamba_scan_bwd_cuda.launches += 1
+    return grads
+
+
+mamba_scan_bwd_cuda.launches = 0
+
+
+def mamba_scan_bwd_cycles(delta, bm, cm, x, A, ckpt, dy, dh_fin) -> dict:
+    """One launch of the backward kernel with its clock64 profile on: the
+    cycles a consumer warp spends waiting for a chunk, recomputing its
+    states before steps 0, 4, 8 and 12, walking its sub-chunks back, at
+    the consumers' barrier and adding the block's dB and dC, and the
+    producer thread waiting for a free stage and issuing the loads; each
+    summed over the sequence and averaged over the warps (threads) of that
+    role. A measurement, not a launch of the main path: the count does not
+    move."""
+    prof = torch.zeros(len(BWD_PROFILE_SLOTS), dtype=torch.int64,
+                       device=delta.device)
+    args = (delta, bm, cm, x, A, ckpt, dy, dh_fin)
+    _launch_bwd(*args, prof)                     # a warm-up
+    prof.zero_()
+    _launch_bwd(*args, prof)
+    raw = dict(zip(BWD_PROFILE_SLOTS, prof.tolist()))
+    return {name: n / max(raw["consumer_warps" if name.startswith(
+                "consumer") else "producer_threads"], 1)
+            for name, n in raw.items()
+            if name not in ("consumer_warps", "producer_threads")}
+
+
+def _launch_bwd(delta, bm, cm, x, A, ckpt, dy, dh_fin, prof):
+    """One launch of the backward kernel on checked inputs -> (ddelta,
+    dbm, dcm, dx, dA)."""
     _check(delta, bm, cm, x, A)
     B, S, di = delta.shape
     ds = A.shape[-1]
@@ -132,20 +174,24 @@ def mamba_scan_bwd_cuda(delta, bm, cm, x, A, ckpt, dy, dh_fin):
     dA = torch.zeros((di, ds), device=dev)
     if B * S * di == 0:
         return ddelta, dbm, dcm, dx, dA
-    warps = -(-di // CHANNELS) * CHANNELS // 32
-    da_part = torch.empty((B, di, ds), device=dev)
-    bc_part = torch.empty((B, warps, S, 2 * ds), device=dev)
+    da_part, bc_part = bwd_scratch(B, S, di, ds, dev)
     launch("mamba_scan_bwd", "mamba_scan_bwd_launch", _BWD_ARGTYPES, dev,
            delta.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
            A.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), dh_fin.data_ptr(),
            ddelta.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), dx.data_ptr(),
            dA.data_ptr(), da_part.data_ptr(), bc_part.data_ptr(), B, S, di,
-           ds, int(x.dtype == torch.bfloat16))
-    mamba_scan_bwd_cuda.launches += 1
+           ds, int(x.dtype == torch.bfloat16),
+           None if prof is None else prof.data_ptr())
     return ddelta, dbm, dcm, dx, dA
 
 
-mamba_scan_bwd_cuda.launches = 0
+def bwd_scratch(B: int, S: int, di: int, ds: int, device):
+    """The backward kernel's scratch: dA per batch (B, di, ds) and dB, dC
+    per block of ``BWD_CHANNELS[ds]`` channels (B, blocks, S, 2 ds), both
+    fp32, which its second pass sums in a fixed order."""
+    blocks = -(-di // BWD_CHANNELS[ds])
+    return (torch.empty((B, di, ds), device=device),
+            torch.empty((B, blocks, S, 2 * ds), device=device))
 
 
 def mamba_scan_cycles(delta, bm, cm, x, A) -> dict:

@@ -11,8 +11,11 @@ source's header says how.
 Under autograd the launcher runs ``RwkvWkvFn``: its forward is the same
 kernel, which then also writes the state at the start of every chunk of
 ``CHUNK`` steps; its backward is ``csrc/rwkv_wkv_bwd.cu`` (no Pallas
-counterpart: JAX differentiates its checkpointed ``lax.scan``), which
-recomputes each chunk's states from its checkpoint and walks it backward.
+counterpart: JAX differentiates its checkpointed ``lax.scan``): a cluster
+of blocks per (batch, head), each holding 16 columns of the state's
+gradient, recomputes each chunk's states from its checkpoint in registers
+and walks it backward, the blocks adding their row sums through each
+other's shared memory.
 """
 from __future__ import annotations
 
@@ -29,11 +32,17 @@ DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 16          # steps between the forward's checkpoints (its TC)
 
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 5
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 5 + \
+    (ctypes.c_void_p,)
 # the kernel's clock64 profile (csrc/rwkv_wkv.cu's P_* slots)
 PROFILE_SLOTS = ("consumer_wait", "consumer_steps", "consumer_chunk_end",
                  "producer_wait_loaded", "producer_widen", "producer_c_sum",
                  "producer_refill", "consumer_warps", "producer_warps")
+# the backward's (csrc/rwkv_wkv_bwd.cu's P_* slots)
+BWD_PROFILE_SLOTS = ("consumer_wait", "consumer_level1", "consumer_cluster",
+                     "consumer_sum", "consumer_walk", "producer_wait_loaded",
+                     "producer_prepare", "producer_cluster",
+                     "producer_refill", "consumer_warps", "producer_warps")
 
 
 def rwkv_wkv_cuda(r, k, v, w, u):
@@ -82,9 +91,46 @@ def rwkv_wkv_bwd_cuda(r, k, v, w, u, ckpt, dy, ds_fin):
     """The backward kernel: the forward's inputs, its checkpoints
     (``rwkv_wkv_checkpoints``), the gradient of y (B, S, H, d) and of
     S_fin (B, H, d, d), both fp32 -> (dr, dk, dv, dw (B, S, H, d), du
-    (H, d)), all fp32. One call launches the kernel, one block per
-    (batch, head) walking the chunks backward, and the pass that sums
-    du's per-batch partials in a fixed order."""
+    (H, d)), all fp32. One call launches the kernel, a cluster of d / 16
+    blocks per (batch, head) walking the chunks backward, and the pass
+    that sums du's per-batch partials in a fixed order."""
+    grads = _launch_bwd(r, k, v, w, u, ckpt, dy, ds_fin, None)
+    if r.shape[0] * r.shape[1] * r.shape[2]:
+        rwkv_wkv_bwd_cuda.launches += 1
+    return grads
+
+
+rwkv_wkv_bwd_cuda.launches = 0
+
+
+def rwkv_wkv_bwd_cycles(r, k, v, w, u, ckpt, dy, ds_fin) -> dict:
+    """One launch of the backward kernel with its clock64 profile on: the
+    cycles a consumer warp spends waiting for a chunk, recomputing its
+    states before steps 0, 4, 8 and 12, at the cluster barrier, adding the
+    previous chunk's gradients (and, last, du's) and walking its
+    sub-chunks back, and the producer warp waiting for the TMA loads,
+    preparing a chunk (widening, dy . v, c_t), at the cluster barrier and
+    refilling the ring; each summed over the sequence and averaged over
+    the warps of that role. A measurement, not a launch of the main path:
+    the count does not move."""
+    prof = torch.zeros(len(BWD_PROFILE_SLOTS), dtype=torch.int64,
+                       device=r.device)
+    args = (r, k, v, w, u, ckpt, dy, ds_fin)
+    _launch_bwd(*args, prof)                     # a warm-up
+    prof.zero_()
+    _launch_bwd(*args, prof)
+    return _per_warp(dict(zip(BWD_PROFILE_SLOTS, prof.tolist())))
+
+
+def _per_warp(raw: dict) -> dict:
+    """Profile slots averaged over the warps of their role."""
+    return {name: n / max(raw[f"{name.split('_')[0]}_warps"], 1)
+            for name, n in raw.items() if not name.endswith("_warps")}
+
+
+def _launch_bwd(r, k, v, w, u, ckpt, dy, ds_fin, prof):
+    """One launch of the backward kernel on checked inputs -> (dr, dk, dv,
+    dw, du)."""
     _check(r, k, v, w, u)
     B, S, H, d = r.shape
     require_cuda(ckpt, "ckpt", torch.float32, 5)
@@ -108,12 +154,9 @@ def rwkv_wkv_bwd_cuda(r, k, v, w, u, ckpt, dy, ds_fin):
            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
            u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), ds_fin.data_ptr(),
            *(g.data_ptr() for g in grads), du.data_ptr(), du_part.data_ptr(),
-           B, S, H, d, int(r.dtype == torch.bfloat16))
-    rwkv_wkv_bwd_cuda.launches += 1
+           B, S, H, d, int(r.dtype == torch.bfloat16),
+           None if prof is None else prof.data_ptr())
     return (*grads, du)
-
-
-rwkv_wkv_bwd_cuda.launches = 0
 
 
 def rwkv_wkv_cycles(r, k, v, w, u) -> dict:
@@ -130,13 +173,7 @@ def rwkv_wkv_cycles(r, k, v, w, u) -> dict:
     _launch(r, k, v, w, u, prof)                 # a warm-up
     prof.zero_()
     _launch(r, k, v, w, u, prof)
-    raw = dict(zip(PROFILE_SLOTS, prof.tolist()))
-    out = {}
-    for name, n in raw.items():
-        if not name.endswith("_warps"):
-            role = name.split("_")[0]
-            out[name] = n / max(raw[f"{role}_warps"], 1)
-    return out
+    return _per_warp(dict(zip(PROFILE_SLOTS, prof.tolist())))
 
 
 def _check(r, k, v, w, u) -> None:

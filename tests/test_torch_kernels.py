@@ -418,6 +418,111 @@ def test_recurrence_launchers_count_only_their_launches(kernel, shape,
                                    kernel: before[kernel] + int(launched)}
 
 
+def _bwd_launcher(kernel, monkeypatch):
+    """The backward launcher of ``kernel`` with the device check and the
+    launch stood in for, so that CPU tensors reach its shape checks; the
+    list the launches' arguments go to."""
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
+    calls = []
+    monkeypatch.setattr(mod, "launch", lambda *a: calls.append(a))
+    return ops.LAUNCHERS[f"{kernel}_bwd"], calls
+
+
+@pytest.mark.parametrize("B, S, H, d", [(2, 7, 3, 16), (1, 33, 2, 32),
+                                        (2, 17, 2, 64)])
+def test_wkv_bwd_launcher_checks_and_launches_once(B, S, H, d, monkeypatch):
+    """The WKV backward's launcher takes the forward's checkpoints, one
+    (d, d) state per chunk of CHUNK steps, and the gradients of y and
+    S_fin in their shapes; it refuses any other shape before it launches,
+    and a good call launches the kernel once (its cluster of d / 16 blocks
+    per (b, h) and du's sum are one launch call) with du's scratch of one
+    (H, d) partial per batch, and counts one launch."""
+    from repro_torch.kernels.rwkv_wkv import CHUNK
+    kern, calls = _bwd_launcher("rwkv_wkv", monkeypatch)
+    args = _wkv_tensors(B, S, H, d, torch.bfloat16)
+    ckpt = torch.zeros((B, H, -(-S // CHUNK), d, d))
+    dy, ds = torch.zeros((B, S, H, d)), torch.zeros((B, H, d, d))
+    before = ops.launch_counts()["rwkv_wkv_bwd"]
+    with pytest.raises(ValueError, match="ckpt"):
+        kern(*args, ckpt[:, :, :1] if S > CHUNK else ckpt[..., :1], dy, ds)
+    with pytest.raises(ValueError, match="dy"):
+        kern(*args, ckpt, dy[:, :1], ds)
+    with pytest.raises(ValueError, match="ds_fin"):
+        kern(*args, ckpt, dy, ds[..., :1])
+    assert calls == [] and ops.launch_counts()["rwkv_wkv_bwd"] == before
+    dr, dk, dv, dw, du = kern(*args, ckpt, dy, ds)
+    # (B, S, H, d, bf16, no profile): the main path's launch is unprofiled
+    assert len(calls) == 1 and calls[0][-6:] == (B, S, H, d, 1, None)
+    assert ops.launch_counts()["rwkv_wkv_bwd"] == before + 1
+    assert all(t.shape == (B, S, H, d) for t in (dr, dk, dv, dw))
+    assert du.shape == (H, d)
+
+
+@pytest.mark.parametrize("B, S, di, ds, blocks", [
+    (2, 9, 8, 4, 1), (1, 20, 136, 16, 2), (2, 3, 256, 8, 2),
+    (1, 5, 72, 32, 3), (1, 5, 64, 32, 2)])
+def test_scan_bwd_scratch_is_one_partial_per_block(B, S, di, ds, blocks):
+    """The scan backward's scratch: dA per batch, and dB, dC as one
+    partial per block of BWD_CHANNELS[ds] channels (128; 32 at ds 32)
+    and step, which the second pass adds in a fixed order."""
+    da_part, bc_part = mamba_scan_mod.bwd_scratch(B, S, di, ds, "cpu")
+    assert -(-di // mamba_scan_mod.BWD_CHANNELS[ds]) == blocks
+    assert da_part.shape == (B, di, ds)
+    assert bc_part.shape == (B, blocks, S, 2 * ds)
+    assert da_part.dtype == bc_part.dtype == torch.float32
+
+
+@pytest.mark.parametrize("ds", [4, 8, 16, 32])
+def test_scan_bwd_launcher_checks_and_launches_once(ds, monkeypatch):
+    """The scan backward's launcher takes di padded to a multiple of 8,
+    the forward's checkpoints (one (di, ds) state per chunk) and the
+    gradients of y and h_fin in their shapes; it refuses any other before
+    it launches, and a good call launches once and counts once."""
+    from repro_torch.kernels.mamba_scan import CHUNK
+    kern, calls = _bwd_launcher("mamba_scan", monkeypatch)
+    B, S, di = 2, 19, 40
+    args = _scan_tensors(B, S, di, ds, torch.bfloat16)
+    ckpt = torch.zeros((B, -(-S // CHUNK), di, ds))
+    dy, dh = torch.zeros((B, S, di)), torch.zeros((B, di, ds))
+    before = ops.launch_counts()["mamba_scan_bwd"]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        odd = _scan_tensors(B, S, 37, ds, torch.bfloat16)
+        kern(*odd, ckpt[:, :, :37], dy[..., :37], dh[:, :37])
+    with pytest.raises(ValueError, match="ckpt"):
+        kern(*args, ckpt[:, :1], dy, dh)
+    with pytest.raises(ValueError, match="dy"):
+        kern(*args, ckpt, dy[:, :1], dh)
+    assert calls == [] and ops.launch_counts()["mamba_scan_bwd"] == before
+    grads = kern(*args, ckpt, dy, dh)
+    assert len(calls) == 1 and calls[0][-6:] == (B, S, di, ds, 1, None)
+    assert ops.launch_counts()["mamba_scan_bwd"] == before + 1
+    assert [tuple(g.shape) for g in grads] == [
+        (B, S, di), (B, S, ds), (B, S, ds), (B, S, di), (di, ds)]
+
+
+def test_backward_profilers_refuse_cpu_tensors():
+    """``rwkv_wkv_bwd_cycles`` and ``mamba_scan_bwd_cycles`` time the
+    backward kernels on the card: CPU tensors are refused before any
+    launch, and no count moves."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd_cycles
+    from repro_torch.kernels.rwkv_wkv import CHUNK, rwkv_wkv_bwd_cycles
+    ops.reset_launch_counts()
+    B, S, H, d = 1, 4, 2, 32
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv_wkv_bwd_cycles(*_wkv_tensors(B, S, H, d),
+                            torch.zeros((B, H, 1, d, d)),
+                            torch.zeros((B, S, H, d)),
+                            torch.zeros((B, H, d, d)))
+    B, S, di, ds = 1, 4, 16, 16
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_bwd_cycles(*_scan_tensors(B, S, di, ds),
+                              torch.zeros((B, -(-S // CHUNK), di, ds)),
+                              torch.zeros((B, S, di)),
+                              torch.zeros((B, di, ds)))
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+
+
 def test_recurrence_profilers_refuse_cpu_tensors():
     """``rwkv_wkv_cycles`` and ``mamba_scan_cycles`` time the kernel on the
     card: CPU tensors are refused, never run on the plain version, and no

@@ -10,7 +10,7 @@ ivf_stage2_sharded, ivf_stage2_sharded_q, rwkv_wkv, mamba_scan,
 kb_fused_lookup, kb_fused_lookup_q, lookup_op, launch_floor, or one of
 the wide shapes nn_search_wide, ivf_stage2_wide, ivf_stage2_q_wide,
 ivf_stage2_sharded_wide and ivf_stage2_sharded_q_wide, or one of the
-training path's flash_bwd_bf16 and adamw. DIR is
+training path's flash_bwd_bf16, adamw, wkv_bwd and scan_bwd. DIR is
 another checkout of the repo (for example the parent commit, unpacked by
 ``git archive`` into an ignored directory, or a variant of ``src/``
 copied under one). Each round runs one process per checkout in the
@@ -54,6 +54,16 @@ knowledge makers' (k 9 and 32, ``ms_k32``); the ``_wide`` stage-2
 entries an index of 64 buckets (3 shards of 64, sharded) over 61,440 x
 4096 rows, 32 queries probing 8, at their entries' k. A checkout whose
 kernel refuses that width prints ``refused`` with its message.
+
+wkv_bwd and scan_bwd time the WKV and scan backward kernels on the
+forward's own checkpoints, with N(0, 1) gradients of y and of the final
+state: wkv_bwd at the rwkv6-7b prefill's shape (B 4, S 2048, H 64, d 64,
+r/k/v bf16) and, as ``ms_train`` with ``digest_train``, at its training
+run's (B 8, S 64); scan_bwd at the jamba layer's (B 4, S 2048, di 16384,
+ds 16, x bf16). Each carries ``digest`` of the five gradients,
+``repeat_identical``, its max abs error against the plain backward, and
+``ptxas``: the kernel's instances with their registers, stack frame and
+spill bytes, from the checkout's own build.
 
 flash_bwd_bf16 times the flash backward on the flash_bf16 inputs with
 N(0, 1) output gradients (B 4, and ``ms_b2`` at the yi-6b training run's
@@ -129,7 +139,10 @@ LOOKUPS = ("kb_fused_lookup", "kb_fused_lookup_q")
 WIDE = ("nn_search_wide", *(f"{n}_wide" for n in STAGE2))
 KERNELS = ("flash_bf16", "nn_search", *STAGE2, "rwkv_wkv", "mamba_scan",
            *LOOKUPS, "lookup_op", "launch_floor", *WIDE, "flash_bwd_bf16",
-           "adamw")
+           "adamw", "wkv_bwd", "scan_bwd")
+# the backward kernels' entries: the sources each builds
+BWD_SOURCES = {"wkv_bwd": ("rwkv_wkv", "rwkv_wkv_bwd"),
+               "scan_bwd": ("mamba_scan", "mamba_scan_bwd")}
 ADAMW_LAYERS = 16                   # chip_smoke.py's TRAIN_LAYERS
 N_ROWS, DIM = 1_939_743, 128        # ogbn-mag: all node types, feature width
 WIDE_DIM = 4096                     # yi-6b's d_model: the trainer's bank
@@ -414,7 +427,9 @@ def measure(root: Path, kernels) -> list:
     sources = {"flash_attention" if k == "flash_bf16" else
                "ivf_stage2_sharded" if k.startswith("ivf_stage2_sharded")
                else k.removesuffix("_wide") for k in kernels
-               if k not in ("launch_floor", "flash_bwd_bf16")}
+               if k not in ("launch_floor", "flash_bwd_bf16", *BWD_SOURCES)}
+    for k in kernels:
+        sources |= set(BWD_SOURCES.get(k, ()))
     if "lookup_op" in sources:
         sources = (sources - {"lookup_op"}) | set(LOOKUPS)
     if "flash_bwd_bf16" in kernels:
@@ -546,6 +561,10 @@ def measure(root: Path, kernels) -> list:
             ms, err, extra = measure_flash_bwd(g)
         elif kernel == "adamw":
             ms, err, extra = measure_adamw()
+        elif kernel == "wkv_bwd":
+            ms, err, extra = measure_wkv_bwd(g)
+        elif kernel == "scan_bwd":
+            ms, err, extra = measure_scan_bwd(g)
         else:
             raise ValueError(f"unknown kernel {kernel!r}")
         out.append({"root": str(root), "kernel": kernel, "ms": ms,
@@ -624,6 +643,133 @@ def measure_flash_bwd(g):
         torch.cuda.empty_cache()
     extra["ms_b2"] = out[2]
     return out[4], err, extra
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel function: (registers, stack frame bytes, spill store bytes,
+    spill load bytes)} from ``nvcc -Xptxas -v`` output; the names
+    demangled where ``c++filt`` is found."""
+    import re
+    import shutil
+    out, name = {}, None
+    frame = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *(frame or (0, 0, 0)))
+            name, frame = None, None
+    if out and shutil.which("c++filt"):
+        names = list(out)
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True).stdout.split(
+                                   "\n")
+        if len(plain) >= len(names):
+            # "void (anonymous namespace)::wkv_bwd<T, 64>(...)" -> "wkv_bwd<T, 64>"
+            short = [re.sub(r"^void |\(anonymous namespace\)::", "",
+                            p.strip()).split("(")[0] for p in plain]
+            out = {sh: out[n] for n, sh in zip(names, short)}
+    return out
+
+
+def bwd_ptxas(source: str, pattern: str) -> dict:
+    """The ptxas report of ``source``'s functions whose name holds
+    ``pattern`` (the backward kernel's instances), from this process's
+    build of its checkout."""
+    from repro_torch.kernels import _build
+    return {k: v for k, v in ptxas_report(_build.compiler_log(source)).items()
+            if pattern in k}
+
+
+def measure_wkv_bwd(g):
+    """(ms, max_abs_err, extra) of the WKV backward at the rwkv6-7b
+    prefill's shape (B 4, S 2048, H 64, d 64, r/k/v bf16, ``wkv_inputs``)
+    with N(0, 1) gradients of y and of the final state, on the forward's
+    own checkpoints: max abs error against ``ref.rwkv_wkv_bwd_ref``,
+    ``digest`` of the five gradients, ``repeat_identical``; ``ms_train``
+    at the rwkv6-7b training run's shape (B 8, S 64), with its own digest;
+    ``ptxas``: registers, stack frame and spill bytes of the kernel's
+    instances."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rwkv_wkv import rwkv_wkv_checkpoints
+    dev = torch.device("cuda")
+    kern = ops.LAUNCHERS["rwkv_wkv_bwd"]
+    out = {}
+    for B, S in ((4, 2048), (8, 64)):
+        g.manual_seed(0)
+        args = wkv_inputs(B, S, 64, 64, torch.bfloat16, g)
+        dy = torch.randn((B, S, 64, 64), generator=g, device=dev)
+        ds = torch.randn((B, 64, 64, 64), generator=g, device=dev)
+        _, _, ckpt = rwkv_wkv_checkpoints(*args)
+        got = kern(*args, ckpt, dy, ds)
+        res = {"ms": time_ms(lambda: kern(*args, ckpt, dy, ds), 10),
+               "digest": digest(*got)}
+        if B == 4:
+            want = ref.rwkv_wkv_bwd_ref(*args, dy, ds)
+            res["err"] = max((a - b).abs().max().item()
+                             for a, b in zip(got, want))
+            res["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(
+                got, kern(*args, ckpt, dy, ds)))
+            del want
+            from repro_torch.kernels import rwkv_wkv as mod
+            if hasattr(mod, "rwkv_wkv_bwd_cycles"):   # a checkout with it
+                res["cycles"] = {"stage_cycles": mod.rwkv_wkv_bwd_cycles(
+                    *args, ckpt, dy, ds)}
+        out[B] = res
+        del args, dy, ds, ckpt, got
+        torch.cuda.empty_cache()
+    extra = {"digest": out[4]["digest"],
+             "repeat_identical": out[4]["repeat_identical"],
+             "ms_train": out[8]["ms"], "digest_train": out[8]["digest"],
+             "ptxas": bwd_ptxas("rwkv_wkv_bwd", "wkv_bwd"),
+             **out[4].get("cycles", {})}
+    return out[4]["ms"], out[4]["err"], extra
+
+
+def measure_scan_bwd(g):
+    """(ms, max_abs_err, extra) of the scan backward at the jamba layer's
+    shape (B 4, S 2048, di 16384, ds 16, x bf16, ``scan_inputs``) with
+    N(0, 1) gradients of y and of the final state, on the forward's own
+    checkpoints: max abs error against ``ref.mamba_scan_bwd_ref``,
+    ``digest`` of the five gradients, ``repeat_identical``, and ``ptxas``
+    of the kernel's instances."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_checkpoints
+    dev = torch.device("cuda")
+    kern = ops.LAUNCHERS["mamba_scan_bwd"]
+    g.manual_seed(0)
+    B, S, di, ds = 4, 2048, 16384, 16
+    args = scan_inputs(B, S, di, ds, torch.bfloat16, g)
+    dy = torch.randn((B, S, di), generator=g, device=dev)
+    dh = torch.randn((B, di, ds), generator=g, device=dev)
+    _, _, ckpt = mamba_scan_checkpoints(*args)
+    got = kern(*args, ckpt, dy, dh)
+    want = ref.mamba_scan_bwd_ref(*args, dy, dh)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    del want
+    extra = {"digest": digest(*got), "repeat_identical": all(
+        torch.equal(a, b) for a, b in zip(got, kern(*args, ckpt, dy, dh))),
+        "ptxas": bwd_ptxas("mamba_scan_bwd", "scan_bwd")}
+    from repro_torch.kernels import mamba_scan as mod
+    if hasattr(mod, "mamba_scan_bwd_cycles"):        # a checkout with it
+        extra["stage_cycles"] = mod.mamba_scan_bwd_cycles(*args, ckpt, dy,
+                                                          dh)
+    ms = time_ms(lambda: kern(*args, ckpt, dy, dh), 10)
+    return ms, err, extra
 
 
 def measure_adamw():
