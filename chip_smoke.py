@@ -43,13 +43,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
    through one sharded index, fp32 and int8 (an int8 index over the fp32
    table); a repeated run bit-identical; and a partial rebuild of one
    shard on the card that leaves the other shards' arrays bit-identical
-   and their write clocks as they were;
+   and their write clocks as they were. Then tiered residency at the
+   repo's cold-tier configuration (8,192 x 128 over 2,048 device slots,
+   cold after 1,024 written rows, N(0, 1) rows): fp32, fp32 with
+   lazy_update False, int8 and fp32 on a disk store, each through waves
+   of update, lazy_grad and lookups that fault rows back, a flush, exact
+   search with and without exclusion and (lazy engines) IVF search through
+   an index a refresher built over the slots: lookups, table and versions
+   bit-identical to the untiered cuda engine's, slot maps and fault and
+   spill counts exact against a tiered engine on the CPU, search ids
+   global with exact scores, a repeat bit-identical; and export_rows ->
+   import_rows between two cuda engines and from the CPU to the card
+   bit-identical;
 4. serve: repro_torch.launch.serve at full width on the cuda backend, 8
    clients, each run ending in a flush: exact search over fp32 rows, then
    IVF search over fp32 and over int8 rows (``--kb-search ivf``, nlist 64,
    nprobe 8), then ``--kb-backend sharded --kb-shards 3 --kb-search ivf``
-   (64 buckets and 8 probes per shard); every kernel counter is set to 0
-   just before each run and read just after. Then, on a server of the
+   (64 buckets and 8 probes per shard), and between the first two the
+   fp32 exact serve from 484,936 device slots (a quarter of the bank; the
+   rest in host RAM, cold after 242,468 written rows), which must fault
+   rows in, spill rows and launch the lookup, search and flush kernels;
+   every kernel counter is set to 0 just before each run and read just
+   after. Then, on a server of the
    sharded run's configuration with its refresher, the rows of shard 1
    that the refresher's per-shard budget asks for are rewritten twice:
    with their own values, when the refresher must rebuild shard 1 alone,
@@ -212,6 +227,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1850,7 +1866,10 @@ def phase2_kernels():
         plain_ms=time_ms(lambda: ref.kb_gather_ref(table, ids), 200),
         library_ms=time_ms(lambda: torch.index_select(table, 0, ids),
                            200),
-        bound=bound(nbytes, 0.0))
+        bound=bound(nbytes, 0.0),
+        # its bytes bound is ~1/600 of an empty launch: the floor is the
+        # bound that a launch can reach
+        launch_floor_ms=floor_ms)
 
     # -- lazy_apply: in place on the whole bank --------------------------
     leaves_k = [t.clone() for t in base]
@@ -2373,6 +2392,226 @@ def phase3_engine():
     return counts
 
 
+# the repo's own cold-tier configuration (benchmarks/kb_serving.py:336-343:
+# 8,192 rows over 2,048 slots, cold after 1,024 written rows) at the serve
+# width
+TIER_ROWS, TIER_SLOTS, TIER_COLD_AFTER = 8_192, 2_048, 1_024
+TIER_WAVE = 1_024
+# phase 3's tiered engines: (label, storage, lazy_update, on disk)
+TIER_CONFIGS = (("fp32", "fp32", True, False),
+                ("immediate", "fp32", False, False),
+                ("int8", "int8", True, False),
+                ("disk", "fp32", True, True))
+# phase 4: ogbn-mag at the repo's 4x oversubscription (a quarter of the
+# bank resident), cold after half the slots' worth of written rows
+TIER_SERVE_SLOTS = 484_936
+TIER_SERVE_COLD_AFTER = 242_468
+
+
+def _tier_inputs():
+    """The tiered op stream's data: N(0, 1) rows from a seed; waves of an
+    update of TIER_WAVE rows, lazy gradients on half of them and a lookup
+    of 16 rows of the earlier waves (all cold by then) beside 8 draws of
+    the wave's own; then queries near bank rows."""
+    rng = np.random.default_rng(21)
+    bank = rng.standard_normal((TIER_ROWS, DIM), dtype=np.float32)
+    waves = []
+    for lo in range(0, TIER_ROWS, TIER_WAVE):
+        sel = np.arange(lo, lo + TIER_WAVE)
+        cold = rng.choice(lo, 16, replace=False) if lo else sel[:16]
+        waves.append((sel, bank[sel], rng.standard_normal(
+            (TIER_WAVE // 2, DIM), dtype=np.float32),
+            np.concatenate([cold, rng.choice(sel, 8)])))
+    q = (bank[rng.integers(TIER_ROWS - TIER_WAVE, TIER_ROWS, 8)]
+         + 0.05 * rng.standard_normal((8, DIM))).astype(np.float32)
+    return waves, q
+
+
+def _tier_engine(storage, lazy_update, tiered, device="cuda",
+                 cold_dir=None):
+    kw = (dict(resident_rows=TIER_SLOTS, cold_after_rows=TIER_COLD_AFTER,
+               cold_dir=cold_dir) if tiered else {})
+    return KBEngine(TIER_ROWS, DIM, storage=storage, lazy_update=lazy_update,
+                    search_mode="ivf", ann_nlist=NLIST, ann_nprobe=NPROBE,
+                    device=device, **kw)
+
+
+def _tier_stream(eng, ivf: bool):
+    """One op stream; returns its outputs (lookups, the table and
+    versions before the flush, exact searches with and without exclusion,
+    and with ``ivf`` a search through an index that a refresher built
+    over the slots) and the tier bookkeeping after each wave."""
+    waves, q = _tier_inputs()
+    out, marks = {}, []
+    for w, (sel, vals, g, look) in enumerate(waves):
+        eng.update(sel, vals)
+        eng.lazy_grad(sel[:TIER_WAVE // 2], g)
+        out[f"lookup{w}"] = eng.lookup(look)
+        if eng.tiered:
+            marks.append((eng._slot_of.copy(), eng._slot_id.copy(),
+                          list(eng._free_slots), eng._touch.copy(),
+                          eng._gen, eng.tier_faults, eng.tier_spills))
+    out["table"], out["version"] = (eng.table_snapshot(),
+                                    eng.version_snapshot())
+    eng.flush()
+    out["nn_s"], out["nn_i"] = eng.nn_search(q, K, mode="exact")
+    excl = np.stack([out["nn_i"][:, 0], np.full(len(q), -1)], 1)
+    out["nnx_s"], out["nnx_i"] = eng.nn_search(q, K, mode="exact",
+                                               exclude_ids=excl)
+    if ivf:
+        refresher = ann_index.IVFRefresher(eng, min_period_s=0.01)
+        refresher.start()
+        deadline = time.perf_counter() + 120.0
+        while eng.ann_index is None:
+            require(refresher.last_error is None
+                    and time.perf_counter() < deadline,
+                    f"tiered index build failed: {refresher.last_error}")
+            time.sleep(0.01)
+        refresher.stop()
+        out["ivf_s"], out["ivf_i"] = eng.nn_search(q, K, mode="ivf")
+        require(eng.search_stats["ivf"] == 1,
+                f"the tiered ivf search fell back: {eng.search_stats}")
+    torch.cuda.synchronize()
+    return out, marks, q
+
+
+def _check_tier_search(eng, out, q, keys) -> int:
+    """Ids global and resident, scores exact for the ids returned (the
+    flushed slot rows' float64 dot products), and for the exact searches
+    the live ids those of the top k over the resident rows wherever their
+    scores are more than ID_GAP apart (a freed slot's stale row may take a
+    rank, which then reads (-inf, -1)). Returns the count of those."""
+    gids = np.sort(eng._slot_id[eng._slot_id >= 0])
+    rows = eng.table_snapshot()[gids].astype(np.float64)
+    want = q.astype(np.float64) @ rows.T            # (B, resident rows)
+    n_decided = 0
+    for key in keys:
+        s, i = out[key + "_s"], out[key + "_i"]
+        live = i >= 0
+        require(bool(live[:, 0].all()) and np.isin(i[live], gids).all(),
+                f"tiered {key}: ids not resident global ids")
+        b, j = np.nonzero(live)
+        col = np.searchsorted(gids, i[b, j])
+        require(np.abs(s[b, j] - want[b, col]).max() <= ATOL_SCORES,
+                f"tiered {key}: scores not exact for the ids returned")
+        if key == "ivf":
+            continue
+        w = want.copy()
+        if key == "nnx":            # the exclusion: each query's first id
+            w[np.arange(len(q)), np.searchsorted(gids, out["nn_i"][:, 0])] \
+                = -np.inf
+        top = np.argsort(-w, 1, kind="stable")[:, :K + 1]
+        ws = np.take_along_axis(w, top, 1)
+        gap = ws[:, :-1] - ws[:, 1:]                 # below each rank
+        above = np.concatenate([np.full((len(q), 1), np.inf),
+                                gap[:, :-1]], 1)
+        ok = (gap > ID_GAP) & (above > ID_GAP) & live
+        n_decided += int(ok.sum())
+        require(np.array_equal(i[ok], gids[top[:, :K]][ok]),
+                f"tiered {key}: ids differ from the resident top k")
+    return n_decided
+
+
+def _tier_config(label, storage, lazy_update, on_disk):
+    """One tiered configuration on the card: its launches, and its checks
+    against the untiered cuda engine, a tiered engine on the CPU and a
+    repeat."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        eng = _tier_engine(storage, lazy_update, True,
+                           cold_dir=tmp if on_disk else None)
+        out, marks, q = _tier_stream(eng, ivf=lazy_update)
+        counts = ops.launch_counts()
+        cold_rows = len(eng.cold_store)
+        n_decided = _check_tier_search(
+            eng, out, q, ("nn", "nnx") + (("ivf",) if lazy_update else ()))
+        again, _, _ = _tier_stream(_tier_engine(storage, lazy_update, True),
+                                   ivf=lazy_update)
+    flat, _, _ = _tier_stream(_tier_engine(storage, lazy_update, False),
+                              ivf=False)
+    cpu = _tier_engine(storage, lazy_update, True, device="cpu")
+    cpu_out, cpu_marks, _ = _tier_stream(cpu, ivf=False)
+    for key in out:
+        require(np.array_equal(out[key], again[key]),
+                f"tiered {label}: a repeat differs in {key}")
+    for key in flat:
+        if key.startswith("lookup") or key in ("table", "version"):
+            require(np.array_equal(out[key], flat[key]),
+                    f"tiered {label}: {key} differs from the untiered "
+                    f"cuda engine")
+    for w, (a, b) in enumerate(zip(marks, cpu_marks)):
+        require(all(np.array_equal(np.asarray(x), np.asarray(y))
+                    for x, y in zip(a, b)),
+                f"tiered {label}: slot maps or counts differ from the CPU "
+                f"engine's after wave {w}")
+    for key in cpu_out:
+        if key.startswith("lookup"):
+            require(np.abs(out[key] - cpu_out[key]).max() <= ATOL_ROWS,
+                    f"tiered {label}: {key} against the CPU engine")
+    require(np.array_equal(out["version"], cpu_out["version"]),
+            f"tiered {label}: versions against the CPU engine")
+    faults, spills = eng.tier_faults, eng.tier_spills
+    require(faults > 0 and spills > 0 and cold_rows > 0,
+            f"tiered {label}: faults {faults}, spills {spills}, "
+            f"{cold_rows} cold rows")
+    log(f"phase 3: tiered {label} ({TIER_ROWS} x {DIM} over {TIER_SLOTS} "
+        f"slots, cold after {TIER_COLD_AFTER}"
+        f"{', disk store' if on_disk else ''}): lookups, table and versions "
+        f"bit-identical to the untiered cuda engine's; slot maps, "
+        f"{faults} faults and {spills} spills exact against the CPU "
+        f"engine; search ids global, scores exact ({n_decided} decided "
+        f"ids exact); a repeat{' from a host-RAM store' if on_disk else ''}"
+        f" bit-identical; launches {counts}")
+    return counts
+
+
+def _export_import():
+    """export_rows -> import_rows between two cuda engines, and leaves
+    exported on the CPU imported on the card, bit-identical, fp32 and
+    int8."""
+    rng = np.random.default_rng(22)
+    n, ids = 10_007, np.arange(0, 10_007, 3)
+    vals = rng.standard_normal((n, DIM), dtype=np.float32)
+    for storage in ("fp32", "int8"):
+        src, dst = (KBEngine(n, DIM, storage=storage, device="cuda")
+                    for _ in range(2))
+        cpu = KBEngine(n, DIM, storage=storage, device="cpu")
+        for e in (src, cpu):
+            e.update(np.arange(n), vals)
+            e.lazy_grad(ids[::2], vals[:ids[::2].size])
+        leaves = src.export_rows(ids)
+        dst.import_rows(ids, leaves)
+        back = dst.export_rows(ids)
+        require(all(np.array_equal(back[f], leaves[f]) for f in leaves),
+                f"{storage}: export -> import -> export between two cuda "
+                f"engines differs")
+        host = cpu.export_rows(ids)
+        dst.import_rows(ids, host)
+        back = dst.export_rows(ids)
+        require(all(back[f].dtype == host[f].dtype
+                    and np.array_equal(back[f], host[f]) for f in host),
+                f"{storage}: CPU-exported leaves imported on the card "
+                f"differ")
+    log("phase 3: export_rows -> import_rows between two cuda engines and "
+        "from the CPU to the card bit-identical (every leaf, fp32 and "
+        "int8, pending gradients included)")
+
+
+def phase3_tiered() -> dict:
+    c = {cfg[0]: _tier_config(*cfg) for cfg in TIER_CONFIGS}
+    require(c["fp32"]["kb_fused_lookup"] > 0 and c["fp32"]["nn_search"] > 0
+            and c["fp32"]["lazy_apply"] > 0 and c["fp32"]["ivf_stage2"] > 0,
+            f"the tiered fp32 engine missed a kernel: {c['fp32']}")
+    require(c["immediate"]["kb_gather"] > 0,
+            f"the tiered lazy_update=False engine never launched "
+            f"kb_gather: {c['immediate']}")
+    require(c["int8"]["kb_fused_lookup_q"] > 0
+            and c["int8"]["ivf_stage2_q"] > 0,
+            f"the tiered int8 engine missed a kernel: {c['int8']}")
+    _export_import()
+    return c
+
+
 def serve_run(label: str, extra, rounds: int):
     """One full-width serve run through the launcher, with every kernel
     counter set to 0 just before it and read just after (``extra`` may
@@ -2406,6 +2645,7 @@ def serve_run(label: str, extra, rounds: int):
         f"fill and warm-up; peak device memory {peak} bytes; launches "
         f"{counts} (one of each non-IVF kernel in the warm-up on a scratch "
         f"bank)")
+    res["peak"] = peak
     return res, counts
 
 
@@ -2418,6 +2658,10 @@ def phase4_serve():
     require(c["kb_fused_lookup"] > 1 and c["nn_search"] > 1
             and c["lazy_apply"] > 1,
             f"the exact serve path missed a kernel: {c}")
+    peak_untiered = res["peak"]
+    del res
+    gc.collect()
+    paths["serve_exact_tiered"] = serve_tiered(peak_untiered)
     for storage, kern in (("fp32", "ivf_stage2"), ("int8", "ivf_stage2_q")):
         label = f"serve_{storage}_ivf"
         res, c = serve_run(f"{storage} ivf",
@@ -2437,6 +2681,51 @@ def phase4_serve():
                     f"the int8 serve path missed kb_fused_lookup_q: {c}")
     paths["serve_sharded_ivf"] = serve_sharded()
     return paths
+
+
+def serve_tiered(peak_untiered: int) -> dict:
+    """The fp32 exact serve of ogbn-mag from a device tier a quarter of its
+    size, the rest in host RAM: the device table must hold the slots only,
+    rows must fault in and spill, the lookup, search and flush kernels must
+    launch."""
+    res, c = serve_run("fp32 exact tiered",
+                       ["--kb-resident-rows", str(TIER_SERVE_SLOTS),
+                        "--kb-cold-after", str(TIER_SERVE_COLD_AFTER)],
+                       SERVE_ROUNDS)
+    eng = res["engine"]
+    st = eng.storage_stats()
+    require(tuple(eng.state.table.shape) == (TIER_SERVE_SLOTS, DIM)
+            and st["resident_rows"] == TIER_SERVE_SLOTS,
+            f"tiered serve: device table {tuple(eng.state.table.shape)}")
+    require(st["tier_faults"] > 0 and st["tier_spills"] > 0,
+            f"tiered serve: faults {st['tier_faults']}, spills "
+            f"{st['tier_spills']}")
+    require(c["kb_fused_lookup"] > 1 and c["nn_search"] > 1
+            and c["lazy_apply"] > 1,
+            f"the tiered exact serve path missed a kernel: {c}")
+    t0 = time.perf_counter()
+    store = eng.cold_store
+    cold = [g for g in store.ids() if eng._slot_of[g] < 0]
+    pending = sum(1 for g in cold if store.get(g)["grad_cnt"] > 0)
+    host_bytes = store.bytes_stored()
+    walk_s = time.perf_counter() - t0
+    # a search over the slots after serving: freed slots keep stale rows,
+    # which the translation masks to (-inf, -1) after the top k
+    q = np.random.default_rng(23).standard_normal((BATCH, DIM),
+                                                   dtype=np.float32)
+    _, ids = eng.nn_search(q, K)
+    log(f"phase 4: fp32 exact tiered: {TIER_SERVE_SLOTS} of {N_ROWS} rows "
+        f"resident, cold after {TIER_SERVE_COLD_AFTER} written rows; fill "
+        f"{res['fill_s']:.3f} s; {res['req_per_s']} req/s; "
+        f"{st['tier_faults']} faults, {st['tier_spills']} spills; "
+        f"{st['cold_rows']} rows in the cold store, {len(cold)} of them "
+        f"not resident, {pending} holding pending gradients; cold store "
+        f"{host_bytes} bytes (bytes_stored; walked in {walk_s:.1f} s); peak "
+        f"device memory {res['peak']} bytes against {peak_untiered} "
+        f"untiered; a search of {BATCH} queries after serving: "
+        f"{int((ids < 0).sum())} of {ids.size} ids -1 (freed slots' stale "
+        f"rows in the top {K})")
+    return c
 
 
 def serve_sharded():
@@ -3541,6 +3830,7 @@ def main() -> int:
     log(f"phase 2: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     engine_counts = phase3_engine()
+    tier_counts = phase3_tiered()
     log(f"phase 3: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     paths = phase4_serve()
@@ -3567,6 +3857,8 @@ def main() -> int:
     paths["engine_int8_ivf"] = engine_counts["ivf_int8"]
     paths["engine_sharded_fp32"] = engine_counts["sharded_fp32"]
     paths["engine_sharded_int8"] = engine_counts["sharded_int8"]
+    for label, c in tier_counts.items():
+        paths[f"engine_tiered_{label}"] = c
 
     record = []
     for name, replaces in KERNELS.items():

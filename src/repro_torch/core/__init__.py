@@ -3,11 +3,10 @@ glue and the asynchronous host runtime.
 
 The package re-exports the public API of its submodules, the names of
 ``repro.core``'s ``__all__`` that the port has, in that order. The names
-of slices not ported yet are absent: the cold stores of
-``core/kb_storage.py``, the ``shard_map`` ops of ``core/sharded_kb.py``
-(``kb_axes``, ``kb_pspecs`` and the sharded row ops), ``PallasBackend``
-(the port's kernel backend is ``CudaBackend``), and the wire protocol,
-transport and router.
+of slices not ported yet are absent: the ``shard_map`` ops of
+``core/sharded_kb.py`` (``kb_axes``, ``kb_pspecs`` and the sharded row
+ops), ``PallasBackend`` (the port's kernel backend is ``CudaBackend``),
+and the wire protocol, transport and router.
 
 The names are looked up at first use (a module ``__getattr__``), so that
 importing one submodule does not import them all: ``kernels.ops``
@@ -26,6 +25,7 @@ _SOURCES = (
         "kb_update", "dequantize_rows", "kb_flush_q", "kb_lookup_q",
         "kb_nn_search_q", "kb_update_q", "quantize_rows",
         "quantized_scores")),
+    ("kb_storage", ("DiskColdStore", "MemoryColdStore", "make_cold_store")),
     ("sharded_kb", ("sharded_kb_nn_search", "sharded_kb_nn_search_ivf")),
     ("kb_engine", ("DenseBackend", "KBBackend", "KBEngine", "KBOps",
                    "ShardedBackend", "make_backend", "make_kb_ops")),

@@ -154,7 +154,9 @@ class KnowledgeBankServer:
                  search_mode: str = "exact", ann_nlist: int = 64,
                  ann_nprobe: int = 8, ann_stale_rows: Optional[int] = None,
                  storage: str = "fp32", cache_rows: int = 0,
-                 resident_rows: Optional[int] = None, device="cuda"):
+                 resident_rows: Optional[int] = None,
+                 cold_after_rows: Optional[int] = None,
+                 cold_dir: Optional[str] = None, device="cuda"):
         if engine is None:
             engine = KBEngine(num_entries, dim, backend=backend,
                               lazy_lr=lazy_lr, zmax=zmax,
@@ -162,7 +164,9 @@ class KnowledgeBankServer:
                               search_mode=search_mode, ann_nlist=ann_nlist,
                               ann_nprobe=ann_nprobe,
                               ann_stale_rows=ann_stale_rows, storage=storage,
-                              resident_rows=resident_rows, device=device)
+                              resident_rows=resident_rows,
+                              cold_after_rows=cold_after_rows,
+                              cold_dir=cold_dir, device=device)
         self.engine = engine
         self.coalesce = coalesce
         self.coalesce_window_s = coalesce_window_s
@@ -248,6 +252,28 @@ class KnowledgeBankServer:
             self._submit(_Request("barrier"))
         with self._elock:
             return self.engine.table_snapshot()
+
+    def export_rows(self, ids) -> dict:
+        """Full per-row engine state for ``ids`` (every leaf, raw dtypes;
+        see ``KBEngine.export_rows``). Barriers behind queued writes
+        first, as ``table_snapshot`` does, so the rows reflect everything
+        acknowledged before this call: the replica warm-fill and reshard
+        read primitive."""
+        if not (self._closed and self._dispatcher is None):
+            self._submit(_Request("barrier"))
+        with self._elock:
+            return self.engine.export_rows(ids)
+
+    def import_rows(self, ids, leaves: dict) -> None:
+        """Scatter exported rows into the engine (standby fill, reshard
+        landing), bit-identically. Runs behind a barrier and under the
+        engine lock like any write; the touched ids leave the hot-id
+        cache."""
+        if not (self._closed and self._dispatcher is None):
+            self._submit(_Request("barrier"))
+        with self._elock:
+            self.engine.import_rows(ids, leaves)
+            self._invalidate_cache(np.asarray(ids).reshape(-1))
 
     def warmup(self, max_batch: int = 256) -> None:
         """Build and load every kernel before the first request (the

@@ -66,8 +66,20 @@ engine clamps such reads and drops such writes; on the card an index out of
 range is a device-side assert that would poison the process's CUDA context,
 so the port refuses both (ROADMAP, deliberate differences).
 
-``resident_rows`` (tiered residency) is not ported and raises
-``NotImplementedError`` naming its ROADMAP item, on every backend.
+**Tiered residency** (``resident_rows=``, ``cold_after_rows=``,
+``cold_dir=``) follows the JAX engine (``kb_engine.py:377-449, 611-723``):
+the device state holds ``resident_rows`` slots, every other row's full
+state (``ROW_LEAVES``, and scale and offset in int8) lives in a host-RAM
+or disk cold store (``repro_torch.core.kb_storage``), and each op's rows
+fault into slots before it runs, evicting the oldest-touched rows not in
+the batch. The kernels run on slot ids. A fault-in copies each leaf of
+the whole batch to the device once (pinned, on the serving stream) and
+scatters it into the slots; a spill gathers each leaf on the device and
+brings them to the host in one copy. The ids are checked before the
+tiering sees them (refused, where the JAX engine clamps them). The
+exact search's ``k``, and the over-fetch of ``exclude_ids``, are capped
+at the slot count. Tiering refuses the sharded backend and a random
+init (``generator=``), as the JAX engine refuses ``key=``.
 
 On the sharded backend the engine keeps one write clock per shard and one
 IVF sub-index per shard; ``rebuild_ann_index(shards=)`` re-clusters only
@@ -102,6 +114,7 @@ from repro_torch.core.ann_index import (QuantizedIVFIndex,
                                         QuantizedShardedIVFIndex,
                                         ShardedIVFIndex, build_ivf_index,
                                         build_sharded_ivf_index)
+from repro_torch.core.kb_storage import make_cold_store
 from repro_torch.core.knowledge_bank import KBState
 from repro_torch.env import resolve_device
 from repro_torch.kernels import nn_search_ivf as ivf
@@ -334,6 +347,10 @@ def make_kb_ops(*, backend="cuda", lazy_lr: float = 0.1, zmax: float = 3.0,
     )
 
 
+_NP_DTYPE = {torch.float32: np.float32, torch.int32: np.int32,
+             torch.int8: np.int8}
+
+
 def _bucket(n: int, minimum: int = 8) -> int:
     """Next power-of-two bucket (>= minimum)."""
     return max(minimum, 1 << max(n - 1, 0).bit_length())
@@ -347,42 +364,63 @@ def _pad_repeat(a: np.ndarray, pad: int) -> np.ndarray:
 class KBEngine:
     """Stateful, host-facing shell around a ``KBBackend``: numpy in, numpy
     out, state on ``device`` updated in place. Single-threaded by
-    contract, but for the ``IVFRefresher`` (see the module docstring)."""
+    contract, but for the ``IVFRefresher`` (see the module docstring).
+    ``entry_zmax`` clips each lazy gradient at entry (default ``zmax``);
+    ``generator`` draws the initial table (``kb_create``), where the JAX
+    engine takes ``key``; ``resident_rows`` / ``cold_after_rows`` /
+    ``cold_dir`` make it tiered (see the module docstring)."""
 
     def __init__(self, num_entries: int, dim: int, *, backend="cuda",
                  lazy_lr: float = 0.1, zmax: float = 3.0,
+                 entry_zmax: Optional[float] = None,
                  lazy_update: bool = True, search_mode: str = "exact",
                  ann_nlist: int = 64, ann_nprobe: int = 8,
                  ann_stale_rows: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
                  storage: str = "fp32", master_rows: int = 1024,
-                 resident_rows: Optional[int] = None, device="cuda"):
+                 resident_rows: Optional[int] = None,
+                 cold_after_rows: Optional[int] = None,
+                 cold_dir: Optional[str] = None, device="cuda"):
+        self.backend: KBBackend = (backend if not isinstance(backend, str)
+                                   else make_backend(backend))
         if storage not in ("fp32", "int8"):
             raise ValueError(f"unknown storage {storage!r} "
                              "(want fp32 | int8)")
+        sharded = isinstance(self.backend, ShardedBackend)
         if storage == "int8" and not lazy_update:
             raise ValueError(
                 "storage='int8' requires lazy_update=True: the immediate-"
                 "mode ablation scatter-adds into the table, which is not "
                 "defined over int8 codes")
-        if resident_rows is not None:
-            raise NotImplementedError(
-                "tiered residency (resident_rows) is not ported yet "
-                "(ROADMAP Q1 item 3)")
+        tiered = resident_rows is not None
+        if cold_after_rows is not None and not tiered:
+            raise ValueError("cold_after_rows needs resident_rows set")
+        if tiered and sharded:
+            raise ValueError("tiered residency is single-device only "
+                             "(cuda | dense backends)")
+        if tiered and generator is not None:
+            raise ValueError(
+                "tiered residency requires generator=None: non-resident "
+                "rows materialize as zeros on first touch, so a random "
+                "init would make residency observable")
+        if tiered and not 0 < resident_rows <= num_entries:
+            raise ValueError(f"resident_rows={resident_rows} out of range "
+                             f"(1..{num_entries})")
         _check_search_mode(search_mode)
         self.device = resolve_device(device)
-        self.backend: KBBackend = (backend if not isinstance(backend, str)
-                                   else make_backend(backend))
         self.num_entries, self.dim = num_entries, dim
-        # one zmax clips both at entry (lazy_grad, against the norm EMA)
-        # and at apply time, as the JAX engine's default entry_zmax does
         self.lazy_lr, self.zmax, self.lazy_update = lazy_lr, zmax, lazy_update
+        # entry-side (per-contribution, against the norm EMA) clip of
+        # lazy_grad; defaults to the apply-side zmax, as in the JAX engine
+        self.entry_zmax = zmax if entry_zmax is None else entry_zmax
         self.storage = storage
-        sharded = isinstance(self.backend, ShardedBackend)
         # int8 quantizes the live table on the single-index backends; the
         # sharded backend keeps its fp32 table and quantizes the IVF
         # snapshot instead (rebuild_ann_index), as the JAX engine does
         self._quantized = storage == "int8" and not sharded
+        self.tiered = tiered
         self.master_rows = master_rows
+        self.cold_after_rows = cold_after_rows
         # -- ANN (IVF) serving state; see repro_torch.core.ann_index ------
         self.search_mode = search_mode
         self.ann_nlist, self.ann_nprobe = ann_nlist, ann_nprobe
@@ -401,19 +439,40 @@ class KBEngine:
         self._build_stream = None
         self.search_stats = {"exact": 0, "ivf": 0}
         self.dispatches = 0         # device calls issued (bench metric)
-        if self._quantized:
+        # tiered engines size the device state to the resident slots only;
+        # every other row lives in the cold store until it is touched
+        rows = resident_rows if tiered else num_entries
+        self.resident_rows = rows
+        st = kbm.kb_create(rows, dim, device=self.device,
+                           generator=generator)
+        if self._quantized and generator is not None:
+            codes, self._qscale, self._qoffset = kbm.quantize_rows(st.table)
+            self.state = st._replace(table=codes)
+        elif self._quantized:
             # zero rows code as (codes 0, scale 1, offset 0): dequant is
             # exactly 0.0, as the fp32 zero init
-            st = kbm.kb_create(num_entries, dim, device=self.device)
             self.state = st._replace(table=torch.zeros(
-                (num_entries, dim), dtype=torch.int8, device=self.device))
-            self._qscale = torch.ones((num_entries,), dtype=torch.float32,
+                (rows, dim), dtype=torch.int8, device=self.device))
+            self._qscale = torch.ones((rows,), dtype=torch.float32,
                                       device=self.device)
-            self._qoffset = torch.zeros((num_entries,), dtype=torch.float32,
+            self._qoffset = torch.zeros((rows,), dtype=torch.float32,
                                         device=self.device)
         else:
-            self.state = kbm.kb_create(num_entries, dim, device=self.device)
+            self.state = st
             self._qscale = self._qoffset = None
+        # -- two-tier residency bookkeeping (host-side, O(N) ints), in the
+        # JAX engine's types and update order ------------------------------
+        if tiered:
+            self.cold_store = make_cold_store(cold_dir)
+            self._slot_of = np.full((num_entries,), -1, np.int64)
+            self._slot_id = np.full((rows,), -1, np.int64)
+            self._free_slots = list(range(rows - 1, -1, -1))
+            self._touch = np.zeros((num_entries,), np.int64)
+            self._gen = 0           # write clock: += distinct rows written
+        else:
+            self.cold_store = None
+        self.tier_faults = 0        # rows restored from the cold store
+        self.tier_spills = 0        # rows pushed down to the cold store
         # fp32 master set: exact rows as pushed by update, for the final
         # re-rank in int8 mode; invalidated per id by lazy_grad
         self._masters: "OrderedDict[int, np.ndarray]" = OrderedDict()
@@ -445,8 +504,9 @@ class KBEngine:
         self.check_ids(flat, "lookup")
         if flat.size == 0:
             return np.zeros((*ids.shape, self.dim), np.float32)
-        padded = self._tensor(_pad_repeat(flat, _bucket(flat.size)
-                                          - flat.size))
+        dev = self._admit(flat)
+        padded = self._tensor(_pad_repeat(dev, _bucket(dev.size)
+                                          - dev.size))
         if self._quantized:
             vals, self.state = self.backend.lookup_q(
                 self.state, self._qscale, self._qoffset, padded,
@@ -470,10 +530,11 @@ class KBEngine:
         _, keep = np.unique(ids[::-1], return_index=True)
         keep = ids.size - 1 - keep          # last occurrence of each id
         ids, values = ids[keep], values[keep]
+        dev = self._admit(ids)
         if self._quantized and self.master_rows > 0:
             self._remember_masters(ids, values)
         pad = _bucket(ids.size) - ids.size
-        ids_t = self._tensor(_pad_repeat(ids, pad))
+        ids_t = self._tensor(_pad_repeat(dev, pad))
         values_t = self._tensor(_pad_repeat(values, pad))
         if self._quantized:
             kbm.kb_update_q(self.state, self._qscale, self._qoffset, ids_t,
@@ -482,6 +543,9 @@ class KBEngine:
             self.state = self.backend.update(self.state, ids_t, values_t)
         self.dispatches += 1
         self._count_writes(ids)
+        if self.tiered:
+            self._gen += ids.size
+            self._spill_cold()
 
     def _remember_masters(self, ids: np.ndarray, values: np.ndarray) -> None:
         """Keep the pre-quantization rows of the last ``master_rows``
@@ -508,6 +572,7 @@ class KBEngine:
         if ids.size == 0:
             return
         grads = np.asarray(grads, np.float32).reshape(ids.size, -1)
+        dev = self._admit(ids)
         if self._quantized and self._masters:
             # these rows' live values leave their masters once the cached
             # gradient applies: drop the stale exact copies
@@ -515,7 +580,7 @@ class KBEngine:
                 self._masters.pop(g, None)
         n = ids.size
         pad = _bucket(n) - n
-        ids_t = self._tensor(_pad_repeat(ids, pad))
+        ids_t = self._tensor(_pad_repeat(dev, pad))
         grads_t = self._tensor(np.concatenate(
             [grads, np.zeros((pad, grads.shape[1]), np.float32)]))
         mask_t = self._tensor(np.concatenate([np.ones(n, np.float32),
@@ -524,7 +589,8 @@ class KBEngine:
             # lazy_grad touches only the fp32 caches, never the table, so
             # the fp32 op serves both storage modes
             self.state = self.backend.lazy_grad(
-                self.state, ids_t, grads_t, zmax=self.zmax, mask=mask_t)
+                self.state, ids_t, grads_t, zmax=self.entry_zmax,
+                mask=mask_t)
         else:
             # ablation baseline: immediate SGD scatter-add, no cache;
             # duplicates add in occurrence order, without atomics
@@ -534,6 +600,131 @@ class KBEngine:
                 kbm.occurrence_rounds(ids_t))
         self.dispatches += 1
         self._count_writes(ids)
+        if self.tiered:
+            self._gen += int(np.unique(ids).size)
+            self._spill_cold()
+
+    # -- two-tier residency (resident device slots + host/disk cold store) -
+
+    def _admit(self, flat: np.ndarray) -> np.ndarray:
+        """Tiered engines: fault this batch's rows into device slots and
+        translate global ids to slots (identity otherwise). Eviction is
+        oldest-touch-first among the resident rows NOT in the batch; a
+        batch with more distinct rows than there are slots is refused
+        before any row moves. The ids were checked, so none is clamped."""
+        if not self.tiered:
+            return flat
+        uniq = np.unique(flat)
+        miss = uniq[self._slot_of[uniq] < 0]
+        if miss.size:
+            short = miss.size - len(self._free_slots)
+            if short > 0:
+                res = np.flatnonzero(self._slot_id >= 0)
+                cand = res[~np.isin(self._slot_id[res], uniq)]
+                if cand.size < short:
+                    raise ValueError(
+                        f"batch touches {uniq.size} distinct rows but only "
+                        f"{self.resident_rows} device slots exist")
+                order = np.argsort(self._touch[self._slot_id[cand]],
+                                   kind="stable")
+                self._spill_slots(cand[order[:short]])
+            self._fault_in(miss)
+        self._touch[uniq] = self._gen
+        return self._slot_of[flat]
+
+    def _leaves(self) -> dict:
+        """The per-row device leaves by export name (``ROW_LEAVES``, and
+        ``scale`` / ``offset`` on an int8 engine)."""
+        out = {leaf: getattr(self.state, leaf) for leaf in self.ROW_LEAVES}
+        if self._quantized:
+            out["scale"], out["offset"] = self._qscale, self._qoffset
+        return out
+
+    def _host(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the engine's device. On the card the copy is queued
+        from a pinned copy of ``a`` that the caching host allocator keeps
+        until the copy has run, so no host sync is added."""
+        a = np.ascontiguousarray(a)
+        # torch shares no read-only memory (a JAX export's arrays are)
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _rows_to_host(self, idx: torch.Tensor) -> dict:
+        """Every leaf's rows ``idx`` as numpy, raw dtypes: one gather per
+        leaf on the device, packed into one byte matrix, so one
+        device-to-host copy (one host sync on the card) brings them all.
+        The arrays are views of that matrix."""
+        leaves = self._leaves()
+        # widest dtypes first, so that every view of the matrix is aligned
+        names = sorted(leaves, key=lambda f: -leaves[f].element_size())
+        parts = [leaves[f].index_select(0, idx) for f in names]
+        packed = torch.cat([(p if p.dim() == 2 else p[:, None]).view(
+            torch.uint8) for p in parts], 1).cpu().numpy()
+        out, col = {}, 0
+        for f, p in zip(names, parts):
+            width = (p.shape[1] if p.dim() == 2 else 1) * p.element_size()
+            a = packed[:, col:col + width].view(_NP_DTYPE[p.dtype])
+            out[f] = a if p.dim() == 2 else a[:, 0]
+            col += width
+        return {f: out[f] for f in leaves}
+
+    def _fault_in(self, gids: np.ndarray) -> None:
+        """Restore rows from the cold store (or materialize zero rows on
+        first-ever touch) into free slots: the FULL per-row state, so the
+        round trip is bit-identical. One host array and one copy per leaf
+        for the whole batch, scattered into the slots on the serving
+        stream. Slot contents changing under a built IVF index is row
+        churn, so faults charge the staleness clock."""
+        n = gids.size
+        slots = np.array(self._free_slots[:-n - 1:-1], np.int64)
+        del self._free_slots[-n:]
+        host = {f: np.zeros((n, *t.shape[1:]), _NP_DTYPE[t.dtype])
+                for f, t in self._leaves().items()}
+        if self._quantized:
+            host["scale"][:] = 1.0
+        for i, g in enumerate(gids.tolist()):
+            rec = self.cold_store.get(g)
+            if rec is None:
+                continue                        # first touch: zero row
+            self.tier_faults += 1
+            for f, a in host.items():
+                a[i] = rec[f]
+        idx = self._host(slots)
+        for f, t in self._leaves().items():
+            t.index_copy_(0, idx, self._host(host[f]))
+        self._slot_of[gids] = slots
+        self._slot_id[slots] = gids
+        self._count_writes(gids)
+
+    def _spill_slots(self, slots: np.ndarray) -> None:
+        """Push resident slots down to the cold store (full per-row state,
+        one record a row) and free them. The freed slots keep their stale
+        device contents: ``_slot_id`` = -1 masks them out of nn_search and
+        the next fault-in overwrites every leaf."""
+        if slots.size == 0:
+            return
+        rows = self._rows_to_host(self._host(slots))
+        gids = self._slot_id[slots]
+        for i, g in enumerate(gids.tolist()):
+            self.cold_store.put(g, {f: a[i] for f, a in rows.items()})
+        self._slot_of[gids] = -1
+        self._slot_id[slots] = -1
+        self._free_slots.extend(slots.tolist())
+        self.tier_spills += int(slots.size)
+
+    def _spill_cold(self) -> None:
+        """Proactive spill after a write op: rows untouched for at least
+        ``cold_after_rows`` write generations leave the device. An
+        O(resident) scan that never walks the full id space."""
+        if self.cold_after_rows is None:
+            return
+        res = np.flatnonzero(self._slot_id >= 0)
+        if res.size == 0:
+            return
+        age = self._gen - self._touch[self._slot_id[res]]
+        self._spill_slots(res[age >= self.cold_after_rows])
 
     def _count_writes(self, ids: np.ndarray) -> None:
         """Charge written rows to the global and the per-shard staleness
@@ -568,8 +759,11 @@ class KBEngine:
         if exclude_ids is not None:
             excl = np.asarray(exclude_ids, np.int64).reshape(B, -1)
             self.check_ids(excl, "nn_search exclude_ids", low=-1)
+            # capped at the rows searched: the bank's, or a tiered
+            # engine's slots
             scores, ids = self.nn_search(
-                queries, min(k + excl.shape[1], self.num_entries), mode=mode)
+                queries, min(k + excl.shape[1], self.resident_rows),
+                mode=mode)
             banned = ((ids[:, :, None] == excl[:, None, :])
                       & (excl[:, None, :] >= 0)).any(-1)
             scores = np.where(banned, -np.inf, scores)
@@ -599,17 +793,33 @@ class KBEngine:
                                                       nprobe)
             self.search_stats["ivf"] += 1
         else:
+            kk = min(k, self.resident_rows) if self.tiered else k
             if self._quantized:
                 scores, ids = kbm.kb_nn_search_q(
-                    self.state, self._qscale, self._qoffset, q, k)
+                    self.state, self._qscale, self._qoffset, q, kk)
             else:
-                scores, ids = self.backend.nn_search(self.state, q, k)
+                scores, ids = self.backend.nn_search(self.state, q, kk)
             self.search_stats["exact"] += 1
         self.dispatches += 1
         scores, ids = scores[:B].cpu().numpy(), ids[:B].cpu().numpy()
+        if self.tiered:
+            scores, ids = self._tier_translate(scores, ids)
         if self._quantized and self._masters:
             scores, ids = self._master_rerank(queries, scores, ids)
         return scores[:, :k], ids[:, :k]
+
+    def _tier_translate(self, scores: np.ndarray, ids: np.ndarray):
+        """The search ran over device SLOTS; map the winners back to global
+        ids. Slots that are empty (never occupied, or spilled: their device
+        rows are stale) become (-inf, -1) and re-sort to the tail."""
+        scores, ids = scores.copy(), ids.copy()
+        valid = ids >= 0
+        gids = np.full_like(ids, -1)
+        gids[valid] = self._slot_id[ids[valid]]
+        scores[gids < 0] = -np.inf
+        order = np.argsort(-scores, axis=1, kind="stable")
+        return (np.take_along_axis(scores, order, 1),
+                np.take_along_axis(gids, order, 1))
 
     def _master_rerank(self, queries: np.ndarray, scores: np.ndarray,
                        ids: np.ndarray):
@@ -769,7 +979,12 @@ class KBEngine:
         """Replace the state with copies of numpy ``leaves`` keyed by the
         ``KBState`` field names (``repro_torch.convert``); an int8 engine
         takes int8 codes as ``table`` and its side-cars as ``scale`` and
-        ``offset``."""
+        ``offset``. A tiered engine refuses: its rows are split between
+        slots and the cold store."""
+        if self.tiered:
+            raise ValueError("load_state: a tiered engine's rows live in "
+                             "device slots and the cold store; load an "
+                             "untiered engine instead")
         state = kb_state_from_numpy(leaves, self.device)
         want = torch.int8 if self._quantized else torch.float32
         if (tuple(state.table.shape) != (self.num_entries, self.dim)
@@ -785,31 +1000,135 @@ class KBEngine:
                 for f in ("scale", "offset"))
         self.state = state
 
+    def _cold_rows(self):
+        """The global ids held only by the cold store (not resident), in
+        the store's order, and their records."""
+        gids = [g for g in self.cold_store.ids() if self._slot_of[g] < 0]
+        return gids, [self.cold_store.get(g) for g in gids]
+
+    def _full_space(self, resident: np.ndarray, cold: np.ndarray,
+                    gids) -> np.ndarray:
+        """Rows of the full id space from the slots' ``resident`` and the
+        cold rows ``cold`` of ``gids``; never-touched rows are zeros."""
+        out = np.zeros((self.num_entries, *resident.shape[1:]),
+                       resident.dtype)
+        res = np.flatnonzero(self._slot_id >= 0)
+        out[self._slot_id[res]] = resident[res]
+        if len(gids):
+            out[np.asarray(gids, np.int64)] = cold
+        return out
+
     def table_snapshot(self) -> np.ndarray:
-        """Host copy of the live table, fp32 (an int8 bank dequantized);
-        pending gradients not applied."""
+        """Host copy of the live table, (num_entries, D) fp32 (an int8 bank
+        dequantized); pending gradients not applied. A tiered engine
+        splices the slots and the cold store's rows into the full id
+        space (never-touched rows read as zeros), dequantizing the cold
+        rows with the slots' arithmetic."""
         if self._quantized:
-            return kbm.dequantize_rows(self.state.table, self._qscale,
-                                       self._qoffset).cpu().numpy()
-        return self.state.table.to("cpu", copy=True).numpy()
+            tbl = kbm.dequantize_rows(self.state.table, self._qscale,
+                                      self._qoffset).cpu().numpy()
+        else:
+            tbl = self.state.table.to("cpu", copy=True).numpy()
+        if not self.tiered:
+            return tbl
+        gids, recs = self._cold_rows()
+        cold = np.zeros((len(gids), self.dim), np.float32)
+        if recs and self._quantized:
+            cold = kbm.dequantize_rows(*(
+                torch.from_numpy(np.stack([r[f] for r in recs]))
+                for f in ("table", "scale", "offset"))).numpy()
+        elif recs:
+            cold = np.stack([r["table"] for r in recs])
+        return self._full_space(tbl, cold, gids)
 
     def version_snapshot(self) -> np.ndarray:
-        """Host copy of the per-row version counters."""
-        return self.state.version.to("cpu", copy=True).numpy()
+        """Host copy of the per-row version counters; a tiered engine
+        splices the cold store's versions into the full id space."""
+        ver = self.state.version.to("cpu", copy=True).numpy()
+        if not self.tiered:
+            return ver
+        gids, recs = self._cold_rows()
+        cold = np.array([r["version"] for r in recs], np.int32)
+        return self._full_space(ver, cold, gids)
 
     def storage_stats(self) -> dict:
         """Memory-residency accounting, in the JAX engine's keys: a row
         costs D * 4 bytes in fp32 and D codes plus 8 bytes of scale and
-        offset in int8; every row is resident, plus the fp32 masters."""
+        offset in int8; ``resident_rows`` device rows (a tiered engine's
+        slots) plus the fp32 masters; ``cold_rows`` records in the cold
+        store and the tier's fault and spill counts."""
         bpr = (self.dim * self.state.table.element_size()
                + (8 if self._quantized else 0))
         master_bytes = sum(m.nbytes for m in self._masters.values())
         return {"mode": self.storage, "bytes_per_row": bpr,
-                "resident_rows": self.num_entries,
-                "total_rows": self.num_entries, "cold_rows": 0,
-                "bytes_resident": bpr * self.num_entries + master_bytes,
+                "resident_rows": self.resident_rows,
+                "total_rows": self.num_entries,
+                "cold_rows": len(self.cold_store) if self.tiered else 0,
+                "bytes_resident": bpr * self.resident_rows + master_bytes,
                 "master_rows": len(self._masters),
-                "tier_faults": 0, "tier_spills": 0}
+                "tier_faults": int(self.tier_faults),
+                "tier_spills": int(self.tier_spills)}
+
+    # every per-row leaf a row owns, in one canonical order: the contract
+    # behind replica warm-fill and resharding row streams. export -> import
+    # round-trips bit-identically, pending lazy gradients and the clip EMA
+    # included
+    ROW_LEAVES = ("table", "version", "grad_sum", "grad_cnt",
+                  "grad_sqnorm", "norm_ema")
+
+    def _row_ids(self, ids, what: str) -> np.ndarray:
+        """``ids`` as int64 after the refusals of the JAX engine: tiered
+        and sharded engines, ids outside [0, num_entries)."""
+        if self.tiered:
+            raise ValueError(f"{what}: tiered engines hold row state "
+                             "across device slots + the cold store; "
+                             "row-range transfer is not supported")
+        if isinstance(self.backend, ShardedBackend):
+            raise ValueError(f"{what}: sharded backends are not supported "
+                             "(owner-masked row state)")
+        return np.asarray(ids).reshape(-1).astype(np.int64)
+
+    def _check_range(self, ids: np.ndarray, what: str) -> None:
+        if ids.size and (ids.min() < 0 or ids.max() >= self.num_entries):
+            raise ValueError(f"{what}: ids out of range "
+                             f"(0..{self.num_entries - 1})")
+
+    def export_rows(self, ids) -> dict:
+        """Full per-row state for ``ids`` as ``{leaf: np.ndarray}``:
+        ``ROW_LEAVES`` plus the ``scale`` / ``offset`` side-cars on int8
+        engines. Values are raw (int8 codes stay codes), so ``import_rows``
+        on a same-config engine, of either package, reproduces the rows
+        bit-identically, pending lazy gradients and the norm EMA
+        included. Tiered and sharded engines refuse."""
+        ids = self._row_ids(ids, "export_rows")
+        self._check_range(ids, "export_rows")
+        rows = self._rows_to_host(self._host(ids))
+        return {f: np.ascontiguousarray(a) for f, a in rows.items()}
+
+    def import_rows(self, ids, leaves: dict) -> None:
+        """Scatter ``export_rows`` output into this engine's rows: the
+        receiving half of replica warm-fill and reshard streaming. The
+        leaf set must match this engine's storage. Imported rows count as
+        writes (ANN staleness) and drop the fp32 masters of the touched
+        ids (a master was exact for the OLD row value)."""
+        ids = self._row_ids(ids, "import_rows")
+        want = set(self.ROW_LEAVES) | (
+            {"scale", "offset"} if self._quantized else set())
+        if set(leaves) != want:
+            raise ValueError(f"import_rows: leaf set {sorted(leaves)} != "
+                             f"expected {sorted(want)} (storage mismatch?)")
+        if ids.size == 0:
+            return
+        self._check_range(ids, "import_rows")
+        idx = self._host(ids)
+        for f, t in self._leaves().items():
+            t.index_copy_(0, idx, self._host(np.asarray(
+                leaves[f], _NP_DTYPE[t.dtype]).reshape(ids.size,
+                                                       *t.shape[1:])))
+        if self._quantized and self._masters:
+            for g in np.unique(ids).tolist():
+                self._masters.pop(g, None)
+        self._count_writes(ids)
 
 
 def _check_search_mode(mode: str) -> None:

@@ -57,6 +57,16 @@ budget, and the summary ends with one line per shard. ogbn-mag's
   PYTHONPATH=src python -m repro_torch.launch.serve --kb \
       --kb-backend sharded --kb-shards 3 --kb-search ivf
 
+``--kb-resident-rows R`` keeps R rows of the bank in device slots and
+the rest in a host-RAM cold store (``--kb-cold-dir DIR``: one file a row
+on disk), faulting rows in as requests touch them; ``--kb-cold-after A``
+spills rows untouched for A written rows. The fill then goes in chunks
+of R rows, and the storage line shows the slots, the cold rows and the
+tier's faults and spills. ogbn-mag at four times its device tier:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --kb \
+      --kb-resident-rows 484936 --kb-cold-after 242468
+
 ``--kb-makers KIND[,KIND...]`` runs the checkpoint-free knowledge makers
 (``graph_builder``) beside the serving bank, as background clients of the
 same server paced by ``--kb-maker-period`` seconds (their traffic shares
@@ -125,10 +135,21 @@ def serve_kb(args) -> dict:
                                  ann_nprobe=args.nprobe,
                                  storage=args.kb_storage,
                                  cache_rows=args.kb_cache_rows,
+                                 resident_rows=args.kb_resident_rows,
+                                 cold_after_rows=args.kb_cold_after,
+                                 cold_dir=args.kb_cold_dir or None,
                                  device=args.device)
-    server.update(np.arange(args.kb_entries),
-                  rng.standard_normal((args.kb_entries, args.kb_dim),
-                                      dtype=np.float32))
+    fill = rng.standard_normal((args.kb_entries, args.kb_dim),
+                               dtype=np.float32)
+    # a tiered bank bounds the distinct rows one write may touch: fill it
+    # in chunks that fit the resident tier
+    chunk = args.kb_resident_rows or args.kb_entries
+    t0 = time.perf_counter()
+    for lo in range(0, args.kb_entries, chunk):
+        hi = min(lo + chunk, args.kb_entries)
+        server.update(np.arange(lo, hi), fill[lo:hi])
+    fill_s = time.perf_counter() - t0
+    del fill
     server.warmup(args.batch * args.clients)
     refresher, build_s = None, None
     if args.kb_search == "ivf":
@@ -218,6 +239,7 @@ def serve_kb(args) -> dict:
             "coalescing_factor": server.coalescing_factor,
             "search_stats": stats, "index_rebuilds": rebuilds,
             "shard_rebuilds": shard_rebuilds, "first_index_s": build_s,
+            "fill_s": fill_s,
             "maker_stats": maker_stats, "engine": server.engine}
 
 
@@ -320,6 +342,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kb-cache-rows", type=int, default=0,
                     help="hot-id LRU capacity (rows) in front of the "
                          "engine; 0 disables the cache")
+    ap.add_argument("--kb-resident-rows", type=int, default=None,
+                    help="two-tier mode: keep only this many rows "
+                         "device-resident; the rest spill to the cold "
+                         "store and fault back on first touch")
+    ap.add_argument("--kb-cold-after", type=int, default=None,
+                    help="proactively spill rows untouched for this many "
+                         "written rows (requires --kb-resident-rows)")
+    ap.add_argument("--kb-cold-dir", default="",
+                    help="cold-tier spill directory (default: host RAM)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--listen", default="", metavar="HOST:PORT",

@@ -19,11 +19,9 @@ import repro_torch.core as tcore
 
 ROOT = Path(__file__).resolve().parents[1]
 # the names of repro.core.__all__ that wait for their slices (ROADMAP "Not
-# ported"): the cold stores, the shard_map ops, the Pallas backend (the
-# port's kernel backend is CudaBackend), the wire protocol, transport and
-# router
+# ported"): the shard_map ops, the Pallas backend (the port's kernel
+# backend is CudaBackend), the wire protocol, transport and router
 UNPORTED = {
-    "DiskColdStore", "MemoryColdStore", "make_cold_store",
     "kb_axes", "kb_pspecs", "sharded_kb_flush", "sharded_kb_lazy_grad",
     "sharded_kb_lookup", "sharded_kb_update", "PallasBackend",
     "LANE_BULK", "LANE_CONTROL", "LANE_POINT", "PROTOCOL_VERSION",
@@ -40,7 +38,7 @@ PORTED = [n for n in jcore.__all__ if n not in UNPORTED]
 
 def test_all_lists_the_ported_names_in_the_reference_order():
     assert tcore.__all__ == PORTED
-    assert len(PORTED) == 54 and len(jcore.__all__) == 89
+    assert len(PORTED) == 57 and len(jcore.__all__) == 89
 
 
 @pytest.mark.parametrize("name", PORTED)

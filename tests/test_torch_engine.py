@@ -197,16 +197,18 @@ def test_kb_ops_facade_binds_the_knobs():
 
 
 def test_unported_options_raise():
-    """What stays unported raises, naming ROADMAP: tiered residency, on
-    every backend. int8 storage, IVF search and the sharded backend are
-    ported (tests/test_torch_quantized.py, tests/test_torch_ann_index.py
-    and tests/test_torch_sharded_ivf.py hold them against the JAX
-    package) and are accepted here."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KBEngine(N, D, resident_rows=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KBEngine(N, D, storage="int8", resident_rows=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Tiered residency, int8 storage, IVF search and the sharded backend
+    are ported (tests/test_torch_tiering.py, test_torch_quantized.py,
+    test_torch_ann_index.py and test_torch_sharded_ivf.py hold them
+    against the JAX package): fp32 and int8 tiered engines construct with
+    their slots, and tiering on the sharded backend raises ValueError,
+    single-device only, as in the JAX engine."""
+    eng = KBEngine(N, D, resident_rows=16, device="cpu")
+    assert eng.tiered and eng.state.table.shape == (16, D)
+    eng = KBEngine(N, D, storage="int8", resident_rows=16, device="cpu")
+    assert eng.tiered and eng.state.table.dtype == torch.int8
+    assert eng._qscale.shape == (16,)
+    with pytest.raises(ValueError, match="single-device"):
         KBEngine(N, D, backend=ShardedBackend(4), resident_rows=16,
                  device="cpu")
     sharded = make_backend("sharded", n_shards=4)
