@@ -163,7 +163,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
    split between the trainer's kernels and the makers' and server's;
    (c)
    ``serve --kb --kb-makers graph_builder`` at phase 4's fp32 exact
-   configuration, whose graph builder must write rows.
+   configuration, whose graph builder must write rows;
+10. the wire protocol v4 and the fleet, each bank, member, maker worker
+   and trainer a process of its own on the card (``python -m
+   repro_torch.launch.serve --kb --listen 127.0.0.1:0`` and the others),
+   this process only their client: (a) one bank at phase 4's fp32 exact
+   configuration against the same bank in this process (same seed, fill
+   and warm-up): a fixed op stream (8 rounds of lookups, lazy gradients,
+   updates, searches with and without exclusion, a flush and a lookup of
+   every touched row) whose results, table and touched rows' leaves
+   (versions included) must be bit-identical, then the 8-client drive's
+   req/s over the wire and in process, one sample each; (b) members
+   ``--kb-join 0/2`` and ``1/2`` and a ``--replica-of`` standby of member
+   0 behind a ``KBRouter``: the same op stream bit-identical to one bank
+   in this process (ids, scores, table), then 24 writes of 32 rows
+   stream while member 0 is SIGKILLed after 12: one promotion, and every
+   acknowledged write must read back; (c) the train launcher's
+   ``--makers graph_builder --kb-connect`` mode (``run_async``) at phase
+   8's configuration
+   against a ``serve --kb --kb-entries 2048 --kb-dim 4096`` process (its
+   rows set to zeros, as the in-process triangle's bank), with a
+   ``maker_worker --makers graph_builder`` process beside it: losses
+   finite and falling, ms a step beside phase 9's, the summed peak of the
+   processes under 80 GB. Each process's kernel launches on its path are
+   read from its server's stats (``"device"``) just before and just after
+   the path, and each path must launch the lookup, flush and search
+   kernels (the trainer: AdamW; its bank: the lookup and the search).
 
 Phase 2 also holds nn_search beyond the serve shape (a repeated run
 bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
@@ -225,9 +250,13 @@ import bisect
 import gc
 import json
 import math
+import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -247,6 +276,8 @@ from repro_torch.core.async_runtime import (  # noqa: E402
 from repro_torch.core.kb_engine import (  # noqa: E402
     CudaBackend, DenseBackend, KBEngine, KBIdError, ShardedBackend,
     make_kb_ops)
+from repro_torch.core.kb_router import connect_kb  # noqa: E402
+from repro_torch.core.kb_transport import RemoteKnowledgeBank  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_with_lse, flash_stage_cycles)
@@ -3783,6 +3814,10 @@ def phase9_triangle() -> dict:
                          SERVE_MAKER_PERIOD)
     triangle_run("yi-6b full width with all four makers, profiled", cfg,
                  True, steps=ASYNC_PROFILE_STEPS, profile=True)
+    TRIANGLE_MS.update({
+        "with makers": (with_m["core_ms"], with_m["loop_ms"]),
+        "without": (without["core_ms"], without["loop_ms"]),
+        "paced makers": (paced["core_ms"], paced["loop_ms"])})
     c = with_m["counts"]
     require(c["kb_fused_lookup"] > 0 and c["nn_search"] > 0,
             f"the triangle did not reach both kernels at width "
@@ -3818,6 +3853,452 @@ def phase9_makers() -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the wire protocol v4 and the fleet, each bank, member, worker
+# and trainer a process of its own on the card
+# ---------------------------------------------------------------------------
+
+WIRE_SEED = 7
+WIRE_ROUNDS = 8                     # rounds of the bit-compared op stream
+WIRE_BOOT_S = 300.0                 # a child's fill, kernel load, warm-up
+WIRE_TRAIN_S = 900.0                # the trainer child's whole run
+WIRE_WRITES, WIRE_KILL_AT = 24, 12  # writes streamed; acked before SIGKILL
+DEVICE_BYTES = 80e9                 # the card's memory, for the summed peak
+WIRE_KERNELS = ("kb_fused_lookup", "lazy_apply", "nn_search")
+CHILD_ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+# the trainer child: the train launcher's async mode (``run_async``) on
+# its parser's arguments and phase 8's full-width config (the launcher's
+# own config is always the reduced one), then its run's numbers as one
+# JSON line
+WIRE_TRAINER = (
+    "import json, sys, torch\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.env import resolve_device\n"
+    "from repro_torch.kernels import ops\n"
+    "from repro_torch.launch import train\n"
+    "args = train.build_parser().parse_args(sys.argv[1:])\n"
+    "cfg = get_config(args.arch).replace(num_layers=args.layers)\n"
+    "out = train.run_async(cfg, args, resolve_device(args.device))\n"
+    "res = out['result']\n"
+    "print('wire trainer: ' + json.dumps({\n"
+    "    'losses': res.losses,\n"
+    "    'core_ms': [t * 1e3 for t in res.step_times],\n"
+    "    'loop_ms': [t * 1e3 for t in res.loop_times],\n"
+    "    'launches': ops.launch_counts(), 'seconds': out['seconds'],\n"
+    "    'peak': torch.cuda.max_memory_allocated()}), flush=True)\n")
+TRIANGLE_MS = {}                    # phase 9's in-process triangle
+CHILDREN = []
+
+
+class Child:
+    """A launcher run as a process of its own (``python`` with ``argv``
+    from the checkout's root), its output drained by a thread; the port
+    of its "listening on" line is read as it comes."""
+
+    def __init__(self, name: str, argv):
+        self.name, self.port, self.lines = name, None, []
+        self.listening = threading.Event()
+        self.proc = subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT, env=CHILD_ENV,
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(self)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            m = re.search(r"listening on 127\.0\.0\.1:(\d+)", line)
+            if m and self.port is None:
+                self.port = int(m.group(1))
+                self.listening.set()
+        self.listening.set()                # EOF: it will never listen
+
+    def wait_port(self) -> int:
+        self.listening.wait(WIRE_BOOT_S)
+        require(self.port is not None, f"{self.name} did not listen within "
+                f"{WIRE_BOOT_S} s (exit {self.proc.poll()}):\n"
+                + "".join(self.lines[-40:]))
+        return self.port
+
+    def wait(self, timeout: float) -> int:
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+            require(False, f"{self.name} ran past {timeout} s:\n"
+                    + "".join(self.lines[-40:]))
+        self.reader.join(30)
+        return self.proc.returncode
+
+    def stop(self, sig=signal.SIGTERM, timeout: float = 120.0) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+        return self.wait(timeout)
+
+    def output(self) -> str:
+        return "".join(self.lines)
+
+    def log_output(self) -> None:
+        for line in self.lines:
+            log(f"phase 10: [{self.name}] {line.rstrip()}")
+
+
+def stop_children() -> None:
+    """Kill every child still running (a failed check's way out)."""
+    for c in CHILDREN:
+        if c.proc.poll() is None:
+            c.proc.kill()
+            c.proc.wait(30)
+    CHILDREN.clear()
+
+
+def serve_child(name: str, *extra, rows: int = None,
+                dim: int = None) -> Child:
+    """``repro_torch.launch.serve --kb --listen 127.0.0.1:0`` on the card
+    (seed 0, the 8 x 4 drive's warm-up) of ``rows`` x ``dim`` (phase 4's
+    bank by default), ``extra`` appended."""
+    return Child(name, ["-m", "repro_torch.launch.serve", "--kb",
+                        "--kb-entries", str(rows or N_ROWS), "--kb-dim",
+                        str(dim or DIM), "--listen", "127.0.0.1:0",
+                        "--clients", "8", "--batch", "4", *extra])
+
+
+def monitor(port: int):
+    """A client of its own to one process's bank, to read its stats."""
+    return RemoteKnowledgeBank("127.0.0.1", port, max_retries=0,
+                               connect_timeout_s=30.0)
+
+
+def device_stats(client) -> dict:
+    return client.stats()["device"]
+
+
+def launches_since(before: dict, after: dict) -> dict:
+    return {k: after["launches"][k] - before["launches"][k]
+            for k in after["launches"]}
+
+
+def launched(counts: dict) -> dict:
+    """The kernels that launched, for the log."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def require_launched(label: str, counts: dict, kernels) -> None:
+    missing = [k for k in kernels if counts[k] <= 0]
+    require(not missing, f"{label}: {missing} never launched in its "
+            f"process: {counts}")
+
+
+def inprocess_bank() -> KnowledgeBankServer:
+    """The serve launcher's bank in this process: the same seed, fill and
+    warm-up, so its state equals a serving child's bit for bit."""
+    srv = KnowledgeBankServer(N_ROWS, DIM, device="cuda")
+    fill = np.random.default_rng(0).standard_normal((N_ROWS, DIM),
+                                                    dtype=np.float32)
+    srv.update(np.arange(N_ROWS), fill)
+    del fill
+    srv.warmup(BATCH)
+    return srv
+
+
+def wire_stream(client):
+    """One fixed op stream over ``client``: lookups, lazy gradients,
+    updates, searches with and without exclusion, a flush and a lookup of
+    every touched row. Returns (every result in order, the touched
+    ids)."""
+    rng = np.random.default_rng(WIRE_SEED)
+    out, touched = [], []
+    for r in range(WIRE_ROUNDS):
+        ids = rng.integers(0, N_ROWS, BATCH)
+        out.append(client.lookup(ids, trainer_step=r))
+        client.lazy_grad(ids, 0.01 * rng.standard_normal((BATCH, DIM),
+                                                         dtype=np.float32))
+        up = rng.integers(0, N_ROWS, 8)
+        client.update(up, rng.standard_normal((8, DIM), dtype=np.float32),
+                      src_step=r)
+        out.append(client.lookup(ids[:8], trainer_step=r))
+        q = rng.standard_normal((BATCH, DIM), dtype=np.float32)
+        out.extend(client.nn_search(q, K))
+        out.extend(client.nn_search(q[:8], K, exclude_ids=ids[:8, None]))
+        touched += [ids, up]
+    client.flush()
+    touched = np.unique(np.concatenate(touched))
+    out.append(client.lookup(touched))
+    return out, touched
+
+
+def require_bit_identical(label: str, got, want) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.dtype != b.dtype or a.shape != b.shape
+           or not np.array_equal(a, b)]
+    require(len(got) == len(want) and not bad, f"{label}: results "
+            f"{bad} of {len(want)} differ from the single server's")
+
+
+def wire_drive(clients, rounds: int) -> float:
+    """The serve launcher's drive over ``clients`` (one a thread, 8
+    threads x batch 4: lookup -> lazy_grad -> nn_search); returns
+    req/s."""
+    def run(t: int, c):
+        crng = np.random.default_rng(1 + t)
+        for _ in range(rounds):
+            ids = crng.integers(0, N_ROWS, 4)
+            vals = c.lookup(ids)
+            c.lazy_grad(ids, 0.01 * vals)
+            c.nn_search(vals, k=K)
+
+    threads = [threading.Thread(target=run, args=(t, c))
+               for t, c in enumerate(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return len(clients) * rounds * 3 / (time.perf_counter() - t0)
+
+
+def phase10_remote(paths: dict) -> None:
+    """(a) one bank served to this process over the wire against the same
+    bank in process: the fixed op stream bit-identical (lookups, scores,
+    ids, the table, every leaf of the touched rows, versions included),
+    then the 8-client drive's req/s over each, one sample each."""
+    child = serve_child("wire server")
+    ref = inprocess_bank()
+    port = child.wait_port()
+    mon = monitor(port)
+    before = device_stats(mon)
+    client = RemoteKnowledgeBank("127.0.0.1", port, connect_timeout_s=30.0)
+    t0 = time.perf_counter()
+    got, touched = wire_stream(client)
+    wire_s = time.perf_counter() - t0
+    want, _ = wire_stream(ref)
+    require_bit_identical("phase 10 (a)", got, want)
+    leaves_w, leaves_r = client.export_rows(touched), ref.export_rows(touched)
+    require(all(np.array_equal(leaves_w[k], leaves_r[k]) for k in leaves_r),
+            "phase 10 (a): the touched rows' leaves differ")
+    require(np.array_equal(client.table_snapshot(), ref.table_snapshot()),
+            "phase 10 (a): the served table differs from the in-process one")
+    log(f"phase 10: (a) wire vs in-process bank ({N_ROWS} x {DIM} fp32 "
+        f"exact): {len(want)} results of {WIRE_ROUNDS} rounds bit-identical "
+        f"(lookups, scores, ids), the table and the {touched.size} touched "
+        f"rows' leaves {sorted(leaves_r)} bit-identical; the stream took "
+        f"{wire_s:.3f} s over the wire")
+    clients = [RemoteKnowledgeBank("127.0.0.1", port, connect_timeout_s=30.0)
+               for _ in range(8)]
+    wire_rps = wire_drive(clients, SERVE_ROUNDS)
+    local_rps = wire_drive([ref] * 8, SERVE_ROUNDS)
+    for c in clients + [client]:
+        c.close()
+    after = device_stats(mon)
+    mon.close()
+    counts = launches_since(before, after)
+    require_launched("phase 10 (a) wire server", counts, WIRE_KERNELS)
+    paths["wire_serve"] = counts
+    rc = child.stop()
+    child.log_output()
+    require(rc == 0, f"the wire server exited {rc}")
+    log(f"phase 10: (a) 8 clients x batch 4, {SERVE_ROUNDS} rounds: "
+        f"{wire_rps} req/s over the wire, {local_rps} req/s in process "
+        f"(one sample each, no claim); the server process's launches "
+        f"{launched(counts)}, peak device memory {after['peak_bytes']} "
+        f"bytes")
+    ref.close()
+
+
+def phase10_fleet(paths: dict) -> None:
+    """(b) members 0/2 and 1/2 and a --replica-of standby of member 0 on
+    the card, behind a KBRouter: the fixed op stream bit-identical to one
+    in-process bank; then writes stream while member 0 is SIGKILLed, the
+    router promotes the standby, and every acknowledged write reads
+    back."""
+    p0 = serve_child("member 0/2", "--kb-join", "0/2")
+    p1 = serve_child("member 1/2", "--kb-join", "1/2")
+    ref = inprocess_bank()
+    port0, port1 = p0.wait_port(), p1.wait_port()
+    s0 = serve_child("standby of 0/2", "--kb-join", "0/2", "--replica-of",
+                     f"127.0.0.1:{port0}")
+    sport = s0.wait_port()
+    t0 = time.perf_counter()
+    router = connect_kb(f"127.0.0.1:{port0}|127.0.0.1:{sport},"
+                        f"127.0.0.1:{port1}", max_retries=1,
+                        connect_timeout_s=30.0)
+    attach_s = time.perf_counter() - t0
+    require(router.standby_status() == [True, False],
+            f"the standby is not attached: {router.standby_status()}")
+    mons = {name: monitor(port) for name, port in
+            (("fleet_member0", port0), ("fleet_member1", port1),
+             ("fleet_standby0", sport))}
+    before = {name: device_stats(m) for name, m in mons.items()}
+    got, _ = wire_stream(router)
+    want, _ = wire_stream(ref)
+    require_bit_identical("phase 10 (b)", got, want)
+    require(np.array_equal(router.table_snapshot(), ref.table_snapshot()),
+            "phase 10 (b): the fleet's table differs from one bank's")
+    log(f"phase 10: (b) fleet of 2 members ({router.pmap.counts.tolist()} "
+        f"rows)"
+        f" and a standby of member 0 (attached and filled in "
+        f"{attach_s:.2f} s): {len(want)} results bit-identical to one "
+        f"in-process bank, the table bit-identical")
+    ref.close()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # writes stream from a thread; member 0 dies after WIRE_KILL_AT acks
+    rng = np.random.default_rng(WIRE_SEED + 1)
+    acked, acks, errors = {}, threading.Semaphore(0), []
+    kill_go = threading.Event()
+
+    def writer():
+        try:
+            for i in range(WIRE_WRITES):
+                if i == WIRE_KILL_AT:
+                    kill_go.set()
+                    time.sleep(0.05)        # the kill lands mid-stream
+                ids = rng.choice(N_ROWS, BATCH, replace=False)
+                vals = rng.standard_normal((BATCH, DIM), dtype=np.float32)
+                router.update(ids, vals, src_step=100 + i)
+                acked.update(zip(ids.tolist(), vals))
+                acks.release()
+        except Exception as e:          # reported below
+            errors.append(e)
+        kill_go.set()
+
+    th = threading.Thread(target=writer)
+    th.start()
+    kill_go.wait(600)
+    last0 = device_stats(mons["fleet_member0"])
+    p0.proc.kill()                      # SIGKILL: its CUDA context goes too
+    t_kill = time.perf_counter()
+    th.join(600)
+    require(not errors, f"phase 10 (b): a write failed: {errors}")
+    ids = np.array(sorted(acked))
+    back = router.lookup(ids)
+    lost = int((back != np.stack([acked[g] for g in ids])).any(1).sum())
+    promote_s = time.perf_counter() - t_kill
+    q = np.random.default_rng(WIRE_SEED + 2).standard_normal(
+        (BATCH, DIM), dtype=np.float32)
+    s_nn, i_nn = router.nn_search(q, K)
+    require(bool(np.isfinite(s_nn).all()) and (i_nn >= 0).all(),
+            "phase 10 (b): a search after the promotion failed")
+    rm = dict(router.router_metrics)
+    after = {"fleet_member0": last0,
+             "fleet_member1": device_stats(mons["fleet_member1"]),
+             "fleet_standby0": device_stats(mons["fleet_standby0"])}
+    for m in mons.values():
+        m.close()
+    router.close()
+    require(rm["promotions"] == 1 and lost == 0,
+            f"phase 10 (b): {rm['promotions']} promotions, {lost} of "
+            f"{ids.size} acknowledged writes lost")
+    for name in mons:
+        counts = launches_since(before[name], after[name])
+        require_launched(f"phase 10 (b) {name}", counts, WIRE_KERNELS)
+        paths[name] = counts
+        log(f"phase 10: (b) {name}: launches {launched(counts)}, peak "
+            f"device memory "
+            f"{after[name]['peak_bytes']} bytes"
+            + (" (read just before its SIGKILL)"
+               if name == "fleet_member0" else ""))
+    log(f"phase 10: (b) {WIRE_WRITES} writes of {BATCH} rows streamed, "
+        f"member 0 SIGKILLed after {WIRE_KILL_AT}: {rm['promotions']} "
+        f"promotion, {ids.size} acknowledged rows read back, {lost} lost; "
+        f"{promote_s:.3f} s from the kill to the read-back; router "
+        f"{rm}")
+    for c, want_rc in ((s0, 0), (p1, 0)):
+        rc = c.stop()
+        c.log_output()
+        require(rc == want_rc, f"{c.name} exited {rc}")
+    require(p0.wait(60) == -signal.SIGKILL, f"member 0 exited "
+            f"{p0.proc.returncode}")
+    p0.log_output()
+
+
+def phase10_trainer(paths: dict) -> None:
+    """(c) the train launcher at phase 8's full width (yi-6b, 16 layers, 8
+    x 64, lr 1e-4, the graph builder in its runtime) against a bank of
+    2048 x 4096 in another process, set to zeros as the in-process
+    triangle's, with a maker_worker process's graph builder beside it."""
+    bank = serve_child("train bank", rows=TRAIN_NODES, dim=WIDE_DIM)
+    port = bank.wait_port()
+    mon = monitor(port)
+    mon.update(np.arange(TRAIN_NODES),
+               np.zeros((TRAIN_NODES, WIDE_DIM), np.float32))
+    before = device_stats(mon)
+    spec = f"127.0.0.1:{port}"
+    worker = Child("maker worker", [
+        "-m", "repro_torch.launch.maker_worker", "--connect", spec,
+        "--makers", "graph_builder", "--batch", str(ASYNC_MAKER_B)])
+    trainer = Child("trainer", [
+        "-c", WIRE_TRAINER, "--layers", str(TRAIN_LAYERS),
+        "--makers", "graph_builder", "--kb-connect", spec,
+        "--steps", str(ASYNC_STEPS), "--batch", str(TRAIN_B),
+        "--seq", str(TRAIN_SEQ), "--nodes", str(TRAIN_NODES),
+        "--lr", str(TRAIN_LR), "--maker-batch", str(ASYNC_MAKER_B),
+        "--ckpt-period", str(ASYNC_CKPT)])
+    rc = trainer.wait(WIRE_TRAIN_S)
+    trainer.log_output()
+    require(rc == 0, f"the trainer exited {rc}")
+    rc = worker.stop()
+    worker.log_output()
+    require(rc == 0, f"the maker worker exited {rc}")
+    line = next((ln for ln in trainer.lines
+                 if ln.startswith("wire trainer: ")), None)
+    require(line is not None, "the trainer printed no result")
+    res = json.loads(line[len("wire trainer: "):])
+    m = re.search(r"maker-worker done: steps=(\d+) rows_written=(\d+) "
+                  r"errors=(\d+)", worker.output())
+    require(m is not None and int(m.group(1)) > 0 and int(m.group(2)) > 0
+            and int(m.group(3)) == 0, f"the maker worker: {m and m.group(0)}")
+    after = device_stats(mon)
+    mon.close()
+    bank_counts = launches_since(before, after)
+    require_launched("phase 10 (c) bank", bank_counts,
+                     ("kb_fused_lookup", "nn_search"))
+    require_launched("phase 10 (c) trainer", res["launches"], ("adamw",))
+    rc = bank.stop()
+    bank.log_output()
+    require(rc == 0, f"the train bank exited {rc}")
+    paths["wire_train_bank"] = bank_counts
+    paths["wire_trainer"] = res["launches"]
+    losses = res["losses"]
+    require(bool(np.isfinite(losses).all())
+            and np.mean(losses[-3:]) < losses[0],
+            f"phase 10 (c): losses not finite or not falling: {losses}")
+    core = float(np.median(res["core_ms"][2:]))
+    loop = float(np.median(res["loop_ms"][2:]))
+    mine = torch.cuda.memory_allocated()
+    total = res["peak"] + after["peak_bytes"] + mine
+    require(total < DEVICE_BYTES, f"phase 10 (c): the processes' summed "
+            f"peak {total} bytes is not under {DEVICE_BYTES}")
+    log(f"phase 10: (c) yi-6b cut to {TRAIN_LAYERS} layers, {TRAIN_B} x "
+        f"{TRAIN_SEQ}, over the wire: losses {losses}; ms a step (median "
+        f"of steps 3-{ASYNC_STEPS}): train core {core}, whole loop step "
+        f"{loop}; phase 9 in process, train core / loop step: "
+        f"{TRIANGLE_MS}; maker worker {m.group(0)}; launches: trainer "
+        f"{launched(res['launches'])}, bank {launched(bank_counts)}; peak "
+        f"device bytes: "
+        f"trainer {res['peak']}, bank {after['peak_bytes']}, this "
+        f"process {mine}: {total} in all")
+
+
+def phase10_wire() -> dict:
+    """Phase 10: the wire and the fleet; returns each process's launches
+    by path (each read from its process's stats before and after the
+    path, so counted as if set to 0 just before it)."""
+    free_weights("phase 10", "wire and fleet")
+    paths = {}
+    try:
+        phase10_remote(paths)
+        phase10_fleet(paths)
+        phase10_trainer(paths)
+    finally:
+        stop_children()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3850,6 +4331,9 @@ def main() -> int:
     t = time.perf_counter()
     paths.update(phase9_makers())
     log(f"phase 9: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths.update(phase10_wire())
+    log(f"phase 10: {time.perf_counter() - t:.1f} s")
     paths["engine_lazy"] = engine_counts[True]
     paths["engine_immediate"] = engine_counts[False]
     paths["engine_int8"] = engine_counts["int8"]

@@ -5,8 +5,8 @@ The package re-exports the public API of its submodules, the names of
 ``repro.core``'s ``__all__`` that the port has, in that order. The names
 of slices not ported yet are absent: the ``shard_map`` ops of
 ``core/sharded_kb.py`` (``kb_axes``, ``kb_pspecs`` and the sharded row
-ops), ``PallasBackend`` (the port's kernel backend is ``CudaBackend``),
-and the wire protocol, transport and router.
+ops) and ``PallasBackend`` (the port's kernel backend is
+``CudaBackend``).
 
 The names are looked up at first use (a module ``__getattr__``), so that
 importing one submodule does not import them all: ``kernels.ops``
@@ -41,6 +41,17 @@ _SOURCES = (
                        "KnowledgeBankServer", "MakerJob", "MakerRuntime",
                        "SharedFeatureStore", "format_maker_stats",
                        "run_async_training")),
+    ("kb_protocol", ("LANE_BULK", "LANE_CONTROL", "LANE_POINT",
+                     "PROTOCOL_VERSION", "AttachSpareRequest",
+                     "ExportRowsRequest", "ImportRowsRequest",
+                     "InProcessTransport", "KBClient", "PromoteRequest",
+                     "ProtocolError", "RemoteKBError", "Transport",
+                     "lane_of")),
+    ("kb_transport", ("FaultPlan", "FaultyTransport", "KBTransportServer",
+                      "RemoteKnowledgeBank", "SocketTransport",
+                      "TransportError", "parse_hostport")),
+    ("kb_router", ("KBPartitionDownError", "KBRouter", "PartitionMap",
+                   "connect_kb")),
 )
 _MODULE_OF = {name: mod for mod, names in _SOURCES for name in names}
 

@@ -48,8 +48,13 @@ profiler records the host ops of the thread that started it (and of
 autograd's, which runs the backward); the makers' and the dispatcher's
 threads show only as their kernels.
 
-Not ported yet: the remote bank client (``kb_client``, ROADMAP Q1 item
-4) and the row export/import of the wire fleet (items 3 and 4).
+Everything here takes the ``KBClient`` duck-type
+(``repro_torch.core.kb_protocol``), never the server class:
+``MakerRuntime`` and ``run_async_training(kb_client=)`` run unchanged
+against a ``RemoteKnowledgeBank`` (a bank in another process) or a
+``KBRouter`` (a partitioned fleet). ``KnowledgeBankServer.stats()`` also
+reports its process's kernel launches and peak device memory
+(``"device"``), so that a client reads them over the wire.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ from torch.profiler import record_function
 from repro_torch.checkpoint import MemoryCheckpointStore
 from repro_torch.core.ann_index import IVFRefresher
 from repro_torch.core.kb_engine import KBEngine
+from repro_torch.core.kb_protocol import KBClient
 from repro_torch.core.knowledge_bank import (feature_store_create,
                                              fs_update_labels,
                                              fs_update_neighbors)
@@ -73,6 +79,7 @@ from repro_torch.core.knowledge_maker import vote_agreement_labels
 from repro_torch.core.trainer import make_async_train_fns
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.model import LM
 from repro_torch.optim import AdamW, constant_lr
 from repro_torch.tree import tree_map
@@ -90,7 +97,7 @@ class _Request:
     src_step) so staleness accounting happens in execution order."""
 
     __slots__ = ("op", "ids", "payload", "k", "mode", "excl", "shape",
-                 "meta", "event", "result", "error")
+                 "meta", "event", "result", "error", "_callbacks")
 
     def __init__(self, op, ids=None, payload=None, k=None, mode=None,
                  excl=None, shape=None, meta=0):
@@ -99,12 +106,41 @@ class _Request:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self._callbacks: list = []
 
     def wait(self):
         self.event.wait()
         if self.error is not None:
             raise self.error
         return self.result
+
+    def add_done_callback(self, fn) -> None:
+        """Run ``fn(self)`` once ``result`` or ``error`` is set, at once
+        if it already is. The wire transport's out-of-order completion
+        hook (protocol v4): a connection queues the response frame the
+        moment the dispatcher finishes THIS request, instead of parking a
+        thread in ``wait()`` per request in flight. Callbacks run on the
+        completing thread (the dispatcher), where the result is already a
+        host array, and must be cheap and never block. Each registered
+        callback fires exactly once."""
+        self._callbacks.append(fn)
+        if self.event.is_set():
+            self._fire_callbacks()
+
+    def _fire_callbacks(self) -> None:
+        # list.pop is atomic under the GIL: when registration races
+        # completion, each callback is popped, and so fired, exactly once,
+        # by whichever side wins. A callback's error never reaches the
+        # dispatcher (deliver, don't kill)
+        while self._callbacks:
+            try:
+                cb = self._callbacks.pop()
+            except IndexError:
+                return
+            try:
+                cb(self)
+            except Exception:
+                pass
 
 
 def _mergeable(prev: _Request, r: _Request) -> bool:
@@ -318,9 +354,12 @@ class KnowledgeBankServer:
     def stats(self) -> dict:
         """Server metrics, the derived staleness and coalescing ratios, the
         engine's search counters and storage accounting, in the JAX
-        server's keys, the attached maker runtime's ``maker_stats``, and
-        the index maker's ``rebuilds`` (indexes published) and
-        ``shard_rebuilds`` (sub-indexes re-clustered), 0 without one."""
+        server's keys, the attached maker runtime's ``maker_stats``, the
+        index maker's ``rebuilds`` (indexes published) and
+        ``shard_rebuilds`` (sub-indexes re-clustered), 0 without one, and
+        under ``"device"`` the engine's device type, this process's
+        kernel launches (``ops.launch_counts``) and its peak device
+        memory in bytes (0 on the CPU)."""
         with self._mlock:
             m = dict(self.metrics)
         storage = self.engine.storage_stats()
@@ -334,7 +373,14 @@ class KnowledgeBankServer:
                 "num_entries": int(self.engine.num_entries),
                 "dim": int(self.engine.dim),
                 "storage": storage, "maker_stats": self.maker_stats,
-                **self._ann_counts()}
+                **self._ann_counts(), "device": self._device_stats()}
+
+    def _device_stats(self) -> dict:
+        dev = self.engine.device
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        return {"type": dev.type, "launches": ops.launch_counts(),
+                "peak_bytes": int(peak)}
 
     def _ann_counts(self) -> dict:
         """The index maker's counters (its last ones once closed)."""
@@ -383,6 +429,7 @@ class KnowledgeBankServer:
             for r in stranded:
                 r.error = err
                 r.event.set()
+                r._fire_callbacks()
             raise RuntimeError(
                 f"KB dispatcher did not drain within {timeout_s}s "
                 f"({len(stranded)} stranded requests failed)")
@@ -561,6 +608,7 @@ class KnowledgeBankServer:
         finally:
             for r in run:
                 r.event.set()
+                r._fire_callbacks()
 
     def _cached_lookup(self, ids: np.ndarray) -> np.ndarray:
         """Hot-id LRU read path: serve repeats from host RAM, engine-lookup
@@ -749,7 +797,10 @@ class MakerJob(threading.Thread):
 
 class MakerRuntime:
     """Registry and lifecycle of the paper's knowledge makers, all clients
-    of ONE knowledge bank (a ``KnowledgeBankServer``).
+    of ONE knowledge bank: any ``KBClient``, the in-process
+    ``KnowledgeBankServer`` or a ``RemoteKnowledgeBank`` / ``KBRouter``
+    whose bank lives in other processes (each step's lookups, searches and
+    writes go through the client's numpy surface).
 
     ``register(kind)`` makes one of the four maker kinds a ``MakerJob``
     with its own batch size, pacing (``min_period_s``) and node slice;
@@ -778,7 +829,7 @@ class MakerRuntime:
     MAKER_KINDS = ("embedding_refresh", "label_mining", "graph_agreement",
                    "graph_builder")
 
-    def __init__(self, server: KnowledgeBankServer,
+    def __init__(self, server: KBClient,
                  corpus: Optional[SyntheticGraphCorpus] = None, *,
                  num_entries: Optional[int] = None,
                  ckpts: Optional[MemoryCheckpointStore] = None,
@@ -1020,7 +1071,7 @@ class AsyncRunResult:
     maker_refreshes: int
     mean_staleness: float
     final_params: dict = field(repr=False, default=None)
-    server: KnowledgeBankServer = field(repr=False, default=None)
+    server: KBClient = field(repr=False, default=None)
     maker_stats: Dict[str, Dict] = field(default_factory=dict)
     runtime: "MakerRuntime" = field(repr=False, default=None)
     loop_times: List[float] = field(default_factory=list)
@@ -1044,6 +1095,7 @@ def run_async_training(model: LM, corpus: SyntheticGraphCorpus, *,
                        trainer_push: bool = False,
                        kb_backend: str = "cuda",
                        coalesce: bool = True,
+                       kb_client: Optional[KBClient] = None,
                        seed: int = 0, device="cuda") -> AsyncRunResult:
     """Asynchronous CARLS training on one device: the trainer loop and a
     ``MakerRuntime`` fleet, all clients of one coalescing server whose
@@ -1055,7 +1107,14 @@ def run_async_training(model: LM, corpus: SyntheticGraphCorpus, *,
     over disjoint node slices. ``trainer_push=True`` also pushes the
     trainer's pooled sample embeddings to the bank each step. Parameters
     come from ``model.init`` on a generator seeded ``seed``; AdamW at a
-    constant ``lr``, no weight decay."""
+    constant ``lr``, no weight decay.
+
+    ``kb_client``: an already-connected bank client, typically a
+    ``RemoteKnowledgeBank`` or ``KBRouter`` (``launch/train.py
+    --kb-connect``), used INSTEAD of an in-process server: every trainer
+    and maker bank call then goes over that client's transport, and the
+    final close() drops only this process's connection, never the remote
+    bank. Its rows must cover the corpus and its width be d_model."""
     dev = resolve_device(device)
     cfg = model.cfg
     opt = AdamW(lr=constant_lr(lr), weight_decay=0.0)
@@ -1063,10 +1122,20 @@ def run_async_training(model: LM, corpus: SyntheticGraphCorpus, *,
     opt_state = opt.init(params)
     train_core, embed_fn = make_async_train_fns(model, opt,
                                                 reg_weight=reg_weight)
-    server = KnowledgeBankServer(
-        corpus.num_nodes, cfg.d_model, backend=kb_backend,
-        lazy_lr=cfg.carls.lazy_lr, zmax=cfg.carls.outlier_zmax,
-        lazy_update=lazy_update, coalesce=coalesce, device=dev)
+    if kb_client is not None:
+        if kb_client.num_entries < corpus.num_nodes:
+            raise ValueError(
+                f"remote bank holds {kb_client.num_entries} entries but the "
+                f"corpus has {corpus.num_nodes} nodes")
+        if kb_client.dim != cfg.d_model:
+            raise ValueError(f"remote bank dim {kb_client.dim} != model "
+                             f"d_model {cfg.d_model}")
+        server = kb_client
+    else:
+        server = KnowledgeBankServer(
+            corpus.num_nodes, cfg.d_model, backend=kb_backend,
+            lazy_lr=cfg.carls.lazy_lr, zmax=cfg.carls.outlier_zmax,
+            lazy_update=lazy_update, coalesce=coalesce, device=dev)
     ckpts = MemoryCheckpointStore()
     _publish(ckpts, 0, params)
     runtime = None

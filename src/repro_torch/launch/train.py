@@ -35,11 +35,22 @@ card every ported arch trains: the flash, WKV and Mamba-scan kernels that
 its forward reaches (attention over ``--seq`` >= 2048 tokens takes flash)
 run under autograd through ``autograd.Function``s whose backwards are
 kernels too.
-``--kb-connect`` (the wire) is not ported yet and raises, naming its
-ROADMAP item.
+
+``--kb-connect SPEC`` (with ``--makers``) trains against a bank in other
+processes instead of an in-process server: ``host:port`` names one
+``serve --kb --listen`` bank (of either package), a comma list a
+partitioned fleet in ring order (``host:p0|host:s0,...`` attaches
+standbys), dialed by ``repro_torch.core.connect_kb``; every trainer and
+maker bank call then goes over the wire. The bank's width must be the
+model's d_model:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --makers graph_builder --kb-connect 127.0.0.1:7787 --steps 4
 
 ``train_carls(cfg, ...)`` is the loop for any config of the ported archs,
 the full-width one included; it returns the losses and each step's time.
+``run_async(cfg, args, device)`` is the ``--makers`` mode for any config,
+with the parser's ``args``.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from repro_torch.checkpoint import DiskCheckpointStore
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.async_runtime import (format_maker_stats,
                                             run_async_training)
+from repro_torch.core.kb_router import connect_kb
 from repro_torch.core.knowledge_bank import kb_create
 from repro_torch.core.knowledge_maker import make_embedding_refresh
 from repro_torch.core.trainer import make_carls_train_step
@@ -186,8 +198,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "publishes (the data-freshness axis)")
     ap.add_argument("--kb-backend", choices=["cuda", "dense", "sharded"],
                     default="cuda", help="async mode: bank engine backend")
-    ap.add_argument("--kb-connect", default="", metavar="HOST:PORT",
-                    help="not ported yet (ROADMAP Q1 item 4)")
+    ap.add_argument("--kb-connect", default="",
+                    metavar="HOST:PORT[,HOST:PORT,...]",
+                    help="async mode: train against the bank served at "
+                         "this endpoint (serve --kb --listen), or a "
+                         "partitioned fleet in ring order, instead of an "
+                         "in-process server")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
@@ -216,10 +232,6 @@ def main(argv=None) -> Dict:
                           head_dim=args.d_model // cfg.num_heads or 32)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"(reduced={args.reduced})")
-    if args.kb_connect:
-        raise NotImplementedError(
-            "--kb-connect (the wire protocol) is not ported yet (ROADMAP Q1 "
-            "item 4)")
     if args.makers:
         return run_async(cfg, args, device)
     return train_carls(cfg, steps=args.steps, batch=args.batch,
@@ -233,8 +245,9 @@ def main(argv=None) -> Dict:
 def run_async(cfg, args, device) -> Dict:
     """``--makers``: the trainer and a ``MakerRuntime`` concurrently
     against one coalescing ``KnowledgeBankServer`` (the paper's Figure-1
-    triangle), with the JAX launcher's corpus and lines. Returns {"result":
-    the ``AsyncRunResult``, "seconds": the run's wall time}."""
+    triangle), or against the bank at ``--kb-connect``, with the JAX
+    launcher's corpus and lines. Returns {"result": the
+    ``AsyncRunResult``, "seconds": the run's wall time}."""
     makers = [m.strip() for m in args.makers.split(",") if m.strip()]
     cfg = cfg.replace(carls=cfg.carls.__class__(
         **{**cfg.carls.__dict__, "kb_entries": args.nodes}))
@@ -243,15 +256,30 @@ def run_async(cfg, args, device) -> Dict:
         seq_len=args.seq + 1, neighbors_per_node=cfg.carls.num_neighbors,
         num_clusters=4, labeled_frac=0.3, label_noise=0.3,
         seed=args.seed)
-    print(f"async CARLS: trainer + makers {makers} "
-          f"(kb backend: {args.kb_backend})", flush=True)
+    kb_client = None
+    if args.kb_connect:
+        kb_client = connect_kb(args.kb_connect, client_name="trainer")
+        parts = getattr(kb_client, "pmap", None)
+        shape = f"{parts.num_partitions} partitions, " if parts else ""
+        print(f"async CARLS: trainer + makers {makers} over the wire "
+              f"(bank at {args.kb_connect}: {shape}"
+              f"{kb_client.num_entries}x{kb_client.dim})", flush=True)
+    else:
+        print(f"async CARLS: trainer + makers {makers} "
+              f"(kb backend: {args.kb_backend})", flush=True)
     t0 = time.perf_counter()
-    res = run_async_training(
-        build_model(cfg), corpus, steps=args.steps, batch_size=args.batch,
-        makers=makers, maker_batch=args.maker_batch,
-        maker_period_s=args.maker_period, ckpt_period=args.ckpt_period,
-        lr=args.lr, trainer_push=True, kb_backend=args.kb_backend,
-        seed=args.seed, device=device)
+    try:
+        res = run_async_training(
+            build_model(cfg), corpus, steps=args.steps,
+            batch_size=args.batch, makers=makers,
+            maker_batch=args.maker_batch, maker_period_s=args.maker_period,
+            ckpt_period=args.ckpt_period, lr=args.lr, trainer_push=True,
+            kb_backend=args.kb_backend, kb_client=kb_client, seed=args.seed,
+            device=device)
+    except BaseException:
+        if kb_client is not None:
+            kb_client.close()
+        raise
     dt = time.perf_counter() - t0
     print(f"loss {res.losses[0]:.4f} -> {np.mean(res.losses[-5:]):.4f} "
           f"over {args.steps} steps in {dt:.1f}s; "
@@ -259,6 +287,11 @@ def run_async(cfg, args, device) -> Dict:
     m = res.server.metrics
     print(f"kb server: {m['requests']} requests -> {m['dispatches']} "
           f"dispatches (coalescing x{res.server.coalescing_factor:.1f})")
+    if kb_client is not None:
+        t = res.server.stats().get("transport", {})
+        if t:
+            print(f"kb transport: reconnects={t.get('reconnects', 0)} "
+                  f"reissued={t.get('reissued', 0)}")
     for line in format_maker_stats(res.server.maker_stats):
         print(line)
     return {"result": res, "seconds": dt}

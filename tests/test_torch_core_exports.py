@@ -19,36 +19,36 @@ import repro_torch.core as tcore
 
 ROOT = Path(__file__).resolve().parents[1]
 # the names of repro.core.__all__ that wait for their slices (ROADMAP "Not
-# ported"): the shard_map ops, the Pallas backend (the port's kernel
-# backend is CudaBackend), the wire protocol, transport and router
+# ported"): the shard_map ops and the Pallas backend (the port's kernel
+# backend is CudaBackend)
 UNPORTED = {
     "kb_axes", "kb_pspecs", "sharded_kb_flush", "sharded_kb_lazy_grad",
     "sharded_kb_lookup", "sharded_kb_update", "PallasBackend",
-    "LANE_BULK", "LANE_CONTROL", "LANE_POINT", "PROTOCOL_VERSION",
-    "AttachSpareRequest", "ExportRowsRequest", "ImportRowsRequest",
-    "InProcessTransport", "KBClient", "PromoteRequest", "ProtocolError",
-    "RemoteKBError", "Transport", "lane_of",
-    "FaultPlan", "FaultyTransport", "KBTransportServer",
-    "RemoteKnowledgeBank", "SocketTransport", "TransportError",
-    "parse_hostport",
-    "KBPartitionDownError", "KBRouter", "PartitionMap", "connect_kb",
 }
 PORTED = [n for n in jcore.__all__ if n not in UNPORTED]
 
 
 def test_all_lists_the_ported_names_in_the_reference_order():
     assert tcore.__all__ == PORTED
-    assert len(PORTED) == 57 and len(jcore.__all__) == 89
+    assert len(PORTED) == 82 and len(jcore.__all__) == 89
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_each_ported_name_is_the_submodules_object(name):
     obj = getattr(tcore, name)
-    mod = sys.modules[obj.__module__]
+    if hasattr(obj, "__module__"):
+        mod = sys.modules[obj.__module__]
+        # the JAX package's submodule of the same name defines it too
+        jmod = sys.modules[getattr(jcore, name).__module__]
+    else:
+        # a constant of the wire protocol (PROTOCOL_VERSION, the lanes):
+        # the submodule that holds it, and its JAX twin's value, equal
+        mod = sys.modules[f"repro_torch.core.{tcore._MODULE_OF[name]}"]
+        jmod = sys.modules[f"repro.core.{tcore._MODULE_OF[name]}"]
+        assert getattr(jmod, name) is getattr(jcore, name)
+        assert obj == getattr(jcore, name)
     assert mod.__name__.startswith("repro_torch.core.")
     assert getattr(mod, name) is obj
-    # the JAX package's submodule of the same name defines it too
-    jmod = sys.modules[getattr(jcore, name).__module__]
     assert mod.__name__.rsplit(".", 1)[1] == jmod.__name__.rsplit(".", 1)[1]
 
 
@@ -67,7 +67,10 @@ def test_star_import_gives_the_ported_names():
 
 @pytest.mark.parametrize("module", ["repro_torch.kernels.ops",
                                     "repro_torch.launch.train",
-                                    "repro_torch.core"])
+                                    "repro_torch.core",
+                                    "repro_torch.core.kb_router",
+                                    "repro_torch.launch.maker_worker",
+                                    "repro_torch.launch.fleet"])
 def test_cold_import_in_a_fresh_interpreter(module):
     code = (f"import sys, {module}, repro_torch.core as c; "
             "assert c.KBEngine is "

@@ -17,6 +17,7 @@ of the trainer loop atol 1e-5 + rtol 1e-5.
 """
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -554,9 +555,14 @@ def test_train_makers_runs_on_the_cpu(capsys):
         "maker label_mining0", "maker graph_agreement1"]
     res = out["result"]
     assert all(s["errors"] == 0 for s in res.maker_stats.values())
-    with pytest.raises(NotImplementedError, match="Q1 item 4"):
+    # --kb-connect is ported: an endpoint where nothing listens fails as
+    # the JAX launcher's connect_kb does (a port bound, then released)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(ConnectionRefusedError):
         train.main(["--device", "cpu", "--makers", "graph_builder",
-                    "--kb-connect", "127.0.0.1:7787"])
+                    "--kb-connect", f"127.0.0.1:{port}"])
 
 
 def test_serve_kb_makers_runs_on_the_cpu(capsys):

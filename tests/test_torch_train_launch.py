@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.checkpoint import DiskCheckpointStore
 from repro_torch.configs import get_config
-from repro_torch.core import trainer
+from repro_torch.core import KBTransportServer, KnowledgeBankServer, trainer
 from repro_torch.kernels import ops
 from repro_torch.launch import train
 from repro_torch.models import build_model
@@ -67,10 +67,26 @@ def test_without_a_card_the_launcher_exits_with_the_no_cuda_error():
     assert "arch=" not in proc.stdout
 
 
-def test_unported_modes_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="Q1 item 4"):
-        train.main(CPU_RUN + ["--makers", "graph_builder", "--kb-connect",
-                              "127.0.0.1:7787"])
+def test_unported_modes_raise_naming_their_items(capsys):
+    # --kb-connect is ported: with --makers the trainer takes 2 steps
+    # against a port bank served on the wire
+    d = get_config("yi-6b").reduced().d_model
+    bank = KnowledgeBankServer(64, d, device="cpu")
+    wire = KBTransportServer(bank, "127.0.0.1", 0)
+    try:
+        out = train.main(CPU_RUN[:2] + ["--steps", "2"] + CPU_RUN[4:]
+                         + ["--makers", "graph_builder", "--kb-connect",
+                            f"127.0.0.1:{wire.port}"])
+    finally:
+        wire.close()
+        bank.close()
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[1] == (f"async CARLS: trainer + makers ['graph_builder'] "
+                        f"over the wire (bank at 127.0.0.1:{wire.port}: "
+                        f"64x{d})")
+    res = out["result"]
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert wire.requests_served > 0 and bank.metrics["lookups"] >= 2
     with pytest.raises(SystemExit):     # JAX's argument error comes first
         train.main(CPU_RUN + ["--kb-connect", "127.0.0.1:7787"])
 
