@@ -188,7 +188,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    processes under 80 GB. Each process's kernel launches on its path are
    read from its server's stats (``"device"``) just before and just after
    the path, and each path must launch the lookup, flush and search
-   kernels (the trainer: AdamW; its bank: the lookup and the search).
+   kernels (the trainer: AdamW; its bank: the lookup and the search);
+11. the rest of the LM zoo (run after phase 7, beside the other LM
+   phases): (b) the reduced minitron-4b, granite-34b (MQA),
+   command-r-plus-104b (tied embeddings), grok-1-314b (8 experts, soft
+   cap 30), kimi-k2-1t-a32b (also at its head dim 112), internvl2-2b (16
+   N(0, 1) patch embeddings before the prompt) and whisper-tiny (an
+   encoder over 16 N(0, 1) frames, cross-attention) on the card against
+   the CPU as phases 5-7 hold theirs, each prefill's flash launches
+   counted (whisper's encoder layers among them); (c) each at full width
+   (bf16, random weights from a torch.Generator, batch 4, a 2048-token
+   prompt, whisper's 432, 16 greedy tokens; the front-end inputs N(0, 1)
+   from numpy), cut to one card in depth alone (kimi-k2 also to 128 of
+   its 384 experts, top-8 kept; ZOO_CUTS), the weights built once and the
+   prompt served twice: prefill ms, decode ms a token, peak memory, flash
+   launches per prefill and none in decode, the same ids twice; kimi-k2's
+   prefill profiled.
 
 Phase 2 also holds nn_search beyond the serve shape (a repeated run
 bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
@@ -209,7 +224,12 @@ kernel's stage profile (the cycles its consumer warpgroups spend waiting
 for K and V, for their turn, issuing products, waiting for them, in the
 softmax and in the output) and whether it reaches SDPA's time in this
 run, and on seven smaller cases (window, soft cap, d 32 and 64, not
-causal, S no multiple of 128, H/KV 8), the three backward kernels
+causal, S no multiple of 128, H/KV 8), at the zoo's prefill shapes in
+bf16 (FLASH_ZOO: kimi-k2's heads of 112, grok-1's soft cap, whisper's
+1500-frame encoder, not causal, and internvl's 2304 positions; each
+timed beside its bound and, but for the soft cap, SDPA's time), at d 112
+on three small cases in bf16 and fp32, and refusing d 112 under
+autograd before any launch; the three backward kernels
 (``flash_attention_bwd``, ``rwkv_wkv_bwd``, ``mamba_scan_bwd``) at those
 full-width shapes and on FLASH_SMALL's, WKV_SMALL's and SCAN_SMALL's
 cases (each against its plain backward on the forward's own log-sum-exp
@@ -362,6 +382,10 @@ LM_B, LM_PROMPT, LM_GEN = 4, 2048, 16
 # to ~4) and logits move by a few fp32 ulps per layer, the matmul and
 # flash sums running in another order
 ATOL_LM = 5e-5
+# the zoo's reduced models (phase 11), card against CPU: ATOL_LM plus the
+# CPU tests' 1e-5 of the value (tests/test_torch_zoo.py: the MoE experts'
+# and the front-ends' sums, over a 2048-token prompt, in another order)
+RTOL_LM = 1e-5
 
 KERNELS = {
     "kb_fused_lookup": "src/repro/kernels/kb_fused_lookup.py:84",
@@ -772,6 +796,24 @@ FLASH_SMALL = [  # (B, S, H, KV, d, causal, window, softcap)
     (2, 300, 8, 8, 64, False, 0, 0.0),       # not causal at d 64
     (1, 257, 16, 2, 32, False, 64, 0.0),     # d 32, window, H/KV 8
 ]
+# the zoo's prefill shapes (phase 11), B 4 (label, S, H, KV, d, causal,
+# softcap, SDPA computes it): kimi-k2 (head dim 112), grok-1 (its soft cap,
+# which no PyTorch call takes), whisper's encoder (1500 frames, not
+# causal: its ragged end, 1500 = 11 x 128 + 92), internvl (256 patches and
+# 2048 tokens)
+FLASH_ZOO = [
+    ("kimi-k2-1t-a32b", 2048, 64, 8, 112, True, 0.0, True),
+    ("grok-1-314b", 2048, 48, 8, 128, True, 30.0, False),
+    ("whisper-tiny encoder", 1500, 6, 6, 64, False, 0.0, True),
+    ("internvl2-2b", 2304, 16, 8, 128, True, 0.0, True),
+]
+# d 112 in both dtypes at small shapes (the forward only: the backward
+# takes no d 112, ROADMAP Q1 item 7b)
+FLASH_D112_SMALL = [  # (B, S, H, KV, d, causal, window, softcap)
+    (2, 333, 8, 2, 112, True, 0, 0.0),       # ragged, H/KV 4
+    (1, 300, 4, 1, 112, False, 0, 0.0),      # MQA, not causal
+    (1, 512, 4, 2, 112, True, 100, 30.0),    # window and soft cap
+]
 
 
 def flash_bound(q, k, causal: bool, flop_per_s: float):
@@ -845,7 +887,66 @@ def phase2_flash():
     res["fp32"] = {"max_abs_err": f["max_abs_err"], "ms": f["ms"],
                    "plain_ms": f["plain_ms"], "library_ms": f["library_ms"],
                    "bound_ms": f["bound"][0], "bound_by": f["bound"][1]}
+    res["zoo"] = phase2_flash_zoo(g)
     return res
+
+
+def phase2_flash_zoo(g) -> dict:
+    """Flash attention at the zoo's prefill shapes (FLASH_ZOO, bf16)
+    against its plain version, timed beside its bound and, where SDPA
+    computes the same function, SDPA; then d 112 at small shapes in bf16
+    and fp32 (FLASH_D112_SMALL). Returns {label: its record}."""
+    kern = ops.LAUNCHERS["flash_attention"]
+    dev = torch.device("cuda")
+    zoo = {}
+    for label, S, H, KV, d, causal, cap, sdpa in FLASH_ZOO:
+        q, k, v = (torch.randn((LM_B, S, n, d), generator=g,
+                               device=dev).to(torch.bfloat16)
+                   for n in (H, KV, KV))
+        kw = dict(causal=causal, softcap=cap)
+        err = max_err(kern(q, k, v, **kw), ref.flash_attention_ref(
+            q, k, v, **kw))
+        require(err <= ATOL_FLASH[torch.bfloat16],
+                f"flash_attention bf16 at {label}'s shape disagrees: {err}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        zoo[label] = dict(
+            shape=[LM_B, S, H, KV, d], causal=causal, softcap=cap,
+            max_abs_err=err, ms=time_ms(lambda: kern(q, k, v, **kw), 10),
+            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                             2),
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+            if sdpa else None)
+        zoo[label]["bound_ms"], zoo[label]["bound_by"] = flash_bound(
+            q, k, causal, BF16_FLOP_PER_S)
+        log(f"phase 2: flash_attention bf16 at {label}'s prefill (B {LM_B}, "
+            f"S {S}, H {H}, KV {KV}, d {d}, {kw}): {zoo[label]}")
+        del q, k, v, qt, kt, vt
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, KV, d, causal, window, softcap in FLASH_D112_SMALL:
+            q, k, v = (torch.randn((B, S, n, d), generator=g,
+                                   device=dev).to(dtype)
+                       for n in (H, KV, KV))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            err = max_err(kern(q, k, v, **kw),
+                          ref.flash_attention_ref(q, k, v, **kw))
+            require(err <= ATOL_FLASH[dtype],
+                    f"flash_attention {dtype} {B, S, H, KV, d, kw}: {err}")
+            log(f"phase 2: flash_attention {dtype} B {B} S {S} H {H} KV "
+                f"{KV} d {d} {kw}: max_abs_err={err}")
+    q = torch.randn((1, 256, 4, 112), device=dev, requires_grad=True)
+    kv = torch.randn((1, 256, 2, 112), device=dev)
+    before = kern.launches
+    try:
+        kern(q, kv, kv)
+        require(False, "flash_attention under autograd took d 112")
+    except ValueError as e:
+        require("ROADMAP Q1 item 7b" in str(e) and kern.launches == before,
+                f"the d-112 refusal under autograd: {e}")
+    log("phase 2: flash_attention under autograd at d 112 refused before "
+        "any launch (the backward takes d 32, 64, 128)")
+    return zoo
 
 
 WKV_SMALL = [  # (B, S, H, d, dtype, decays)
@@ -2913,24 +3014,43 @@ def _to(tree, device):
 
 
 def _phase(arch: str) -> str:
-    return {"yi-6b": "phase 5", "rwkv6-7b": "phase 6"}.get(arch, "phase 7")
+    return {"yi-6b": "phase 5", "rwkv6-7b": "phase 6",
+            JAMBA: "phase 7"}.get(arch, "phase 11")
 
 
-def reduced_parity(arch: str, kernels: dict, rtol: float):
-    """The reduced ``arch`` (fp32, d 128) on the card against the CPU, on
-    one set of parameters and prompts: the prefill's hidden states and
-    every cache entry (the path's kernels on the card, their plain
-    versions on the CPU), then four decode steps fed the CPU's greedy ids,
-    their logits and ids. Each value within ATOL_LM plus ``rtol`` of its
-    CPU value; ``kernels`` gives each kernel's launches in the card's
+def frontend_inputs(cfg, B: int, seed: int, device, dtype) -> dict:
+    """The front-end's inputs of ``cfg``, N(0, 1) from
+    ``np.random.default_rng(seed)``: internvl's patch embeddings, whisper's
+    frames, each (B, num_frontend_tokens, d_model); {} for a text model."""
+    if cfg.frontend == "none":
+        return {}
+    x = np.random.default_rng(seed).standard_normal(
+        (B, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    key = "patch_embs" if cfg.frontend == "vision" else "frames"
+    return {key: torch.from_numpy(x).to(device=device, dtype=dtype)}
+
+
+def reduced_parity(arch: str, kernels: dict, rtol: float, head_dim: int = 0):
+    """The reduced ``arch`` (fp32, d 128; ``head_dim`` in place of its 32
+    where given) on the card against the CPU, on one set of parameters,
+    prompts and front-end inputs: the prefill's hidden states and every
+    cache entry (the path's kernels on the card, their plain versions on
+    the CPU), then four decode steps fed the CPU's greedy ids, their
+    logits and ids. Each value within ATOL_LM plus ``rtol`` of its CPU
+    value; ``kernels`` gives each kernel's launches in the card's
     prefill."""
     cfg = get_config(arch).reduced()
+    if head_dim:
+        cfg = cfg.replace(head_dim=head_dim)
     model = build_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0))
     p_dev = _to(p_cpu, "cuda")
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, LM_PROMPT)).astype(np.int32))
-    C = LM_PROMPT + 5
+    x_cpu = frontend_inputs(cfg, 2, 3, "cpu", torch.float32)
+    x_dev = _to(x_cpu, "cuda")
+    prefix = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+    C = LM_PROMPT + prefix + 5
 
     def err(a, b, what):
         a = a.cpu()
@@ -2941,9 +3061,9 @@ def reduced_parity(arch: str, kernels: dict, rtol: float):
 
     with torch.inference_mode():
         ops.reset_launch_counts()
-        cache_d, h_d = model.prefill(p_dev, toks.cuda(), cache_len=C)
+        cache_d, h_d = model.prefill(p_dev, toks.cuda(), x_dev, cache_len=C)
         launches = ops.launch_counts()
-        cache_c, h_c = model.prefill(p_cpu, toks, cache_len=C)
+        cache_c, h_c = model.prefill(p_cpu, toks, x_cpu, cache_len=C)
         errs = {"hidden": err(h_d, h_c, "hidden")}
         for pk, ent in cache_c["groups"].items():
             for n, leaf in ent.items():
@@ -2965,22 +3085,26 @@ def reduced_parity(arch: str, kernels: dict, rtol: float):
     require(got == kernels,
             f"reduced {arch} prefill launched {got}, not {kernels}")
     log(f"{_phase(arch)}: reduced {arch} ({cfg.num_layers} layers, d "
-        f"{cfg.d_model}, fp32), prompt 2 x {LM_PROMPT}, 4 decode steps: "
+        f"{cfg.d_model}, head dim {cfg.head_dim_}, fp32), prompt 2 x "
+        f"{LM_PROMPT} (+ {cfg.num_frontend_tokens} {cfg.frontend} front-end "
+        f"inputs), 4 decode steps: "
         f"card vs CPU max abs err {errs}; ids equal on the {decided} "
         f"decided steps; launches in the card's prefill {got}")
 
 
-def lm_run(label: str, cfg, kernels: dict):
-    """``serve_lm`` at the full width of ``cfg``, with every kernel
-    counter set to 0 just before it and read just after; each kernel of
-    ``kernels`` must have been launched that many times in the prefill
-    and never in the decode."""
+def lm_run(label: str, cfg, kernels: dict, prompt: int = LM_PROMPT,
+           params=None, extra=None):
+    """``serve_lm`` at the full width of ``cfg`` (on ``params`` and the
+    front-end inputs ``extra`` where given), with every kernel counter set
+    to 0 just before it and read just after; each kernel of ``kernels``
+    must have been launched that many times in the prefill and never in
+    the decode."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = serve.serve_lm(cfg, batch=LM_B, prompt_len=LM_PROMPT, gen=LM_GEN,
-                         seed=0, device="cuda")
+    res = serve.serve_lm(cfg, batch=LM_B, prompt_len=prompt, gen=LM_GEN,
+                         seed=0, device="cuda", params=params, extra=extra)
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2994,7 +3118,7 @@ def lm_run(label: str, cfg, kernels: dict):
                 and res["decode_launches"][kernel] == 0,
                 f"{label}: {kernel} launches {res['prefill_launches']} in "
                 f"the prefill, {res['decode_launches']} in the decode")
-    log(f"{_phase(cfg.name)}: {label}: prefill({LM_B}x{LM_PROMPT}) "
+    log(f"{_phase(cfg.name)}: {label}: prefill({LM_B}x{prompt}) "
         f"{res['prefill_ms']} ms, decode {res['decode_ms_per_token']} "
         f"ms/token, peak device memory {peak} bytes, {wall:.1f} s with "
         f"init; launches {counts}")
@@ -3193,6 +3317,100 @@ def phase7_jamba():
     torch.cuda.empty_cache()
     profile_mamba_layer(cfg)
     return counts
+
+
+# phase 11: the rest of the zoo at full width, bf16, random weights, each
+# cut to one card by its layer count (kimi-k2 also by its expert count)
+# alone: widths, heads, head dims, vocab and top-k as published. Parameters
+# by param_count(): minitron-4b 5.10 B, internvl2-2b 1.89 B, whisper-tiny
+# 0.061 B whole; granite-34b 44 of 88 layers 23.9 B; command-r-plus-104b
+# 16 of 64 layers 28.3 B; grok-1-314b 5 of 64 layers, all 8 experts,
+# 26.2 B; kimi-k2-1t-a32b 4 of 61 layers and 128 of 384 experts, top-8,
+# 25.4 B (~48-57 GB in bf16, below jamba's 56.1 GB peak in phase 7)
+ZOO_CUTS = {
+    "minitron-4b": {},
+    "internvl2-2b": {},
+    "whisper-tiny": {},
+    "granite-34b": dict(num_layers=44),
+    "command-r-plus-104b": dict(num_layers=16),
+    "grok-1-314b": dict(num_layers=5),
+    "kimi-k2-1t-a32b": dict(num_layers=4, num_experts=128),
+}
+KIMI = "kimi-k2-1t-a32b"
+# whisper's prompt: its 448-token text context less the decoded tokens
+WHISPER_PROMPT = 448 - LM_GEN
+
+
+def zoo_flash_launches(cfg, prompt: int) -> int:
+    """Flash launches in one prefill of ``cfg`` over ``prompt`` tokens:
+    the attention layers whose (query, key) pairs reach the flash branch
+    (the vision prefix counted), and whisper's encoder layers, which
+    always take it on the card."""
+    from repro_torch.models.layers import FLASH_MIN_PAIRS
+    S = prompt + (cfg.num_frontend_tokens if cfg.frontend == "vision"
+                  else 0)
+    n = cfg.num_layers if S * S >= FLASH_MIN_PAIRS else 0
+    return n + (cfg.enc_layers if cfg.cross_attention else 0)
+
+
+def profile_prefill(model, params, prompt: int, extra) -> None:
+    """One prefill of ``model`` on ``params`` under ``torch.profiler``:
+    wall time, device time by part and by kernel, busy share."""
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_B, prompt)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        model.prefill(params, toks, extra, cache_len=prompt + LM_GEN + 1)
+        wall_ms, prof = profiled(lambda: model.prefill(
+            params, toks, extra, cache_len=prompt + LM_GEN + 1))
+    dev_ms, parts, top = device_parts(prof)
+    log(f"phase 11: profiled {cfg.name} prefill ({LM_B}x{prompt}): wall "
+        f"{wall_ms} ms, device {dev_ms} ms ({100 * dev_ms / wall_ms:.1f}% "
+        f"busy under the profiler); by part: {parts}; top: {top}")
+
+
+def phase11_zoo() -> dict:
+    """The seven archs that phases 5-7 do not serve: (b) each reduced
+    config card against CPU (kimi-k2 also at its head dim 112); (c) each
+    at full width (ZOO_CUTS), weights built once and the prompt served
+    twice, the same ids both times; kimi-k2's prefill profiled. Returns
+    each full-width model's launches by path (``serve_zoo_<arch>``)."""
+    for arch in ZOO_CUTS:
+        cfg = get_config(arch).reduced()
+        reduced_parity(arch, {"flash_attention": zoo_flash_launches(
+            cfg, LM_PROMPT)}, rtol=RTOL_LM)
+    reduced_parity(KIMI, {"flash_attention": 2}, rtol=RTOL_LM, head_dim=112)
+    paths = {}
+    for arch, cut in ZOO_CUTS.items():
+        free_weights("phase 11", arch)
+        cfg = get_config(arch).replace(**cut)
+        prompt = WHISPER_PROMPT if cfg.name == "whisper-tiny" else LM_PROMPT
+        flash = {"flash_attention": zoo_flash_launches(cfg, prompt),
+                 "rwkv_wkv": 0, "mamba_scan": 0}
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        extra = frontend_inputs(cfg, LM_B, 0, "cuda", model.dtype)
+        torch.cuda.synchronize()
+        log(f"phase 11: {arch} cut to {cut or 'nothing'}: "
+            f"{cfg.param_count()} parameters ({cfg.active_param_count()} "
+            f"active a token), {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"heads {cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim_}, "
+            f"vocab {cfg.vocab_size}; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        runs = [lm_run(f"{arch} full width run {i}", cfg, flash,
+                       prompt=prompt, params=params, extra=extra)
+                for i in (1, 2)]
+        require(np.array_equal(runs[0][0]["generated"],
+                               runs[1][0]["generated"]),
+                f"the two full-width {arch} runs generated different ids")
+        log(f"phase 11: {arch}: the two full-width runs generated the same "
+            f"ids")
+        paths[f"serve_zoo_{arch}"] = runs[0][1]
+        if arch == KIMI:
+            profile_prefill(model, params, prompt, extra)
+        del runs, params, extra, model
+    return paths
 
 
 def train_bank_leaves(n: int, dim: int) -> dict:
@@ -4326,6 +4544,9 @@ def main() -> int:
     paths["serve_jamba"] = phase7_jamba()
     log(f"phase 7: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    paths.update(phase11_zoo())
+    log(f"phase 11: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     paths.update(phase8_train())
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -4362,7 +4583,7 @@ def main() -> int:
             **{k: r[k] for k in ("fp32", "launch_floor_ms", "ms_b1024",
                                  "op_ms", "op_kernels", "autograd_err",
                                  "train_shape", "library", "gn_rel_err",
-                                 "leaves", "entries")
+                                 "leaves", "entries", "zoo")
                if k in r}})
         if KERNEL_PATH[name] in ("train", "train_rwkv", "train_yi_2048"):
             record[-1]["launches_per_step"] = launches // TRAIN_STEPS

@@ -67,12 +67,15 @@ def kb_state_from_numpy(leaves: Dict[str, np.ndarray],
 
 
 # the fp32 leaves of an LM, as ``repro.models`` makes them: the norm
-# scales, RWKV6's per-head bonus ``u``, decay base ``dec_0`` and
-# group-norm scale ``ln_x`` (repro/models/ssm.py:203-206), and Mamba's
-# ``a_log`` and ``d_skip`` (repro/models/ssm.py:75-76); every other leaf,
-# RWKV6's ``mu`` and Mamba's ``dt_bias`` included, is cfg.dtype
-LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "u", "dec_0", "ln_x",
-                  "a_log", "d_skip")
+# scales (whisper's cross-attention norm ``ln_ca`` and its encoder's
+# ``ln1``, ``ln2`` and ``ln_out`` among them, repro/models/model.py:84 and
+# repro/models/transformer.py:157-161), RWKV6's per-head bonus ``u``,
+# decay base ``dec_0`` and group-norm scale ``ln_x``
+# (repro/models/ssm.py:203-206), and Mamba's ``a_log`` and ``d_skip``
+# (repro/models/ssm.py:75-76); every other leaf, RWKV6's ``mu`` and
+# Mamba's ``dt_bias`` included, is cfg.dtype
+LM_FP32_LEAVES = ("ln1", "ln2", "final_norm", "ln_ca", "ln_out", "u",
+                  "dec_0", "ln_x", "a_log", "d_skip")
 
 
 def _nest(flat: Dict[str, np.ndarray], dtype_of, device) -> dict:

@@ -17,7 +17,12 @@ update, flush and nn_search, and for lazy_grad with entry-side clipping
 off (cache adds commute). With entry-side clipping on, a merged lazy_grad
 run clips every contribution against the pre-drain norm EMA and advances
 the EMA one step on the pooled mean, the paper's own model (§3.2 caches
-trainer gradients with no ordering guarantee).
+trainer gradients with no ordering guarantee). FIFO's merge of consecutive
+requests is that contract. The reordering dispatcher (``reorder=True``)
+moves a lazy_grad across, or into the run of, another lazy_grad only
+where their ids are disjoint, so its schedule gives FIFO's results bit for
+bit; the JAX dispatcher lets any two lazy_grads commute, which calls two
+lazy_grads on one row as one (ROADMAP Q3 item 10).
 
 ``start_ann_refresher`` registers the IVF index maker
 (``repro_torch.core.ann_index.IVFRefresher``), which takes its snapshots
@@ -161,14 +166,15 @@ def _mergeable(prev: _Request, r: _Request) -> bool:
 def _commutes(a: _Request, b: _Request) -> bool:
     """May ``a`` execute before ``b`` even though ``b`` was queued first?
 
-    - lookup/lookup, lazy_grad/lazy_grad, nn/nn: always (lookups apply and
-      clear pending caches idempotently, cache adds commute, searches are
-      pure);
-    - any other pair within {lookup, update, lazy_grad}: only when the id
-      sets are DISJOINT;
+    - lookup/lookup, nn/nn: always (lookups apply and clear pending caches
+      idempotently, searches are pure);
+    - any other pair within {lookup, update, lazy_grad}, two lazy_grads
+      included: only when the id sets are DISJOINT (a lazy_grad call clips
+      each contribution against its row's norm EMA and then steps that
+      EMA once, so two calls on one row are not one call);
     - flush / barrier / nn-vs-write: never.
     """
-    if a.op == b.op and a.op in ("lookup", "lazy_grad", "nn"):
+    if a.op == b.op and a.op in ("lookup", "nn"):
         return True
     if (a.op in ("lookup", "update", "lazy_grad")
             and b.op in ("lookup", "update", "lazy_grad")):
@@ -513,11 +519,27 @@ class KnowledgeBankServer:
         join the nearest mergeable one, PROVIDED it commutes with every
         request it crosses (``_commutes``): the reordered schedule is then a
         series of transpositions of commuting pairs away from FIFO, so the
-        results equal the FIFO schedule's."""
+        results equal the FIFO schedule's. A lazy_grad joins a run (the
+        tail one included) only where each member is of its own FIFO run
+        or shares no id with it: FIFO calls two lazy_grads on one row apart
+        whenever another op lies between them."""
         runs: List[List[_Request]] = []
+        fifo_run = {}                    # id(request) -> its FIFO run
+        first = None
         hoisted = 0
+
+        def joins(run, r) -> bool:
+            if not _mergeable(run[0], r):
+                return False
+            return r.op != "lazy_grad" or all(
+                fifo_run[id(q)] == fifo_run[id(r)] or _commutes(r, q)
+                for q in run)
+
         for r in batch:
-            if runs and _mergeable(runs[-1][0], r):
+            if first is None or not _mergeable(first, r):
+                first = r
+            fifo_run[id(r)] = id(first)
+            if runs and joins(runs[-1], r):
                 runs[-1].append(r)
                 continue
             if self.reorder and runs:
@@ -529,7 +551,7 @@ class KnowledgeBankServer:
                         break
                     i -= 1
                     hops += 1
-                    if i >= 0 and _mergeable(runs[i][0], r):
+                    if i >= 0 and joins(runs[i], r):
                         target = i
                         break
                 if target is not None:

@@ -42,7 +42,7 @@ def make_embed_fn(model: LM):
     pool of the final hidden states."""
     @torch.no_grad()
     def embed(params, node_tokens):
-        h, _, _ = model.hidden(params, node_tokens)
+        h = model.hidden(params, node_tokens)[0]
         mask = torch.ones(node_tokens.shape, device=h.device)
         return masked_mean_pool(h, mask)
     return embed
@@ -72,7 +72,7 @@ def make_label_mining(model: LM, *, num_classes: int,
     @torch.no_grad()
     def maker_step(params, fs: kbm.FeatureStore, node_ids, node_tokens,
                    class_readout: Callable):
-        h, _, _ = model.hidden(params, node_tokens)
+        h = model.hidden(params, node_tokens)[0]
         mask = torch.ones(node_tokens.shape, device=h.device)
         emb = masked_mean_pool(h, mask)
         probs = torch.softmax(class_readout(params, h, emb), dim=-1)

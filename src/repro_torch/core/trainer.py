@@ -60,7 +60,7 @@ def model_loss(model: LM, params, batch, nbr_emb=None,
                reg_weight: float = 0.0, xent_chunk: int = 512):
     """Shared loss: LM cross-entropy (+ 0.01 MoE aux) (+ the CARLS graph
     regulariser). Returns (loss, (metrics, pooled))."""
-    h, aux, _ = model.hidden(params, batch["tokens"])
+    h, _, aux, _ = model.hidden(params, batch["tokens"])
     out_emb = model.out_embed(params)
     ce, metrics = chunked_xent(h, out_emb, batch["labels"], batch["mask"],
                                chunk=xent_chunk)
@@ -153,7 +153,7 @@ def make_inline_baseline_step(model: LM, optimizer: AdamW, *,
         nt = batch["neighbor_tokens"][:, :num_neighbors]
         B, K, S = nt.shape
         with torch.no_grad():
-            nh, _, _ = model.hidden(params, nt.reshape(B * K, S))
+            nh = model.hidden(params, nt.reshape(B * K, S))[0]
             nmask = torch.ones((B * K, S), device=nh.device)
             nbr = masked_mean_pool(nh, nmask).reshape(B, K, -1)
 
@@ -193,7 +193,7 @@ def make_async_train_fns(model: LM, optimizer: AdamW, *,
 
     @torch.no_grad()
     def embed_fn(params, tokens):
-        h, _, _ = model.hidden(params, tokens)
+        h = model.hidden(params, tokens)[0]
         mask = torch.ones(tokens.shape, device=h.device)
         return masked_mean_pool(h, mask)
 

@@ -1,7 +1,7 @@
 // Causal / sliding-window / soft-capped attention with an online softmax,
 // in the JAX layout: q (B, S, H, d), k and v (B, S, KV, d), o (B, S, H, d),
-// bf16 or fp32, d in {32, 64, 128}. GQA is read in place: query head h
-// reads KV head h / (H / KV), with no repeated copy of k and v.
+// bf16 or fp32, d in {32, 64, 112, 128}. GQA is read in place: query head
+// h reads KV head h / (H / KV), with no repeated copy of k and v.
 //
 // Replaces: src/repro/kernels/flash_attention.py:85, flash_attention_pallas
 // (and the model path's flash_attention_jax, models/layers.py:149).
@@ -57,6 +57,18 @@
 // profile, flash_stage_cycles): the consumers' softmax and P conversion,
 // about half their cycles, then their issue of products, which waits for
 // the other warpgroup's products to leave the tensor pipe.
+//
+// d 112 (kimi-k2's heads) is no multiple of the 64 bf16 of a 128-byte
+// swizzle row, and a 224-byte row fits no one box. The bf16 kernel keeps
+// its tiles 128 wide (tile_dim in wgmma.cuh): a head's two column blocks
+// are boxes of 64 columns at h * 112 and h * 112 + 64, so the second reads
+// 16 columns past the head (the next head's, or zeros past the last one,
+// TMA's fill). Q.K^T runs 7 k-steps of 16 and never reads them; P.V runs
+// at N 128, and they feed only output columns 112-127, which the epilogue
+// does not store. The tensor work is 128/112 of what the head needs, the
+// loads of K and V 8/7: the simplest correct form, not yet a fast one.
+// The fp32 kernel takes d 112 as it is (28 float4 reads a row, 7 output
+// dims a thread).
 //
 // For the backward (flash_attention_bwd.cu) either kernel also writes each
 // query row's log-sum-exp of its scaled (and capped) scores, m + log(l) in
@@ -115,10 +127,14 @@ enum {
   PROF_PRODUCER_BLOCKED = PROF_STAGES, PROF_PRODUCER, PROF_SLOTS
 };
 
+// a Q or K/V tile's bytes in shared memory (and a TMA load's: every box
+// counts whole, its columns past the tensor's edge too)
 template <int HD>
-__host__ __device__ constexpr int q_bytes() { return TQ * HD * 2; }
+__host__ __device__ constexpr int q_bytes() { return TQ * tile_dim<HD>() * 2; }
 template <int HD>
-__host__ __device__ constexpr int kv_bytes() { return TK * HD * 2; }
+__host__ __device__ constexpr int kv_bytes() {
+  return TK * tile_dim<HD>() * 2;
+}
 template <int HD>
 constexpr size_t bf16_smem_bytes() {
   return 1024 + 2 * q_bytes<HD>() + STAGES * 2 * kv_bytes<HD>();  // + align
@@ -218,7 +234,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
            int causal, int window, float softcap, float scale,
            float* __restrict__ lse, unsigned long long* __restrict__ prof) {
   constexpr int SWB = swz_bytes<HD>(), SWE = swz_elems<HD>();
-  constexpr int NCB = col_blocks<HD>();
+  constexpr int NCB = col_blocks<HD>(), TD = tile_dim<HD>();
   constexpr uint64_t LAYOUT = swz_layout<HD>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t q_full[2], q_empty[2], k_full[STAGES], v_full[STAGES],
@@ -302,7 +318,8 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const float c = softcap > 0.f ? 1.f : scale * LOG2E;
     const float cap_in = scale / softcap, cap_out = softcap * LOG2E;
-    float m[2], l[2], corr[2], acc[HD / 2], s[TK / 2];
+    // acc holds TD columns; those past HD (d 112) are never stored
+    float m[2], l[2], corr[2], acc[TD / 2], s[TK / 2];
     uint32_t phi[TK / 16][4], plo[TK / 16][4];
     // with a profile buffer, thread 0 of each consumer warpgroup charges
     // the cycles since its last mark to a stage
@@ -325,8 +342,8 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < TK / 16; ++kk) {
         const uint64_t dv = gmma_desc(v_addr + kk * 16 * SWB, TK * SWB,
                                       8 * SWB, LAYOUT);
-        wgmma_rs_d<HD>(acc, phi[kk], dv);
-        wgmma_rs_d<HD>(acc, plo[kk], dv);
+        wgmma_rs_d<TD>(acc, phi[kk], dv);
+        wgmma_rs_d<TD>(acc, plo[kk], dv);
       }
       wgmma_commit();
     };
@@ -342,7 +359,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
       m[0] = m[1] = NEG;
       l[0] = l[1] = 0.f;
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+      for (int j = 0; j < TD / 2; ++j) acc[j] = 0.f;
 
       // Q (A of Q.K^T): K-major rows of SWB bytes, 8-row groups 8 SWB
       // apart; a 16-wide k step moves 32 bytes along the swizzled row
@@ -419,7 +436,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tm_q,
         mark(PROF_PRODUCTS);
         if (lane == 0) mbar_arrive(&v_empty[(t - 1) % STAGES]);
 #pragma unroll
-        for (int j = 0; j < HD / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+        for (int j = 0; j < TD / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
         to_operand<TK>(s, phi, plo);
         mark(PROF_SOFTMAX);
       }
@@ -725,6 +742,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return launch_hd<64>(bf16, q, k, v, o, B, S, H, KV, causal, window,
                            softcap, scale, lse, prof, stream);
+    case 112:
+      return launch_hd<112>(bf16, q, k, v, o, B, S, H, KV, causal, window,
+                            softcap, scale, lse, prof, stream);
     case 128:
       return launch_hd<128>(bf16, q, k, v, o, B, S, H, KV, causal, window,
                             softcap, scale, lse, prof, stream);

@@ -8,7 +8,12 @@
 // A tile of `rows` rows of d bf16 lies in shared memory as column blocks
 // of swz_elems<HD>() dims (one swizzle width: 128 bytes, 64 at d 32), each
 // `rows` x swz_bytes<HD>() bytes, TMA's swizzle applied; tiles start on
-// 1024-byte boundaries, the 128-byte swizzle's period.
+// 1024-byte boundaries, the 128-byte swizzle's period. A d that is no
+// multiple of the swizzle width (112) takes whole blocks: its tile is
+// tile_dim<HD>() wide (128), and the box of its last block reads past the
+// head's d columns (what lies there is never a product's operand for
+// Q.K^T, which runs d / 16 k-steps, and only feeds output columns past d
+// in P.V, which the kernels do not store).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,7 +29,14 @@ __host__ __device__ constexpr int swz_bytes() { return HD >= 64 ? 128 : 64; }
 template <int HD>
 __host__ __device__ constexpr int swz_elems() { return swz_bytes<HD>() / 2; }
 template <int HD>
-__host__ __device__ constexpr int col_blocks() { return HD / swz_elems<HD>(); }
+__host__ __device__ constexpr int col_blocks() {
+  return (HD + swz_elems<HD>() - 1) / swz_elems<HD>();
+}
+// the width of a head's tile in shared memory: whole column blocks
+template <int HD>
+__host__ __device__ constexpr int tile_dim() {
+  return col_blocks<HD>() * swz_elems<HD>();
+}
 // the wgmma descriptors' layout type of that swizzle (1: 128 B, 2: 64 B)
 template <int HD>
 __host__ __device__ constexpr uint64_t swz_layout() {
@@ -200,14 +212,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d += A . B with N = d: A (64 x 16) bf16 in registers, B (16 x d) an
-// MN-major tile
-template <int HD>
-__device__ __forceinline__ void wgmma_rs_d(float (&d)[HD / 2],
+// d += A . B with N = TD, a tile's width (tile_dim): A (64 x 16) bf16 in
+// registers, B (16 x TD) an MN-major tile
+template <int TD>
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[TD / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  if constexpr (HD == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
+  static_assert(TD == 32 || TD == 64 || TD == 128, "a tile 32, 64 or 128 "
+                "wide");
+  if constexpr (TD == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (TD == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 

@@ -26,13 +26,32 @@ embedding pass runs.
 
 Exit status: 0 after a clean run, 2 when the makers produced no steps and
 only errors (so supervisors can tell a dead worker from a quiet one).
+SIGINT and SIGTERM stop the worker cleanly from its first lines on: run
+as a program, it installs their handler before its heavy imports (torch's
+take seconds), so that a worker that ``launch/fleet.py`` stops while it
+is still starting exits 0 and not -15. The JAX worker installs its
+handlers after its set-up (ROADMAP Q3 item 12).
 """
 from __future__ import annotations
 
-import argparse
 import signal
-import sys
 import threading
+
+# set by SIGINT or SIGTERM
+STOP = threading.Event()
+
+
+def _stop(*_) -> None:
+    STOP.set()
+
+
+if __name__ == "__main__":
+    for _sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(_sig, _stop)
+
+# the imports after the handlers (the docstring says why)
+import argparse
+import sys
 import time
 
 import numpy as np
@@ -45,6 +64,7 @@ from repro_torch.core.kb_router import connect_kb
 from repro_torch.core.knowledge_maker import make_embed_fn
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
+from repro_torch.launch.train import require_trained
 from repro_torch.models import build_model
 
 
@@ -126,6 +146,11 @@ def _node_slice(ap, args, client, n: int):
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _stop)
+    if STOP.is_set():
+        print("maker-worker stopped before it started", flush=True)
+        return 0
     kinds = [k.strip() for k in args.makers.split(",") if k.strip()]
     needs_ckpt = any(k != "graph_builder" for k in kinds)
     # the device is checked first: a worker that would embed on a card it
@@ -151,6 +176,7 @@ def main(argv=None) -> int:
             client.close()
             ap.error(f"makers {kinds} load checkpoints: pass --ckpt-dir")
         cfg = get_config(args.arch).reduced()
+        require_trained(cfg)
         if args.layers:
             cfg = cfg.replace(num_layers=args.layers)
         if cfg.d_model != client.dim:
@@ -178,17 +204,14 @@ def main(argv=None) -> int:
         rt.register(kind, batch_size=args.batch, min_period_s=args.period,
                     node_slice=node_slice)
 
-    stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
     deadline = time.time() + args.seconds if args.seconds else None
     rt.start()
-    while not stop.is_set():
+    while not STOP.is_set():
         if args.steps and sum(j.steps for j in rt.jobs) >= args.steps:
             break
         if deadline is not None and time.time() > deadline:
             break
-        stop.wait(0.05)
+        STOP.wait(0.05)
     rt.stop()
 
     for line in format_maker_stats(rt.stats()):

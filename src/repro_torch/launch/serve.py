@@ -7,25 +7,30 @@ client mode of ``repro.launch.serve --kb``.
       --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch jamba-1.5-large-398b --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --batch 2 --prompt-len 8 --gen 4
 
 LM mode (no ``--kb``) does what the JAX launcher's does: the reduced
 config of ``--arch``, random weights from ``--seed`` (here a
 ``torch.Generator`` on the device), prompts from
-``np.random.default_rng(seed)``, prefill into a cache of
-``prompt_len + gen + 1`` slots, then ``--gen`` greedy decode steps fed
-the prompt's last token first (so, as in the JAX launcher, that token is
-seen twice: at its position and at position ``prompt_len``). It prints
-the JAX launcher's two lines. The archs it builds are
-``repro_torch.models.PORTED_ARCHS``: yi-6b, whose prefill attention runs
-on the flash-attention kernel; rwkv6-7b, whose prefill WKV recurrence
-runs on the WKV kernel; and jamba-1.5-large-398b, whose prefill Mamba
-layers run their selective scan on the Mamba scan kernel and whose
-attention layer runs on flash (its MoE feed-forwards are plain
-products). Any other ``--arch`` raises ``NotImplementedError`` naming
-ROADMAP. ``serve_lm`` takes any config of those archs, the unreduced
-one or a cut of it included (jamba's published config does not fit one
-card; ``get_config("jamba-1.5-large-398b").replace(num_layers=8,
-num_experts=8)`` does), and optional parameters.
+``np.random.default_rng(seed)``, the front-end's inputs as zeros of
+(batch, ``num_frontend_tokens``, d_model) (internvl2-2b's patch
+embeddings, whisper-tiny's frames), prefill into a cache of
+``prompt_len + gen + prefix + 1`` slots (the prefix: internvl's patches),
+then ``--gen`` greedy decode steps fed the prompt's last token first (so,
+as in the JAX launcher, that token is seen twice: at its position and at
+position ``prompt_len``). It prints the JAX launcher's two lines. Every
+arch of ``ARCH_IDS`` serves (``repro_torch.models.PORTED_ARCHS``). On the
+card each prefill attention layer over at least 2048^2 (query, key)
+pairs runs on the flash-attention kernel (kimi-k2's heads of 112
+included), and whisper's encoder layers always do; rwkv6-7b's WKV
+recurrence runs on the WKV kernel and jamba's Mamba layers on the scan
+kernel; the MoE feed-forwards, cross-attention and decode are plain
+products. ``serve_lm`` takes any config of the archs, the unreduced one
+or a cut of it included (a published config that does not fit one card
+serves cut in depth and experts, e.g. ``get_config(
+"jamba-1.5-large-398b").replace(num_layers=8, num_experts=8)``), and
+optional parameters and front-end inputs.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --kb
 
@@ -107,9 +112,9 @@ with the local clients.
 
 The run is on the CUDA device unless ``--device cpu`` is given: servers
 and fleet members run their kernels on the card, and a member that
-cannot launch them fails rather than serve a plain path. The options of
-the JAX launcher that are not ported yet (``--kb-autotuned``, ROADMAP Q1
-item 5) are absent.
+cannot launch them fails rather than serve a plain path. The JAX
+launcher's ``--kb-autotuned`` is not ported yet: it raises
+``NotImplementedError`` naming ROADMAP Q1 item 5c.
 """
 from __future__ import annotations
 
@@ -462,15 +467,17 @@ def serve_kb_partitioned(args) -> dict:
 
 
 def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-             device="cuda", params=None) -> dict:
+             device="cuda", params=None, extra=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens greedily, as ``repro.launch.serve``'s LM mode does.
     ``params`` (``LM.init``'s tree, e.g. from
     ``repro_torch.convert.lm_params_from_numpy``) default to random ones
-    from ``seed``. Returns the generated ids (batch, gen), the last step's
-    logits (batch, vocab), the prefill and per-token decode times in ms
-    (host clock around work that ends in a device sync), and the kernel
-    launches each phase made."""
+    from ``seed``; ``extra`` (``{"patch_embs"}`` or ``{"frames"}``: (batch,
+    n, d_model) tensors) to the JAX launcher's zeros of n =
+    ``num_frontend_tokens``. Returns the generated ids (batch, gen), the
+    last step's logits (batch, vocab), the prefill and per-token decode
+    times in ms (host clock around work that ends in a device sync), and
+    the kernel launches each phase made."""
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
@@ -479,6 +486,12 @@ def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (batch, prompt_len))
                             .astype(np.int32)).to(dev)
+    if extra is None and cfg.frontend != "none":
+        key = "patch_embs" if cfg.frontend == "vision" else "frames"
+        extra = {key: torch.zeros((batch, cfg.num_frontend_tokens,
+                                   cfg.d_model), device=dev)}
+    prefix = (extra["patch_embs"].shape[1] if cfg.frontend == "vision"
+              else 0)
 
     def sync():
         if dev.type == "cuda":
@@ -491,8 +504,8 @@ def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         sync()
         before = ops.launch_counts()
         t0 = time.perf_counter()
-        cache, _ = model.prefill(params, toks,
-                                 cache_len=prompt_len + gen + 1)
+        cache, _ = model.prefill(params, toks, extra,
+                                 cache_len=prompt_len + gen + prefix + 1)
         sync()
         t_prefill = time.perf_counter() - t0
         prefill_launches = launches_since(before)
@@ -616,6 +629,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sock-buf", type=int, default=0,
                     help="--listen: SO_SNDBUF/SO_RCVBUF bytes (0 = OS "
                          "default)")
+    ap.add_argument("--kb-autotuned", default="", metavar="PATH",
+                    help="the JAX launcher's autotuned ANN config: not "
+                         "ported yet (ROADMAP Q1 item 5c)")
     ap.add_argument("--kb-makers", default="",
                     help="comma list of checkpoint-free maker kinds (e.g. "
                          "graph_builder) to run as background engine "
@@ -633,6 +649,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.kb_autotuned:
+        raise NotImplementedError("--kb-autotuned (the ANN autotuner's "
+                                  "config) is not ported yet (ROADMAP Q1 "
+                                  "item 5c)")
     if not args.kb:
         return serve_lm(get_config(args.arch).reduced(), batch=args.batch,
                         prompt_len=args.prompt_len, gen=args.gen,

@@ -1,6 +1,7 @@
-"""Shared neural layers of the llama path: initializers, RMS norm, rotary
-embeddings, GQA attention (naive, flash and single-token decode) and
-SwiGLU; the port of ``repro/models/layers.py``.
+"""Shared neural layers: initializers, RMS norm, rotary embeddings,
+whisper's sinusoidal positions, GQA attention (naive, flash and
+single-token decode), SwiGLU and the GELU feed-forward; the port of
+``repro/models/layers.py``.
 
 Plain functions on tensors in the JAX package's layouts: activations
 (B, S, D), queries (B, S, H, hd), keys and values (B, S, KV, hd), weight
@@ -15,6 +16,7 @@ CPU tensor.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -69,10 +71,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def rope_freqs(head_dim: int, theta: float,
                device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """The (head_dim / 2,) fp32 frequencies, computed on the CPU (whose
+    fp32 pow the tests hold against JAX's) and copied to ``device`` once.
+    The card's pow rounds a few of them (at head dim 112) an ulp the
+    other way, and an ulp of a frequency moves position p's angle by p
+    ulps, ~1e-4 at p 2048. Made outside inference mode, so that a
+    first call under ``torch.inference_mode`` (serving) leaves a tensor
+    that autograd may use later (training)."""
+    with torch.inference_mode(False):
+        freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                              dtype=torch.float32)
+                                 / head_dim))
+        return freqs.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -90,6 +103,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(seq: int, d: int, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position encodings (S, D), fp32,
+    for positions offset .. offset + seq - 1: the JAX function's formula,
+    computed in fp64 and rounded once to fp32. In fp32 an ulp of a
+    frequency moves the angle of position p by p ulps, ~1e-4 at p 2048,
+    and the card's exp and sin round otherwise than the CPU's; in fp64
+    both give the same fp32 table."""
+    pos = torch.arange(seq, dtype=torch.float64, device=device) + offset
+    half = d // 2
+    inv = torch.exp(-torch.arange(half, dtype=torch.float64, device=device)
+                    * (math.log(10000.0) / max(half - 1, 1)))
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
 # ---------------------------------------------------------------------------
@@ -219,3 +248,11 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
     """x: (..., D); wi/wg: (D, F); wo: (F, D)."""
     h = F.silu(x @ wg) * (x @ wi)
     return h @ wo
+
+
+def gelu_ffn(x: torch.Tensor, wi: torch.Tensor,
+             wo: torch.Tensor) -> torch.Tensor:
+    """x: (..., D); wi: (D, F); wo: (F, D). ``jax.nn.gelu``'s default is
+    the tanh approximation, so this is too (torch's default, the erf
+    form, is another function)."""
+    return F.gelu(x @ wi, approximate="tanh") @ wo

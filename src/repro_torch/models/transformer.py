@@ -1,12 +1,19 @@
-"""Attention mixer and feed-forward block of the llama path; the port of
-``repro/models/transformer.py``.
+"""Attention mixer, feed-forward blocks and the whisper-style encoder; the
+port of ``repro/models/transformer.py``.
 
 Parameters are plain dicts of tensors under the JAX package's names
-(wq/wk/wv/wo, wi/wg/wo), stacked over ``batch_dims`` as there. The initialisers
-fill tensors on the generator's device. Decode writes the new token's key
-and value into the caller's cache in place. The feed-forward is SwiGLU or
-MoE (``repro_torch.models.moe``); the GELU feed-forward and
-cross-attention (whisper) are not ported yet (ROADMAP Q1 item 7).
+(wq/wk/wv/wo, wi/wg/wo; the encoder's ln1/attn/ln2/ffn/ln_out), stacked
+over ``batch_dims`` as there. The initialisers fill tensors on the
+generator's device. Decode writes the new token's key and value into the
+caller's cache in place. The feed-forward is SwiGLU, GELU (whisper) or MoE
+(``repro_torch.models.moe``). Cross-attention reads the encoder's keys and
+values with every slot valid, as a plain ``decode_attention``.
+
+The encoder's self-attention runs on the flash kernel for a CUDA tensor
+(bf16 at whisper-tiny's widths: 1500 frames, 6 heads of 64, not causal)
+and on the naive attention for a CPU tensor, which is what the JAX
+function pins (``impl="naive"``): a deliberate difference of route, the
+same function.
 """
 from __future__ import annotations
 
@@ -15,8 +22,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
-
-_NOT_PORTED = "is not ported yet (ROADMAP Q1 item 7)"
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -91,6 +96,28 @@ def attn_decode(params, x1, kc, vc, kv_pos, t: int, cfg: ModelConfig, *,
     return out.reshape(B, 1, -1) @ params["wo"], kc, vc
 
 
+def cross_attn_apply(params, x, ck, cv, cfg: ModelConfig):
+    """Cross-attention to precomputed encoder K/V. x: (B, S, D); ck/cv:
+    (B, F, KV, hd), every slot valid."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    kv_pos = torch.zeros((B, ck.shape[1]), dtype=torch.int32,
+                         device=x.device)
+    out = L.decode_attention(q, ck, cv, kv_pos, q_position=None)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def cross_kv(params, enc_out, cfg: ModelConfig):
+    """The encoder output's keys and values for one cross-attention layer:
+    enc_out (B, F, D) -> (k, v), each (B, F, KV, hd)."""
+    B, F, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim_
+    k = (enc_out @ params["wk"]).reshape(B, F, KV, hd)
+    v = (enc_out @ params["wv"]).reshape(B, F, KV, hd)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # feed-forward
 # ---------------------------------------------------------------------------
@@ -98,9 +125,9 @@ def attn_decode(params, x1, kc, vc, kv_pos, t: int, cfg: ModelConfig, *,
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
              batch_dims=()):
-    """SwiGLU: wi, wg (D, F), wo (F, D). MoE: the router wr (D, E) and the
-    experts' wi, wg (E, D, F) and wo (E, F, D), stacked after
-    ``batch_dims`` as in JAX."""
+    """SwiGLU: wi, wg (D, F), wo (F, D). GELU: wi (D, F), wo (F, D). MoE:
+    the router wr (D, E) and the experts' wi, wg (E, D, F) and wo (E, F,
+    D), stacked after ``batch_dims`` as in JAX."""
     D, F = cfg.d_model, cfg.d_ff
     if kind == "moe":
         E = cfg.num_experts
@@ -108,8 +135,9 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 "wi": _dense(gen, cfg, D, F, (*batch_dims, E)),
                 "wg": _dense(gen, cfg, D, F, (*batch_dims, E)),
                 "wo": _dense(gen, cfg, F, D, (*batch_dims, E))}
-    if kind != "swiglu":
-        raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
+    if kind == "gelu":
+        return {"wi": _dense(gen, cfg, D, F, batch_dims),
+                "wo": _dense(gen, cfg, F, D, batch_dims)}
     return {"wi": _dense(gen, cfg, D, F, batch_dims),
             "wg": _dense(gen, cfg, D, F, batch_dims),
             "wo": _dense(gen, cfg, F, D, batch_dims)}
@@ -117,9 +145,55 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 def ffn_apply(params, x, cfg: ModelConfig, kind: str):
     """The feed-forward block. Returns (y, aux loss), as in JAX: MoE's
-    router loss, 0.0 for SwiGLU."""
+    router loss, 0.0 for SwiGLU and GELU."""
     if kind == "moe":
         return moe_mod.moe_apply(x, params, cfg=cfg)
-    if kind != "swiglu":
-        raise NotImplementedError(f"the {kind} feed-forward {_NOT_PORTED}")
+    if kind == "gelu":
+        return L.gelu_ffn(x, params["wi"], params["wo"]), 0.0
     return L.swiglu(x, params["wi"], params["wg"], params["wo"]), 0.0
+
+
+# ---------------------------------------------------------------------------
+# whisper-style bidirectional encoder
+# ---------------------------------------------------------------------------
+
+
+def encoder_init(gen: torch.Generator, cfg: ModelConfig):
+    EL, D, dev = cfg.enc_layers, cfg.d_model, gen.device
+    return {"ln1": torch.zeros((EL, D), device=dev),
+            "attn": attn_init(gen, cfg, batch_dims=(EL,)),
+            "ln2": torch.zeros((EL, D), device=dev),
+            "ffn": ffn_init(gen, cfg, "gelu", batch_dims=(EL,)),
+            "ln_out": torch.zeros((D,), device=dev)}
+
+
+def encoder_apply(params, frames, cfg: ModelConfig):
+    """frames: (B, F, D) precomputed frame embeddings (the stub front-end)
+    -> (B, F, D): sinusoid positions added, ``enc_layers`` layers of RMS
+    norm, non-causal attention and GELU, then ``ln_out``."""
+    _, F, D = frames.shape
+    h = frames + L.sinusoid_positions(F, D, device=frames.device)[None].to(
+        frames.dtype)
+    positions = torch.arange(F, device=frames.device)
+    impl = "naive" if frames.device.type == "cpu" else "flash"
+    layers = {k: params[k] for k in ("ln1", "attn", "ln2", "ffn")}
+    for lp in unstack(layers, cfg.enc_layers):
+        a, _ = attn_apply(lp["attn"], L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                          cfg, positions=positions, causal=False, impl=impl)
+        h = h + a
+        f, _ = ffn_apply(lp["ffn"], L.rms_norm(h, lp["ln2"], cfg.norm_eps),
+                         cfg, "gelu")
+        h = h + f
+    return L.rms_norm(h, params["ln_out"], cfg.norm_eps)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` views of every tensor of ``tree`` along its stacked dim
+    0, one dict a slice. The tensors are split once (``unbind``), so that
+    under autograd the slices' gradients are stacked once; indexing slice
+    by slice would give each a zero-filled gradient of the whole stacked
+    tensor to add up (``select``'s backward)."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))

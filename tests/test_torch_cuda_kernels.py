@@ -640,6 +640,37 @@ def test_cuda_flash_attention_matches_plain(case, dtype, atol):
     assert (got.float() - want.float()).abs().max().item() <= atol
 
 
+# kimi-k2's head dim 112 and whisper's encoder on the card: the kernel
+# against its plain version (chip_smoke.py phase 2 runs the full-width ones)
+FLASH_ZOO_CASES = [  # (B, S, H, KV, d, causal, softcap)
+    (1, 256, 4, 2, 112, True, 0.0),
+    (2, 333, 8, 1, 112, True, 0.0),          # MQA, ragged
+    (1, 512, 4, 2, 112, True, 30.0),
+    (1, 300, 4, 4, 112, False, 0.0),
+    (2, 1500, 6, 6, 64, False, 0.0),         # whisper's encoder
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_ZOO_CASES)
+def test_cuda_flash_d112_and_encoder_match_plain(case, dtype, atol):
+    dev = _require_card()
+    B, S, H, KV, d, causal, softcap = case
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev).to(dtype)
+               for n in (H, KV, KV))
+    kern = ops.LAUNCHERS["flash_attention"]
+    before = kern.launches
+    got = kern(q, k, v, causal=causal, softcap=softcap)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_cannot_take():
     dev = _require_card()

@@ -8,7 +8,9 @@ and the model path's ``flash_attention_jax`` in the JAX layout.
 Inputs are made with numpy from a seed. Tolerances are
 tests/test_kernels.py's: fp32 atol 2e-5, bf16 atol 2e-2. The Pallas kernel
 takes only S that its 128-row blocks divide, so the ragged S = 200 is held
-against ``flash_attention_jax`` and the naive attention alone.
+against ``flash_attention_jax`` and the naive attention alone. The cases
+include kimi-k2's head dim 112 (causal, soft-capped, ragged) and
+whisper's encoder (6 heads of 64, not causal).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,12 @@ CASES = [  # (B, S, H, KV, d, causal, window, softcap)
     (2, 256, 4, 2, 32, True, 0, 0.0),        # GQA
     (2, 200, 4, 2, 32, True, 0, 0.0),        # S not a multiple of 64
     (1, 200, 4, 1, 32, False, 50, 10.0),
+    # kimi-k2's head dim 112, causal and soft-capped (grok's cap of 30)
+    (2, 256, 4, 2, 112, True, 0, 0.0),
+    (1, 256, 4, 2, 112, True, 0, 30.0),
+    (1, 200, 4, 1, 112, True, 0, 0.0),       # d 112 with a ragged end
+    # whisper's encoder: 6 heads of 64, not causal
+    (1, 384, 6, 6, 64, False, 0, 0.0),
 ]
 
 
@@ -95,3 +103,4 @@ def test_flash_on_cpu_launches_nothing():
         ops.LAUNCHERS["flash_attention"](q, k, v)
     with pytest.raises(ValueError, match=r"\(B, S, KV, d\)"):
         ops.flash_attention(q, k[:, :32], v[:, :32])   # Skv != Sq
+

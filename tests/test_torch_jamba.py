@@ -288,8 +288,8 @@ def test_hidden_matches_jax(lm_pair):
     want, _, want_aux, _ = jax.jit(
         lambda p, tk: jm.hidden(p, tk, {}, DistContext()))(
         params, jnp.asarray(toks, jnp.int32))
-    got, aux, cache = tm.hidden(tp, t(toks))
-    assert cache is None
+    got, prefix, aux, cache = tm.hidden(tp, t(toks))
+    assert cache is None and prefix == 0
     _close(got, want, "hidden")
     # the MoE routers' aux loss summed over the layers, as JAX sums it
     assert aux.shape == () and float(aux) > 0.0

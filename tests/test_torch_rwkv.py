@@ -209,8 +209,8 @@ def test_hidden_matches_jax(lm_pair):
     toks = np.random.default_rng(64).integers(0, jm.cfg.vocab_size, (2, 64))
     want = jm.hidden(params, jnp.asarray(toks, jnp.int32), {},
                      DistContext())[0]
-    got, aux, cache = tm.hidden(tp, t(toks))
-    assert cache is None
+    got, prefix, aux, cache = tm.hidden(tp, t(toks))
+    assert cache is None and prefix == 0
     assert aux.shape == () and float(aux) == 0.0  # no MoE layer
     _close(got, want, "hidden")
 
