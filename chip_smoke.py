@@ -130,13 +130,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
    printed); then the same two runs of ``train_carls`` at the full width
    of rwkv6-7b cut to 12 of its 32 layers (d 4096, 64 WKV heads of 64,
    d_ff 14336, vocab 65536; 3.66 B parameters) at 8 x 64 and at 2 x 2048
-   (the WKV backward at the prefill's sequence length), each with 12 WKV
-   forward and 12 backward launches a step (and 12 forwards in the maker
-   pass) and one more step profiled (the WKV kernels' device time and
+   (the WKV backward at the prefill's sequence length), each with 24 WKV
+   forward launches a step (12, and 12 in the recompute) and 12
+   backward (and 12 forwards in the maker pass) and one more step
+   profiled (the WKV kernels' device time and
    share of the step's), and of yi-6b's 16 layers at batch 2 x seq 2048,
    where each layer
-   takes the flash kernel forward and backward (16 each a step): ms a
-   step, peak device memory, losses finite and the two runs within 1%;
+   takes the flash kernel forward and backward: ms a
+   step, peak device memory, losses finite and the two runs within 1%,
+   then once more with ``remat=False`` beside it (ms a step and peak:
+   what remat costs and saves). The full-width configs keep their
+   ``remat`` (policy ``nothing``: each layer's forward runs again in the
+   backward's recompute), so a step launches each layer's WKV or flash
+   forward twice and its backward once, and the maker pass its forward
+   once more;
    then one full-width jamba Mamba layer (d 8192, di 16384, ds 16, bf16)
    forward and backward at 4 x 2048 with gradients on y and on the final
    state, through the scan kernels and through the plain scan on the
@@ -203,7 +210,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    its 384 experts, top-8 kept; ZOO_CUTS), the weights built once and the
    prompt served twice: prefill ms, decode ms a token, peak memory, flash
    launches per prefill and none in decode, the same ids twice; kimi-k2's
-   prefill profiled.
+   prefill profiled;
+12. the same seven archs train at full width (run after phase 8), bf16
+   parameters, fp32 AdamW moments, a 2048 x d_model fp32 bank, 8
+   neighbours, lr 1e-4, the config's remat, each cut in depth only as
+   far as one card forces (ZOO_TRAIN: minitron whole, granite 5 of 88
+   layers, command-r 1 of 64, grok 1 of 64 with 4 of its 8 experts,
+   kimi 2 of 61 with 16 of its 384 experts, internvl and whisper whole)
+   at 2 x 2048 (whisper 8 x 432): the five text archs through
+   ``train_carls`` (the maker pass on the last step), internvl (256
+   N(0, 1) patch embeddings) and whisper (1,500 N(0, 1) frames) through
+   ``make_carls_train_step`` with the input in each batch; 6 steps each:
+   losses finite, the exact launches (a lookup and an AdamW update a
+   step, flash forward twice and backward once a decoder attention layer
+   a step, whisper's encoder layers once each way, the maker pass's
+   forwards), ms a step (steps 3-6), peak memory; grok-1 and kimi-k2 twice
+   from one seed, the losses within 1%.
 
 Phase 2 also holds nn_search beyond the serve shape (a repeated run
 bit-identical, k = 128, a bank of 100,003 rows, and a bank planted three
@@ -228,8 +250,9 @@ causal, S no multiple of 128, H/KV 8), at the zoo's prefill shapes in
 bf16 (FLASH_ZOO: kimi-k2's heads of 112, grok-1's soft cap, whisper's
 1500-frame encoder, not causal, and internvl's 2304 positions; each
 timed beside its bound and, but for the soft cap, SDPA's time), at d 112
-on three small cases in bf16 and fp32, and refusing d 112 under
-autograd before any launch; the three backward kernels
+on three small cases in bf16 and fp32, and under autograd at d 112
+(the Function: one forward and one backward launch); the three backward
+kernels
 (``flash_attention_bwd``, ``rwkv_wkv_bwd``, ``mamba_scan_bwd``) at those
 full-width shapes and on FLASH_SMALL's, WKV_SMALL's and SCAN_SMALL's
 cases (each against its plain backward on the forward's own log-sum-exp
@@ -237,7 +260,10 @@ or checkpoints, twice bit-identical, and its autograd Function against
 ``torch.autograd`` of the plain forward; timed beside its bound, the
 plain backward and, for flash, SDPA's backward; the flash backward also
 at the yi-6b training run's B 2, with its bound and SDPA's, and split by
-device kernel under torch.profiler; the WKV and scan backwards with their
+device kernel under torch.profiler, at d 112 on the three small cases in
+bf16 and fp32, and at phase 12's training shapes (FLASH_BWD_ZOO:
+kimi-k2's d 112, grok-1's soft cap, whisper's encoder, internvl's 2304
+positions); the WKV and scan backwards with their
 stage profiles, WKV's also at the rwkv6-7b training run's B 8 x S 64),
 the AdamW kernel at phase 8's leaves
 (the global norm within 1e-5 of the plain version's, every parameter and
@@ -314,7 +340,7 @@ from repro_torch.data import SyntheticGraphCorpus  # noqa: E402
 from repro_torch.env import fused_lookup_block, stage_lookup_ids  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.optim import AdamW, constant_lr  # noqa: E402
+from repro_torch.optim import AdamW, constant_lr, warmup_cosine  # noqa: E402
 from repro_torch.tree import tree_items, tree_leaves  # noqa: E402
 from repro_torch.kernels.nn_search import tile_plan  # noqa: E402
 from tools.kernel_ab import (  # noqa: E402
@@ -807,8 +833,7 @@ FLASH_ZOO = [
     ("whisper-tiny encoder", 1500, 6, 6, 64, False, 0.0, True),
     ("internvl2-2b", 2304, 16, 8, 128, True, 0.0, True),
 ]
-# d 112 in both dtypes at small shapes (the forward only: the backward
-# takes no d 112, ROADMAP Q1 item 7b)
+# d 112 in both dtypes at small shapes, forward and backward
 FLASH_D112_SMALL = [  # (B, S, H, KV, d, causal, window, softcap)
     (2, 333, 8, 2, 112, True, 0, 0.0),       # ragged, H/KV 4
     (1, 300, 4, 1, 112, False, 0, 0.0),      # MQA, not causal
@@ -937,15 +962,17 @@ def phase2_flash_zoo(g) -> dict:
                 f"{KV} d {d} {kw}: max_abs_err={err}")
     q = torch.randn((1, 256, 4, 112), device=dev, requires_grad=True)
     kv = torch.randn((1, 256, 2, 112), device=dev)
-    before = kern.launches
-    try:
-        kern(q, kv, kv)
-        require(False, "flash_attention under autograd took d 112")
-    except ValueError as e:
-        require("ROADMAP Q1 item 7b" in str(e) and kern.launches == before,
-                f"the d-112 refusal under autograd: {e}")
-    log("phase 2: flash_attention under autograd at d 112 refused before "
-        "any launch (the backward takes d 32, 64, 128)")
+    bwd = ops.LAUNCHERS["flash_attention_bwd"]
+    before = (kern.launches, bwd.launches)
+    out = kern(q, kv, kv)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    got = (kern.launches - before[0], bwd.launches - before[1])
+    require(type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+            and got == (1, 1) and bool(torch.isfinite(q.grad).all()),
+            f"flash_attention under autograd at d 112: {got} launches")
+    log("phase 2: flash_attention under autograd at d 112 runs "
+        "FlashAttentionFn: 1 forward and 1 backward launch")
     return zoo
 
 
@@ -1207,13 +1234,13 @@ def bwd_kernel_parts(kern, q, k, v, o, lse, dout, calls: int = 3) -> str:
                      sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
-def sdpa_bwd_ms(q, k, v, dout) -> float:
-    """SDPA's backward alone (causal, GQA), on its own forward's graph:
-    the flash backward's library yardstick."""
+def sdpa_bwd_ms(q, k, v, dout, causal: bool = True) -> float:
+    """SDPA's backward alone (GQA), on its own forward's graph: the flash
+    backward's library yardstick."""
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o_s = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     do_t = dout.transpose(1, 2)
     return time_ms(lambda: torch.autograd.grad(
         o_s, (qt, kt, vt), do_t, retain_graph=True), 5)
@@ -1277,6 +1304,64 @@ def scan_bwd_case(args, dy, dh, label: str) -> dict:
     ((y * dy).sum() + (h_fin * dh).sum()).backward()
     res["autograd_err"] = autograd_err(leaves, plain, label)
     return res
+
+
+# the flash backward at the zoo's training shapes (phase 12), bf16
+# (label, B, S, H, KV, d, causal, softcap, SDPA computes it): kimi-k2's
+# heads of 112, grok-1's soft cap (no PyTorch call takes one), whisper's
+# encoder over 1500 frames (not causal) at its batch of 8, internvl's 2304
+# positions (256 patches and 2048 tokens)
+FLASH_BWD_ZOO = [
+    ("kimi-k2-1t-a32b", 2, 2048, 64, 8, 112, True, 0.0, True),
+    ("grok-1-314b", 2, 2048, 48, 8, 128, True, 30.0, False),
+    ("whisper-tiny encoder", 8, 1500, 6, 6, 64, False, 0.0, True),
+    ("internvl2-2b", 2, 2304, 16, 8, 128, True, 0.0, True),
+]
+
+
+def phase2_flash_bwd_zoo(g) -> dict:
+    """The flash backward at d 112 on FLASH_D112_SMALL's cases in bf16 and
+    fp32, then at the zoo's training shapes (FLASH_BWD_ZOO), each against
+    the plain backward (twice, bit-identical) and its Function against
+    autograd of the plain forward, the latter timed beside the bound (10
+    d operations a kept pair) and, where SDPA computes the function,
+    SDPA's backward. Returns {label: its record}."""
+    kern = ops.LAUNCHERS["flash_attention_bwd"]
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, KV, d, causal, window, softcap in FLASH_D112_SMALL:
+            q, k, v, dout = (torch.randn((B, S, n, d), generator=g,
+                                         device=dev).to(dtype)
+                             for n in (H, KV, KV, H))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            res = flash_bwd_case(q, k, v, dout, kw,
+                                 f"flash_attention_bwd {dtype} B {B} S {S} "
+                                 f"H {H} KV {KV} d {d} {kw}")
+            log(f"phase 2: flash_attention_bwd {dtype} B {B} S {S} H {H} "
+                f"KV {KV} d {d} {kw}: {res}")
+    zoo = {}
+    for label, B, S, H, KV, d, causal, cap, sdpa in FLASH_BWD_ZOO:
+        q, k, v, dout = (torch.randn((B, S, n, d), generator=g,
+                                     device=dev).to(torch.bfloat16)
+                         for n in (H, KV, KV, H))
+        kw = dict(causal=causal, softcap=cap)
+        res = flash_bwd_case(q, k, v, dout, kw, f"flash_attention_bwd bf16 "
+                             f"at {label}'s training shape")
+        o, lse = flash_attention_with_lse(q, k, v, **kw)
+        res.update(
+            shape=[B, S, H, KV, d], causal=causal, softcap=cap,
+            ms=time_ms(lambda: kern(q, k, v, o, lse, dout, **kw), 5),
+            plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, dout, **kw), 1),
+            library_ms=sdpa_bwd_ms(q, k, v, dout, causal) if sdpa else None)
+        res["bound_ms"], res["bound_by"] = flash_bwd_bound(
+            q, k, causal, BF16_FLOP_PER_S)
+        log(f"phase 2: flash_attention_bwd bf16 at {label}'s training shape "
+            f"(B {B}, S {S}, H {H}, KV {KV}, d {d}, {kw}): {res}")
+        zoo[label] = res
+        del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+    return zoo
 
 
 def phase2_backward() -> dict:
@@ -1345,8 +1430,10 @@ def phase2_backward() -> dict:
     log(f"phase 2: flash_attention_bwd bf16 at B {TRAIN_LONG_B}, device "
         f"time by kernel: {bwd_kernel_parts(kern, q, k, v, o, lse, dout)}")
     del q, k, v, dout, o, lse
+    zoo = phase2_flash_bwd_zoo(g)
     out["flash_attention_bwd"] = dict(flash[torch.bfloat16])
     out["flash_attention_bwd"]["train_shape"] = train_res
+    out["flash_attention_bwd"]["zoo"] = zoo
     f = flash[torch.float32]
     out["flash_attention_bwd"]["fp32"] = {
         "max_abs_err": f["max_abs_err"], "ms": f["ms"],
@@ -3601,36 +3688,40 @@ def train_parts(prof, wall_ms: float) -> str:
 
 
 def train_run(label: str, cfg, want: dict, batch: int = TRAIN_B,
-              seq: int = TRAIN_SEQ):
+              seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS,
+              phase: str = "phase 8", must_fall: bool = True):
     """``train_carls`` at phase 8's configuration (or at ``batch`` x
-    ``seq``) with every kernel counter set to 0 just before it and read
-    just after; ``want`` gives the launches the run must make. The loss
-    must be finite and fall."""
+    ``seq``, for ``steps`` steps, the maker pass on the last) with every
+    kernel counter set to 0 just before it and read just after; ``want``
+    gives the launches the run must make. The loss must be finite and,
+    with ``must_fall``, fall."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     res = train.train_carls(
-        cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
-        nodes=TRAIN_NODES, lr=TRAIN_LR, maker_every=TRAIN_STEPS, seed=0,
-        device="cuda", log=lambda line: log(f"phase 8: {label}: {line}"))
+        cfg, steps=steps, batch=batch, seq=seq,
+        nodes=TRAIN_NODES, lr=TRAIN_LR, maker_every=steps, seed=0,
+        device="cuda", log=lambda line: log(f"{phase}: {label}: {line}"))
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"]
     ms = float(np.mean(res["step_ms"][2:]))
-    log(f"phase 8: {label}: {TRAIN_STEPS} steps at lr {TRAIN_LR}, losses "
-        f"{losses}; {ms} ms a step (steps 3-{TRAIN_STEPS}; each "
+    log(f"{phase}: {label}: {steps} steps at lr {TRAIN_LR}, losses "
+        f"{losses}; {ms} ms a step (steps 3-{steps}; each "
         f"{res['step_ms']}); peak device memory {peak} bytes; {wall:.1f} s "
         f"with init; launches {counts}")
     require(bool(np.isfinite(losses).all()), f"{label}: a loss is not "
             f"finite: {losses}")
-    require(bool(np.mean(losses[-3:]) < losses[0]),
-            f"{label}: the loss did not fall: {losses}")
-    log(f"phase 8: {label}: the loss fell (mean of the last 3 steps below "
-        f"the first)")
+    if must_fall:
+        require(bool(np.mean(losses[-3:]) < losses[0]),
+                f"{label}: the loss did not fall: {losses}")
+        log(f"{phase}: {label}: the loss fell (mean of the last 3 steps "
+            "below the first)")
     got = {k: counts[k] for k in want}
     require(got == want, f"{label}: launches {got}, not {want}")
+    res.update(ms=ms, peak=peak)
     return res, counts
 
 
@@ -3646,12 +3737,12 @@ WKV_PROFILE = {"rwkv_wkv_bwd": ("wkv_bwd", "du_sum"),
                "rwkv_wkv": ("wkv_kernel",)}
 
 
-def compare_runs(label: str, losses1, losses2) -> None:
+def compare_runs(label: str, losses1, losses2, phase: str = "phase 8"):
     """Two runs from one seed: every step's loss within 1%."""
     rel = [abs(a - b) / abs(b) for a, b in zip(losses2, losses1)]
     require(max(rel) <= 0.01, f"{label}: the two runs' losses differ by "
             f"more than 1%: {losses1} vs {losses2}")
-    log(f"phase 8: {label}: the two full-width runs' losses bit-identical: "
+    log(f"{phase}: {label}: the two full-width runs' losses bit-identical: "
         f"{losses1 == losses2}; largest relative gap {max(rel)}")
 
 
@@ -3665,13 +3756,15 @@ def kernel_ms(prof, pats) -> float:
 
 
 def train_twice(label: str, cfg, want: dict, profile_kernels=None,
-                **kw) -> dict:
-    """``train_run`` twice from one seed; the first run's launches. With
+                **kw):
+    """``train_run`` twice from one seed -> (the first run's launches, its
+    {"ms": ms a step, "peak": peak device bytes}). With
     ``profile_kernels`` ({label: name patterns}), one more step of the
     first run under ``torch.profiler``: its parts and each named kernel's
     device time and share of the step's."""
     res, counts = train_run(f"{label} run 1", cfg, want, **kw)
     losses1 = res["losses"]
+    stats = {"ms": res["ms"], "peak": res["peak"]}
     if profile_kernels:
         wall_ms, prof = profiled(res["loop"].step, need=has_train_ranges)
         log(f"phase 8: {label}: profiled step {TRAIN_STEPS + 1}: "
@@ -3690,7 +3783,7 @@ def train_twice(label: str, cfg, want: dict, profile_kernels=None,
     del res
     gc.collect()
     compare_runs(label, losses1, losses2)
-    return counts
+    return counts, stats
 
 
 def phase8_jamba_layer() -> dict:
@@ -3803,29 +3896,192 @@ def phase8_train() -> dict:
     log(f"phase 8: rwkv6-7b cut to {TRAIN_RWKV_LAYERS} of 32 layers: "
         f"{cfg.param_count()} parameters")
     n = TRAIN_RWKV_LAYERS
+    # the config's remat: each layer's WKV forward runs again in the
+    # backward's recompute, so 2 a layer a step, and the maker pass's
     rwkv_want = {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
-                 "adamw": TRAIN_STEPS, "rwkv_wkv": (TRAIN_STEPS + 1) * n,
+                 "adamw": TRAIN_STEPS,
+                 "rwkv_wkv": (2 * TRAIN_STEPS + 1) * n,
                  "rwkv_wkv_bwd": TRAIN_STEPS * n}
     paths["train_rwkv"] = train_twice("rwkv6-7b full width", cfg, rwkv_want,
-                                      profile_kernels=WKV_PROFILE)
+                                      profile_kernels=WKV_PROFILE)[0]
     # the same at 2 x 2048, where the WKV backward runs at the prefill's
     # sequence length
     free_weights("phase 8", f"rwkv6-7b training at seq {TRAIN_LONG_SEQ}")
     paths["train_rwkv_2048"] = train_twice(
         f"rwkv6-7b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}", cfg, rwkv_want,
-        profile_kernels=WKV_PROFILE, batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
-    # yi-6b at 2 x 2048: flash forward and backward in each layer a step
+        profile_kernels=WKV_PROFILE, batch=TRAIN_LONG_B,
+        seq=TRAIN_LONG_SEQ)[0]
+    # yi-6b at 2 x 2048: flash forward and backward in each layer a step,
+    # the forward again in the recompute; then once without remat
     free_weights("phase 8", "yi-6b training at seq 2048")
     cfg = get_config("yi-6b").replace(num_layers=TRAIN_LAYERS)
     n = TRAIN_LAYERS
-    paths["train_yi_2048"] = train_twice(
-        f"yi-6b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}", cfg,
+    long = dict(batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
+    label = f"yi-6b at {TRAIN_LONG_B} x {TRAIN_LONG_SEQ}"
+    paths["train_yi_2048"], remat = train_twice(
+        label, cfg, {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
+                     "adamw": TRAIN_STEPS,
+                     "flash_attention": (2 * TRAIN_STEPS + 1) * n,
+                     "flash_attention_bwd": TRAIN_STEPS * n}, **long)
+    free_weights("phase 8", "yi-6b training at seq 2048 without remat")
+    res, _ = train_run(
+        f"{label} without remat", cfg.replace(remat=False),
         {**NONE_LAUNCHED, "kb_fused_lookup": TRAIN_STEPS,
          "adamw": TRAIN_STEPS, "flash_attention": (TRAIN_STEPS + 1) * n,
-         "flash_attention_bwd": TRAIN_STEPS * n},
-        batch=TRAIN_LONG_B, seq=TRAIN_LONG_SEQ)
+         "flash_attention_bwd": TRAIN_STEPS * n}, **long)
+    log(f"phase 8: {label}, remat (policy {cfg.remat_policy}) against "
+        f"none: {remat['ms']} against {res['ms']} ms a step "
+        f"({100 * (remat['ms'] / res['ms'] - 1):.1f}% more), peak "
+        f"{remat['peak']} against {res['peak']} bytes "
+        f"({res['peak'] - remat['peak']} fewer)")
+    del res
+    gc.collect()
     free_weights("phase 8", "the jamba Mamba layer")
     paths["train_jamba_layer"] = phase8_jamba_layer()
+    return paths
+
+
+# phase 12: the seven archs that phase 8 does not train, at full width,
+# cut in depth only as far as one card forces (param_count(): minitron
+# whole 5.10 B parameters, granite 5 of 88 layers 3.25 B, command-r 1 of
+# 64 3.15 B of it the tied 256k x 12288 embedding, 4.72 B in all, grok 1
+# of 64 and 4 of its 8 experts 4.12 B, kimi 2 of 61 and 16 of its 384
+# experts with top-8 kept 3.99 B, internvl whole 1.89 B, whisper whole
+# 0.06 B), bf16 parameters and fp32 AdamW moments (12 bytes a parameter
+# before activations): {arch: (cut, batch, seq)}. whisper's seq is its
+# 448-token context less 16, as phase 11 serves it, at a batch of 8.
+ZOO_TRAIN = {
+    "minitron-4b": ({}, 2, 2048),
+    "granite-34b": (dict(num_layers=5), 2, 2048),
+    "command-r-plus-104b": (dict(num_layers=1), 2, 2048),
+    "grok-1-314b": (dict(num_layers=1, num_experts=4), 2, 2048),
+    "kimi-k2-1t-a32b": (dict(num_layers=2, num_experts=16), 2, 2048),
+    "internvl2-2b": ({}, 2, 2048),
+    "whisper-tiny": ({}, 8, WHISPER_PROMPT),
+}
+ZOO_TRAIN_STEPS = 6
+# the archs whose flash backward runs a variant no other training run
+# takes (kimi-k2's d 112, grok-1's soft cap): trained twice from one seed
+ZOO_TRAIN_TWICE = ("grok-1-314b", "kimi-k2-1t-a32b")
+
+
+def zoo_train_want(cfg, seq: int, steps: int, maker: bool) -> dict:
+    """The exact launches of ``steps`` training steps of ``cfg`` at
+    ``seq`` tokens: a lookup and an AdamW update a step; each decoder
+    attention layer whose (query, key) pairs reach the flash branch (the
+    vision prefix counted) launches flash forward once and, under remat,
+    again in the backward's recompute, and its backward once; whisper's
+    encoder layers, outside the checkpointed groups, flash forward and
+    backward once a step; the maker pass on the last step, ``maker``, a
+    forward of the decoder layers."""
+    n = zoo_flash_launches(cfg, seq) - (cfg.enc_layers
+                                        if cfg.cross_attention else 0)
+    enc = cfg.enc_layers if cfg.cross_attention else 0
+    fwd = (2 if cfg.remat else 1) * n + enc
+    return {**NONE_LAUNCHED, "kb_fused_lookup": steps, "adamw": steps,
+            "flash_attention": steps * fwd + (n if maker else 0),
+            "flash_attention_bwd": steps * (n + enc)}
+
+
+def frontend_train_run(label: str, cfg, want: dict, batch: int, seq: int,
+                       steps: int):
+    """``make_carls_train_step`` on ``cfg`` (internvl2-2b, whisper-tiny)
+    as ``train_carls`` runs the text archs (random bf16 weights from seed
+    0, AdamW at TRAIN_LR with weight decay 0.01, a TRAIN_NODES x d_model
+    bank of N(0, 0.01²) rows, the corpus's batches), each batch carrying
+    the front-end's input, N(0, 1) from numpy (internvl's 256 patch
+    embeddings, whisper's 1,500 frames); no maker pass (the embedding
+    maker reads tokens alone, as JAX's). Kernel counters set to 0 just
+    before and read just after; ``want`` gives the launches. Returns
+    ({"losses", "step_ms", "ms", "peak"}, counts)."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = cfg.replace(carls=cfg.carls.__class__(
+        **{**cfg.carls.__dict__, "kb_entries": TRAIN_NODES}))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, steps // 10, steps),
+                weight_decay=0.01)
+    st = opt.init(params)
+    kb = kbm.kb_create(TRAIN_NODES, cfg.d_model, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    corpus = SyntheticGraphCorpus(
+        num_nodes=TRAIN_NODES, vocab_size=cfg.vocab_size, seq_len=seq + 1,
+        neighbors_per_node=cfg.carls.num_neighbors)
+    step = make_carls_train_step(model, opt)
+    rng = np.random.default_rng(1)
+    losses, step_ms = [], []
+    for i in range(steps):
+        tb = {k: torch.from_numpy(v).to(dev)
+              for k, v in corpus.batch(rng, batch).items()}
+        tb.update(frontend_inputs(cfg, batch, 100 + i, dev, torch.float32))
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, st, kb, m = step(params, st, kb, tb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(m["loss"]))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.mean(step_ms[2:]))
+    log(f"phase 12: {label}: {steps} steps at lr {TRAIN_LR}, losses "
+        f"{losses}; {ms} ms a step (steps 3-{steps}; each {step_ms}); "
+        f"peak device memory {peak} bytes; "
+        f"{time.perf_counter() - t0:.1f} s with init; launches {counts}")
+    require(bool(np.isfinite(losses).all()), f"{label}: a loss is not "
+            f"finite: {losses}")
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{label}: launches {got}, not {want}")
+    del params, st, kb, m, tb
+    return {"losses": losses, "step_ms": step_ms, "ms": ms,
+            "peak": peak}, counts
+
+
+def phase12_zoo_train() -> dict:
+    """The seven archs of ZOO_TRAIN train at full width, cut in depth:
+    the text archs through ``train_carls`` (the maker pass on the last
+    step), internvl2-2b and whisper-tiny through ``make_carls_train_step``
+    with their front-end inputs in each batch; ZOO_TRAIN_STEPS steps each
+    at the config's remat, with their exact launches, ms a step and peak
+    memory; ZOO_TRAIN_TWICE's archs twice from one seed, the losses
+    within 1%. Returns each run's launches (``train_zoo_<arch>``)."""
+    paths = {}
+    for arch, (cut, batch, seq) in ZOO_TRAIN.items():
+        free_weights("phase 12", f"{arch} training")
+        cfg = get_config(arch).replace(**cut)
+        text = cfg.frontend == "none"
+        want = zoo_train_want(cfg, seq, ZOO_TRAIN_STEPS, maker=text)
+        log(f"phase 12: {arch} cut to {cut or 'nothing'}: "
+            f"{cfg.param_count()} parameters, {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+            f"{cfg.head_dim_}, remat {cfg.remat} ({cfg.remat_policy}), "
+            f"batch {batch} x seq {seq}; launches a run must be {want}")
+        runs = []
+        for i in range(2 if arch in ZOO_TRAIN_TWICE else 1):
+            label = f"{arch} full width run {i + 1}"
+            if text:
+                res, counts = train_run(label, cfg, want, batch=batch,
+                                        seq=seq, steps=ZOO_TRAIN_STEPS,
+                                        phase="phase 12", must_fall=False)
+                del res["loop"]
+            else:
+                res, counts = frontend_train_run(label, cfg, want, batch,
+                                                 seq, ZOO_TRAIN_STEPS)
+            runs.append(res)
+            gc.collect()
+            if i == 0:
+                paths[f"train_zoo_{arch}"] = counts
+                per_step = {k: v / ZOO_TRAIN_STEPS for k, v in want.items()
+                            if v}
+                log(f"phase 12: {arch}: {res['ms']} ms a step, peak "
+                    f"{res['peak']} bytes; launches a step {per_step}")
+        if len(runs) == 2:
+            compare_runs(arch, runs[0]["losses"], runs[1]["losses"],
+                         phase="phase 12")
+        del runs
     return paths
 
 
@@ -4549,6 +4805,9 @@ def main() -> int:
     t = time.perf_counter()
     paths.update(phase8_train())
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths.update(phase12_zoo_train())
+    log(f"phase 12: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     paths.update(phase9_makers())
     log(f"phase 9: {time.perf_counter() - t:.1f} s")

@@ -42,7 +42,8 @@ def make_embed_fn(model: LM):
     pool of the final hidden states."""
     @torch.no_grad()
     def embed(params, node_tokens):
-        h = model.hidden(params, node_tokens)[0]
+        h, prefix = model.hidden(params, node_tokens, {})[:2]
+        h = h[:, prefix:]
         mask = torch.ones(node_tokens.shape, device=h.device)
         return masked_mean_pool(h, mask)
     return embed
@@ -72,9 +73,9 @@ def make_label_mining(model: LM, *, num_classes: int,
     @torch.no_grad()
     def maker_step(params, fs: kbm.FeatureStore, node_ids, node_tokens,
                    class_readout: Callable):
-        h = model.hidden(params, node_tokens)[0]
+        h, prefix = model.hidden(params, node_tokens, {})[:2]
         mask = torch.ones(node_tokens.shape, device=h.device)
-        emb = masked_mean_pool(h, mask)
+        emb = masked_mean_pool(h[:, prefix:], mask)
         probs = torch.softmax(class_readout(params, h, emb), dim=-1)
         conf, pred = probs.max(-1)
         conf = torch.where(conf >= conf_threshold, conf,

@@ -56,11 +56,24 @@ from repro_torch.optim import AdamW
 from repro_torch.tree import tree_items, tree_map_with_path
 
 
+# the batch key of each front-end's input
+FRONTEND_KEYS = {"vision": "patch_embs", "audio": "frames"}
+
+
+def extra_from_batch(batch: Dict) -> Dict:
+    """The front-ends' inputs a batch carries, as JAX's
+    ``_extra_from_batch``."""
+    return {k: batch[k] for k in FRONTEND_KEYS.values() if k in batch}
+
+
 def model_loss(model: LM, params, batch, nbr_emb=None,
                reg_weight: float = 0.0, xent_chunk: int = 512):
     """Shared loss: LM cross-entropy (+ 0.01 MoE aux) (+ the CARLS graph
-    regulariser). Returns (loss, (metrics, pooled))."""
-    h, _, aux, _ = model.hidden(params, batch["tokens"])
+    regulariser), on the text positions (past the vision prefix). Returns
+    (loss, (metrics, pooled))."""
+    h, prefix, aux, _ = model.hidden(params, batch["tokens"],
+                                     extra_from_batch(batch))
+    h = h[:, prefix:]
     out_emb = model.out_embed(params)
     ce, metrics = chunked_xent(h, out_emb, batch["labels"], batch["mask"],
                                chunk=xent_chunk)
@@ -153,7 +166,8 @@ def make_inline_baseline_step(model: LM, optimizer: AdamW, *,
         nt = batch["neighbor_tokens"][:, :num_neighbors]
         B, K, S = nt.shape
         with torch.no_grad():
-            nh = model.hidden(params, nt.reshape(B * K, S))[0]
+            nh, npre = model.hidden(params, nt.reshape(B * K, S), {})[:2]
+            nh = nh[:, npre:]
             nmask = torch.ones((B * K, S), device=nh.device)
             nbr = masked_mean_pool(nh, nmask).reshape(B, K, -1)
 
@@ -193,7 +207,8 @@ def make_async_train_fns(model: LM, optimizer: AdamW, *,
 
     @torch.no_grad()
     def embed_fn(params, tokens):
-        h = model.hidden(params, tokens)[0]
+        h, prefix = model.hidden(params, tokens, {})[:2]
+        h = h[:, prefix:]
         mask = torch.ones(tokens.shape, device=h.device)
         return masked_mean_pool(h, mask)
 

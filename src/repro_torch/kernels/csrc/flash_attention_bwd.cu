@@ -1,8 +1,8 @@
 // The backward of flash_attention.cu, in the JAX layout: q, dout and out
 // (B, S, H, d), k and v (B, S, KV, d), one dtype (bf16 or fp32), and the
 // forward's log-sum-exp lse (B, H, S) fp32 -> dq (B, S, H, d), dk and dv
-// (B, S, KV, d), fp32. d in {32, 64, 128}; the masks and the soft cap of the
-// forward; GQA's shared KV heads read and written in place.
+// (B, S, KV, d), fp32. d in {32, 64, 112, 128}; the masks and the soft cap
+// of the forward; GQA's shared KV heads read and written in place.
 //
 // Replaces: none. The Pallas kernel (src/repro/kernels/flash_attention.py:85)
 // has no backward: the JAX trainer differentiates flash_attention_jax
@@ -68,6 +68,18 @@
 // yi-6b's training shape (B 2). S and dP take the bf16 inputs as they are;
 // their products are exact in fp32.
 //
+// d 112 (kimi-k2's heads) takes the forward's tiles (flash_attention.cu):
+// 128 wide, two column blocks whose second box starts at h * 112 + 64 and
+// reads 16 columns past the head (the next head's, or TMA's zero fill past
+// the last). Four products contract over d: S = Q.K^T and dP = dout.V^T
+// in dq_wg, S^T = K.Q^T and dP^T = V.dout^T in dkdv_wg. Each runs d / 16
+// = 7 k-steps (two_products), never an 8th, which would add the next
+// head's columns into the scores. The three products whose N is d (dV +=
+// P^T.dout, dK += dS^T.Q, dQ += dS.K) run at N 128: columns 112-127 of
+// their accumulators take the next head's values and are never stored.
+// dot_rows reads exactly d. The tensor work of those three is 128/112 of
+// the head's; the loads of the streamed tiles 8/7.
+//
 // fp32, on the CUDA cores (dkdv and dq_kernel, three launches with
 // dot_rows): fp32 FMAs, the same tiles and order as above at 64 keys or
 // queries a block of 256 threads as a 16 x 16 grid: thread (ty, tx) scores
@@ -75,6 +87,7 @@
 // writes P and dS to shared memory, then adds P^T . dout and dS^T . q into
 // its keys 4ty .. 4ty + 3, dims tx + 16e (dkdv), or dS . k into its queries
 // (dq_kernel). S and dP are computed in both kernels (seven products).
+// d 112 as it is: 28 float4 reads a row, 7 dims a thread (e < d / 16).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -440,8 +453,11 @@ constexpr int RING = 3;           // stages of the ring
 constexpr int WG_THREADS = 384;   // consumer warpgroups 0, 1; producer 2
 constexpr float LOG2E = 1.4426950408889634f;
 
+// bytes of a tile of `rows` rows, tile_dim<HD>() (whole column blocks) wide
 template <int HD>
-__host__ __device__ constexpr int tile_bytes(int rows) { return rows * HD * 2; }
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * tile_dim<HD>() * 2;
+}
 template <int HD>
 constexpr size_t dkdv_wg_smem() {   // + 1024 to align the tiles
   return 1024 + 2 * tile_bytes<HD>(BT) + RING * 2 * tile_bytes<HD>(ST) +
@@ -489,19 +505,22 @@ __device__ __forceinline__ void two_products(float (&s)[32], float (&dp)[32],
                                              uint32_t a1, uint32_t a2,
                                              int a_rows, int a_row0,
                                              uint32_t b1, uint32_t b2) {
+  // d / 16 k-steps: at d 112 seven, which never reach the columns past
+  // the head that a tile's second column block holds
+  constexpr int KSTEPS = HD / 16;
   // no fence on s and dp first: their first steps do not read them, so
   // their registers may hold other values until here
   wgmma_fence();
   wgmma_ss_n64_first(s, kmajor_desc<HD>(a1, a_rows, a_row0, 0),
                      kmajor_desc<HD>(b1, ST, 0, 0));
 #pragma unroll
-  for (int kk = 1; kk < HD / 16; ++kk)
+  for (int kk = 1; kk < KSTEPS; ++kk)
     wgmma_ss_n64(s, kmajor_desc<HD>(a1, a_rows, a_row0, kk),
                  kmajor_desc<HD>(b1, ST, 0, kk), 1);
   wgmma_ss_n64_first(dp, kmajor_desc<HD>(a2, a_rows, a_row0, 0),
                      kmajor_desc<HD>(b2, ST, 0, 0));
 #pragma unroll
-  for (int kk = 1; kk < HD / 16; ++kk)
+  for (int kk = 1; kk < KSTEPS; ++kk)
     wgmma_ss_n64(dp, kmajor_desc<HD>(a2, a_rows, a_row0, kk),
                  kmajor_desc<HD>(b2, ST, 0, kk), 1);
   wgmma_commit();
@@ -511,17 +530,19 @@ __device__ __forceinline__ void two_products(float (&s)[32], float (&dp)[32],
 }
 
 // acc += X . T over the tile's 64 rows, X (64 x 64) in registers as bf16
-// hi and lo parts, T a tile of ST rows read MN-major (N = d)
+// hi and lo parts, T a tile of ST rows read MN-major (N = tile_dim: d,
+// or 128 at d 112)
 template <int HD>
-__device__ __forceinline__ void add_product(float (&acc)[HD / 2],
+__device__ __forceinline__ void add_product(float (&acc)[tile_dim<HD>() / 2],
                                             const uint32_t (&hi)[ST / 16][4],
                                             const uint32_t (&lo)[ST / 16][4],
                                             uint32_t tile) {
+  constexpr int TD = tile_dim<HD>();
 #pragma unroll
   for (int kk = 0; kk < ST / 16; ++kk) {
     const uint64_t db = mnmajor_desc<HD>(tile, ST, kk);
-    wgmma_rs_d<HD>(acc, hi[kk], db);
-    wgmma_rs_d<HD>(acc, lo[kk], db);
+    wgmma_rs_d<TD>(acc, hi[kk], db);
+    wgmma_rs_d<TD>(acc, lo[kk], db);
   }
 }
 
@@ -613,11 +634,13 @@ dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
     const int kb = k0 + WG_ROWS * wg;
     const int kr0 = kb + 16 * warp + (lane >> 2);   // this thread's keys:
                                                     // kr0 and kr0 + 8
-    float dka[HD / 2], dva[HD / 2], s[32], dp[32];
+    // dka and dva hold tile_dim columns; those past HD (d 112) are never
+    // stored
+    float dka[tile_dim<HD>() / 2], dva[tile_dim<HD>() / 2], s[32], dp[32];
     uint32_t phi[ST / 16][4], plo[ST / 16][4], dhi[ST / 16][4],
         dlo[ST / 16][4];
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) dka[j] = dva[j] = 0.f;
+    for (int j = 0; j < tile_dim<HD>() / 2; ++j) dka[j] = dva[j] = 0.f;
     const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
     mbar_wait(&kv_full, 0);
     int T = 0;
@@ -743,10 +766,10 @@ dq_wg(const __grid_constant__ CUtensorMap tm_q,
       nl[r] = -lse_pad[row + qr0 + 8 * r] * LOG2E;
       dd[r] = dvec[row + qr0 + 8 * r];
     }
-    float dqa[HD / 2], s[32], dp[32];
+    float dqa[tile_dim<HD>() / 2], s[32], dp[32];
     uint32_t dhi[ST / 16][4], dlo[ST / 16][4];
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) dqa[j] = 0.f;
+    for (int j = 0; j < tile_dim<HD>() / 2; ++j) dqa[j] = 0.f;
     const uint32_t q_addr = smem_u32(Qs), o_addr = smem_u32(Os);
     mbar_wait(&q_full, 0);
     for (int i = 0; i < n_kt; ++i) {
@@ -920,6 +943,10 @@ extern "C" int flash_attention_bwd_launch(
       return launch_hd<64>(bf16, q, k, v, o, dout, lse, dvec, lse_pad, dq,
                            dk, dv, part, B, S, SP, H, KV, P, causal, window,
                            softcap, scale, stream);
+    case 112:
+      return launch_hd<112>(bf16, q, k, v, o, dout, lse, dvec, lse_pad, dq,
+                            dk, dv, part, B, S, SP, H, KV, P, causal, window,
+                            softcap, scale, stream);
     case 128:
       return launch_hd<128>(bf16, q, k, v, o, dout, lse, dvec, lse_pad, dq,
                             dk, dv, part, B, S, SP, H, KV, P, causal, window,

@@ -11,9 +11,11 @@
 // 1024-byte boundaries, the 128-byte swizzle's period. A d that is no
 // multiple of the swizzle width (112) takes whole blocks: its tile is
 // tile_dim<HD>() wide (128), and the box of its last block reads past the
-// head's d columns (what lies there is never a product's operand for
-// Q.K^T, which runs d / 16 k-steps, and only feeds output columns past d
-// in P.V, which the kernels do not store).
+// head's d columns (what lies there is never a product's operand for the
+// products that contract over d, Q.K^T in the forward and S, dP and their
+// transposes in the backward, which run d / 16 k-steps; it only feeds
+// output columns past d in the products whose N is d, P.V, dV, dK and dQ,
+// which the kernels do not store).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -16,10 +16,9 @@ as wgmma products, with the softmax between them in registers. The
 products bound it (operations), so the loads overlap them. fp32 inputs
 take an FMA kernel on the CUDA cores. The source's header says how each
 works; ``flash_stage_cycles`` measures where the bf16 kernel's cycles go.
-The forward takes head dims ``HEAD_DIMS``, 112 among them (kimi-k2: the
-bf16 kernel's tiles stay 128 wide, the source's header says how), the
-backward ``BWD_HEAD_DIMS``, without 112: a call that autograd would
-record at d 112 is refused before anything launches.
+The forward and the backward take head dims ``HEAD_DIMS``, 112 among them
+(kimi-k2: the bf16 kernels' tiles stay 128 wide, the sources' headers say
+how).
 
 Under autograd (grad mode on and an input that requires grad) the launcher
 runs ``FlashAttentionFn``: its forward is the same kernel, which then also
@@ -50,9 +49,6 @@ BF16_STAGES = 2         # K and V tiles in the bf16 kernel's ring (STAGES)
 TMA_MAX_STRIDE = 2 ** 40  # bytes: a tensor map's strides stay below this
 BWD_KEY_TILE = 128      # keys per tile of the plain backward (memory only)
 HEAD_DIMS = (32, 64, 112, 128)
-# the backward kernel's own set: d 112 (kimi-k2) has no backward instance
-# yet (ROADMAP Q1 item 7b, training half)
-BWD_HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + \
@@ -85,10 +81,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     one CUDA device, contiguous, d in ``HEAD_DIMS``, H a multiple of KV ->
     (B, S, H, d) in q's dtype. Where autograd would record the call, it
     runs through ``FlashAttentionFn``, whose backward is the backward
-    kernel (d in ``BWD_HEAD_DIMS``)."""
+    kernel."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _check_bwd_head_dim(q.shape[-1])
         return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     return _forward(q, k, v, causal, window, softcap, False)[0]
 
@@ -152,7 +147,6 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
     kernel (csrc/flash_attention_bwd.cu): with bf16 inputs the
     tensor-core kernels, which read q, k, v and dout by TMA."""
     _check(q, k, v)
-    _check_bwd_head_dim(q.shape[-1])
     B, S, H, d = q.shape
     for name, t in (("out", out), ("dout", dout)):
         require_cuda(t, name, q.dtype, 4)
@@ -244,13 +238,6 @@ def _check(q, k, v) -> None:
     if q.dtype == torch.bfloat16:
         require_tma_strides("q", S, H, d)
         require_tma_strides("k and v", S, KV, d)
-
-
-def _check_bwd_head_dim(d: int) -> None:
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash backward's head dim {d} not in "
-                         f"{BWD_HEAD_DIMS} (ROADMAP Q1 item 7b, training "
-                         "half)")
 
 
 def _launch(q, k, v, out, causal, window, softcap, prof, lse=None) -> None:

@@ -64,7 +64,7 @@ from repro_torch.core.kb_router import connect_kb
 from repro_torch.core.knowledge_maker import make_embed_fn
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
-from repro_torch.launch.train import require_trained
+from repro_torch.launch.train import require_corpus_batches
 from repro_torch.models import build_model
 
 
@@ -176,7 +176,7 @@ def main(argv=None) -> int:
             client.close()
             ap.error(f"makers {kinds} load checkpoints: pass --ckpt-dir")
         cfg = get_config(args.arch).reduced()
-        require_trained(cfg)
+        require_corpus_batches(cfg)
         if args.layers:
             cfg = cfg.replace(num_layers=args.layers)
         if cfg.d_model != client.dim:

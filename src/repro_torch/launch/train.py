@@ -30,15 +30,18 @@ named makers (``embedding_refresh``, ``label_mining``, ``graph_agreement``,
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --makers label_mining,graph_agreement --steps 4 --batch 4 --nodes 128
 
-The run is on the CUDA device unless ``--device cpu`` is given. The
-archs of ``TRAINED_ARCHS`` train (yi-6b, rwkv6-7b, jamba): on the card
-the flash, WKV and Mamba-scan kernels that the forward reaches (attention
-over ``--seq`` >= 2048 tokens takes flash) run under autograd through
-``autograd.Function``s whose backwards are kernels too. The other seven
-archs serve (``launch/serve.py``) but do not train yet: their front-end
-inputs in the batch, kimi-k2's head dim 112 in the flash backward and
-``cfg.remat`` are ROADMAP Q1 item 7b's training half, and the launcher
-refuses them with ``NotImplementedError`` before it builds anything.
+The run is on the CUDA device unless ``--device cpu`` is given. Every
+arch trains (``TRAINED_ARCHS``): on the card the flash, WKV and
+Mamba-scan kernels that the forward reaches (attention over ``--seq`` >=
+2048 tokens takes flash, at head dim 112 too) run under autograd through
+``autograd.Function``s whose backwards are kernels too, and a config's
+``remat`` checkpoints each scan group (the full-width configs'; the
+reduced ones keep every activation). internvl2-2b and whisper-tiny train
+on batches that carry their front-end's input (``make_carls_train_step``),
+which the launcher's corpus does not yield: ``CarlsLoop``, ``run_async``
+and the CLI refuse them with a ``ValueError`` naming the missing batch key
+before they build anything, where the JAX launcher fails inside its first
+step.
 
 ``--kb-connect SPEC`` (with ``--makers``) trains against a bank in other
 processes instead of an in-process server: ``host:port`` names one
@@ -72,23 +75,31 @@ from repro_torch.core.async_runtime import (format_maker_stats,
 from repro_torch.core.kb_router import connect_kb
 from repro_torch.core.knowledge_bank import kb_create
 from repro_torch.core.knowledge_maker import make_embedding_refresh
-from repro_torch.core.trainer import make_carls_train_step
+from repro_torch.core.trainer import FRONTEND_KEYS, make_carls_train_step
 from repro_torch.data import SyntheticGraphCorpus
 from repro_torch.env import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.tree import tree_leaves
 
-# the archs whose training the port's tests hold against JAX
-TRAINED_ARCHS = ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b")
+# the archs whose training the port's tests hold against JAX: all ten
+TRAINED_ARCHS = tuple(ARCH_IDS)
 
 
-def require_trained(cfg) -> None:
-    """Raise ``NotImplementedError`` for an arch that does not train yet."""
-    if cfg.name not in TRAINED_ARCHS:
-        raise NotImplementedError(
-            f"training {cfg.name} is not ported yet (ROADMAP Q1 item 7b, "
-            f"training half): the port trains {TRAINED_ARCHS}")
+def require_corpus_batches(cfg) -> None:
+    """Raise ``ValueError`` for an arch whose batches must carry a
+    front-end input (internvl2-2b's ``patch_embs``, whisper-tiny's
+    ``frames``): ``SyntheticGraphCorpus`` yields neither, and the JAX
+    launcher, given the same corpus, fails with a ``KeyError`` inside its
+    first step. ``make_carls_train_step`` and the other step builders
+    train such an arch on batches that carry the input."""
+    key = FRONTEND_KEYS.get(cfg.frontend)
+    if key is not None:
+        raise ValueError(
+            f"{cfg.name} trains on batches that carry {key!r} (its "
+            f"{cfg.frontend} front-end's input), which the launcher's "
+            "SyntheticGraphCorpus does not yield; feed "
+            f"make_carls_train_step batches with {key!r}")
 
 
 class CarlsLoop:
@@ -101,7 +112,7 @@ class CarlsLoop:
     def __init__(self, cfg, *, steps: int, batch: int, seq: int, nodes: int,
                  lr: float, maker_every: int, ckpt_dir=None,
                  ckpt_every: int = 50, seed: int = 0, device="cuda"):
-        require_trained(cfg)
+        require_corpus_batches(cfg)
         self.dev = resolve_device(device)
         self.cfg = cfg.replace(carls=cfg.carls.__class__(
             **{**cfg.carls.__dict__, "kb_entries": nodes}))
@@ -239,7 +250,7 @@ def main(argv=None) -> Dict:
                  "(e.g. --makers graph_builder)")
 
     cfg = get_config(args.arch)
-    require_trained(cfg)
+    require_corpus_batches(cfg)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
@@ -265,7 +276,7 @@ def run_async(cfg, args, device) -> Dict:
     triangle), or against the bank at ``--kb-connect``, with the JAX
     launcher's corpus and lines. Returns {"result": the
     ``AsyncRunResult``, "seconds": the run's wall time}."""
-    require_trained(cfg)
+    require_corpus_batches(cfg)
     makers = [m.strip() for m in args.makers.split(",") if m.strip()]
     cfg = cfg.replace(carls=cfg.carls.__class__(
         **{**cfg.carls.__dict__, "kb_entries": args.nodes}))

@@ -32,6 +32,9 @@ one's under ``ffn``, as in JAX. ``hidden`` returns the prefix length and
 the MoE routers' aux loss summed over the layers, as the JAX function
 does; the trainer's loss reads the latter.
 
+``cfg.remat`` checkpoints each scan group under grad (``hidden``'s
+docstring says how), as JAX's ``jax.checkpoint`` of its scan body.
+
 The front-ends' inputs come in ``extra``, as in JAX: ``patch_embs`` (B,
 Pf, D) for vision, ``frames`` (B, F, D) for audio. Both are cast to the
 model's dtype; JAX casts the patches alone and runs a bf16 model's
@@ -39,9 +42,13 @@ encoder on fp32 frames (the same values in fp32).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS
@@ -55,6 +62,23 @@ _RECURRENT = {"rwkv6": (ssm.rwkv6_apply_state, ssm.rwkv6_decode),
               "mamba": (ssm.mamba_apply_state, ssm.mamba_decode)}
 _INIT = {"attn": T.attn_init, "rwkv6": ssm.rwkv6_init,
          "mamba": ssm.mamba_init}
+# the products that JAX's dots_with_no_batch_dims_saveable keeps: the
+# unbatched matrix products, which the (B, S, D) @ (D, F) projections
+# reach as aten.mm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# cfg.remat_policy -> the checkpoint's context: "nothing" keeps the
+# group's input alone, "dots" also the outputs of its unbatched products
+_REMAT_CONTEXT = {
+    "nothing": noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots)}
 
 
 def _ffn_key(kind: str) -> str:
@@ -152,7 +176,17 @@ class LM:
         forward: on the CPU through the kernels' plain versions, on the
         card through the flash, WKV and scan kernels'
         ``autograd.Function``s, whose backwards are kernels
-        (``repro_torch.kernels.ops``)."""
+        (``repro_torch.kernels.ops``).
+
+        With ``cfg.remat`` and grad mode on, each scan group runs under
+        ``torch.utils.checkpoint`` (non-reentrant), JAX's
+        ``jax.checkpoint`` of the group body: policy ``nothing`` keeps
+        only the group's input and recomputes its forward in the
+        backward, ``dots`` also keeps the outputs of its unbatched matrix
+        products. The recompute runs the sequence kernels' forwards again
+        (their launches a step are twice the layers'); the encoder and
+        the vision prefix stay outside, as in JAX. Without grad (serving,
+        ``inference_mode``) nothing changes."""
         cfg = self.cfg
         h = params["embed"]["tok"][tokens.long()]
         prefix, enc_out = 0, None
@@ -169,32 +203,21 @@ class LM:
         positions = torch.arange(h.shape[1], device=h.device)
         ys: Dict[str, Dict[str, list]] = {}
         auxs = []
+        body = functools.partial(self._group, positions=positions,
+                                 enc_out=enc_out, impl=impl)
+        remat = cfg.remat and torch.is_grad_enabled()
         for gp in T.unstack(params["groups"], self.num_groups):
-            aux = torch.zeros((), device=h.device)
-            for p, (mixer, ffnk) in enumerate(self.spec):
-                lp = gp[f"pos{p}"]
-                hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-                if mixer == "attn":
-                    a, (k, v) = T.attn_apply(lp["attn"], hn, cfg,
-                                             positions=positions,
-                                             window=cfg.window, impl=impl)
-                    ent = {"k": k, "v": v}
-                else:
-                    a, ent = _RECURRENT[mixer][0](lp[mixer], hn, cfg)
-                h = h + a
-                if cfg.cross_attention:
-                    ck, cv = T.cross_kv(lp["cross"], enc_out, cfg)
-                    hc = L.rms_norm(h, lp["ln_ca"], cfg.norm_eps)
-                    h = h + T.cross_attn_apply(lp["cross"], hc, ck, cv, cfg)
-                    ent = {**ent, "ck": ck, "cv": cv}
-                if collect_cache:
+            if remat:
+                h, aux, ents = checkpoint(
+                    body, h, gp, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=_REMAT_CONTEXT[cfg.remat_policy])
+            else:
+                h, aux, ents = body(h, gp)
+            if collect_cache:
+                for pk, ent in ents.items():
                     for n, x in ent.items():
-                        ys.setdefault(f"pos{p}", {}).setdefault(
-                            n, []).append(x)
-                hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
-                f, al = T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)
-                h = h + f
-                aux = aux + al
+                        ys.setdefault(pk, {}).setdefault(n, []).append(x)
             auxs.append(aux)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         aux = torch.stack(auxs).sum()
@@ -203,6 +226,36 @@ class LM:
         return h, prefix, aux, {
             pk: {n: torch.stack(xs) for n, xs in ent.items()}
             for pk, ent in ys.items()}
+
+    def _group(self, h, gp, *, positions, enc_out, impl):
+        """One scan group on the residual stream: (h, gp: the group's
+        parameters) -> (h, aux: its feed-forwards' aux losses summed in
+        order, {"pos{p}": the position's cache entries})."""
+        cfg = self.cfg
+        aux = torch.zeros((), device=h.device)
+        ents = {}
+        for p, (mixer, ffnk) in enumerate(self.spec):
+            lp = gp[f"pos{p}"]
+            hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            if mixer == "attn":
+                a, (k, v) = T.attn_apply(lp["attn"], hn, cfg,
+                                         positions=positions,
+                                         window=cfg.window, impl=impl)
+                ent = {"k": k, "v": v}
+            else:
+                a, ent = _RECURRENT[mixer][0](lp[mixer], hn, cfg)
+            h = h + a
+            if cfg.cross_attention:
+                ck, cv = T.cross_kv(lp["cross"], enc_out, cfg)
+                hc = L.rms_norm(h, lp["ln_ca"], cfg.norm_eps)
+                h = h + T.cross_attn_apply(lp["cross"], hc, ck, cv, cfg)
+                ent = {**ent, "ck": ck, "cv": cv}
+            ents[f"pos{p}"] = ent
+            hn2 = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+            f, al = T.ffn_apply(lp[_ffn_key(ffnk)], hn2, cfg, ffnk)
+            h = h + f
+            aux = aux + al
+        return h, aux, ents
 
     # ------------------------------------------------------------------
     # decode

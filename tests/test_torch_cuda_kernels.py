@@ -671,6 +671,63 @@ def test_cuda_flash_d112_and_encoder_match_plain(case, dtype, atol):
     assert (got.float() - want.float()).abs().max().item() <= atol
 
 
+def _grad_close(got, want, label, atol, rtol):
+    """Each entry of ``got`` within atol plus rtol of the largest entry of
+    ``want``."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs().max()).all()), (
+        f"{label}: max abs err {float(err.max())}, largest entry "
+        f"{float(want.abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in FLASH_ZOO_CASES if c[4] == 112])
+def test_cuda_flash_d112_bwd_matches_plain(case, dtype):
+    """The backward kernel at kimi-k2's head dim 112 against the plain
+    backward on the forward's own output and log-sum-exp: atol 1e-4 plus
+    1e-4 of the gradient's largest entry, two runs bit-identical; then
+    the Function (one forward and one backward launch) against autograd
+    of the plain forward: fp32 atol 1e-4 plus 1e-4 of the largest entry,
+    bf16 gradients atol 2e-2 plus 2e-2 of the entry (the bf16 forward's
+    bound; tests/test_torch_backward_cuda.py's)."""
+    dev = _require_card()
+    B, S, H, KV, d, causal, softcap = case
+    g = torch.Generator(device=dev).manual_seed(S + H)
+    q, k, v, dout = (torch.randn((B, S, n, d), generator=g,
+                                 device=dev).to(dtype)
+                     for n in (H, KV, KV, H))
+    kw = dict(causal=causal, softcap=softcap)
+    fwd = ops.LAUNCHERS["flash_attention"]
+    bwd = ops.LAUNCHERS["flash_attention_bwd"]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = fwd.launches, bwd.launches
+    out = fwd(*leaves, **kw)
+    _, _, _, o_saved, lse = out.grad_fn.saved_tensors
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_saved, lse, dout, **kw)
+    got = bwd(q, k, v, o_saved, lse, dout, **kw)
+    again = bwd(q, k, v, o_saved, lse, dout, **kw)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        _grad_close(a, b, f"d 112 {name}", 1e-4, 1e-4)
+        assert torch.equal(a, c), f"d 112 {name} differs between two runs"
+    plain = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_ref(*plain, **kw).backward(dout.float())
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, plain):
+        assert a.grad.dtype == dtype
+        if dtype == torch.float32:
+            _grad_close(a.grad, b.grad, f"d 112 {name} vs autograd", 1e-4,
+                        1e-4)
+        else:
+            err = (a.grad.float() - b.grad).abs()
+            assert bool((err <= 2e-2 + 2e-2 * b.grad.abs()).all()), (
+                f"d 112 {name} vs autograd: max abs err {float(err.max())}")
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_cannot_take():
     dev = _require_card()

@@ -63,24 +63,37 @@ def test_configs_are_the_jax_packages():
 
 
 def test_unported_archs_and_parts_refuse_naming_roadmap(monkeypatch):
-    """Every arch builds and serves; what still refuses names ROADMAP:
-    training the seven archs that serve only, and the flash backward at
-    kimi-k2's head dim 112 (its device check and launch stubbed)."""
+    """Every arch builds, serves and trains. The five text archs of the
+    zoo take a reduced step through the launcher; internvl2-2b and
+    whisper-tiny, whose batches must carry their front-end's input, are
+    refused by the launcher with a ValueError naming the missing batch
+    key (the JAX launcher fails inside its first step). The flash
+    backward takes kimi-k2's head dim 112: under grad the launcher runs
+    its Function (its device check and launch stubbed), one forward
+    launch, and the backward launches at d 112."""
     assert PORTED_ARCHS == tuple(ARCH_IDS)
     from repro_torch.launch import train
     from repro_torch.models.model import LM
+    assert train.TRAINED_ARCHS == tuple(ARCH_IDS)
+    argv = ["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8",
+            "--nodes", "16"]
     for arch in ARCH_IDS:
         cfg = get_config(arch).reduced()
         assert isinstance(build_model(cfg), LM)
-        if arch in train.TRAINED_ARCHS:
+        key = train.FRONTEND_KEYS.get(cfg.frontend)
+        if key is None:
+            if arch not in ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b"):
+                res = train.main(argv + ["--arch", arch])
+                assert len(res["losses"]) == 1
+                assert np.isfinite(res["losses"]).all()
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1 item 7b"):
-            train.main(["--device", "cpu", "--arch", arch, "--steps", "1"])
-        with pytest.raises(NotImplementedError, match="ROADMAP Q1 item 7b"):
+        with pytest.raises(ValueError, match=key):
+            train.main(argv + ["--arch", arch])
+        with pytest.raises(ValueError, match=key):
             train.train_carls(cfg, steps=1, batch=2, seq=8, nodes=16,
-                              lr=1e-3, maker_every=0, device="cpu")
-    assert set(train.TRAINED_ARCHS) == {"yi-6b", "rwkv6-7b",
-                                         "jamba-1.5-large-398b"}
+                              lr=1e-3, maker_every=1, device="cpu")
+    assert {a for a in ARCH_IDS if get_config(a).frontend != "none"} == {
+        "internvl2-2b", "whisper-tiny"}
     base = get_config("yi-6b").reduced()
     # Mamba mixers, MoE, GELU feed-forwards and the front-ends are ported
     assert LM(base.replace(ssm_type="mamba")).spec == [("mamba", "swiglu")]
@@ -94,14 +107,16 @@ def test_unported_archs_and_parts_refuse_naming_roadmap(monkeypatch):
     monkeypatch.setattr(fa, "launch", lambda *a: launched.append(a))
     q = torch.zeros((1, 8, 2, 112), requires_grad=True)
     kv = torch.zeros((1, 8, 2, 112))
-    with pytest.raises(ValueError, match="ROADMAP Q1 item 7b"):
-        fa.flash_attention_cuda(q, kv, kv)
-    with pytest.raises(ValueError, match="ROADMAP Q1 item 7b"):
-        fa.flash_attention_bwd_cuda(q.detach(), kv, kv, q.detach(),
-                                    torch.zeros((1, 2, 8)), q.detach())
-    assert not launched
-    fa.flash_attention_cuda(q.detach(), kv, kv)     # the forward takes 112
-    assert len(launched) == 1
+    out = fa.flash_attention_cuda(q, kv, kv)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    assert [a[1] for a in launched] == ["flash_attention_launch"]
+    fa.flash_attention_bwd_cuda(q.detach(), kv, kv, q.detach(),
+                                torch.zeros((1, 2, 8)), q.detach())
+    assert [a[1] for a in launched] == ["flash_attention_launch",
+                                        "flash_attention_bwd_launch"]
+    assert launched[1][-6] == 112         # d, as the launch passes it
+    fa.flash_attention_cuda(q.detach(), kv, kv)     # no grad: the kernel
+    assert len(launched) == 3
 
 
 # ---------------------------------------------------------------------------

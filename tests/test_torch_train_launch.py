@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import DiskCheckpointStore
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import KBTransportServer, KnowledgeBankServer, trainer
 from repro_torch.kernels import ops
 from repro_torch.launch import train
@@ -127,11 +127,12 @@ MIXER_KERNEL = {"attn": "flash_attention", "rwkv6": "rwkv_wkv",
 
 def test_trainable_rule():
     """The rule that once refused configs on the card is gone: every mixer
-    of the ported archs reaches a kernel that has a backward launcher, and
+    of the ten archs reaches a kernel that has a backward launcher, and
     the trainer keeps no refusal."""
     assert not hasattr(trainer, "require_trainable_on_device")
+    assert train.TRAINED_ARCHS == tuple(ARCH_IDS)
     mixers = set()
-    for arch in ("yi-6b", "rwkv6-7b", "jamba-1.5-large-398b"):
+    for arch in ARCH_IDS:
         mixers |= {m for m, _ in build_model(get_config(arch).reduced()).spec}
     assert mixers == set(MIXER_KERNEL)
     for kernel in MIXER_KERNEL.values():
